@@ -1,0 +1,452 @@
+"""Risk analysis: Settings x Model -> Report, on a torch device.
+
+``canopy_tpu/engine/analysis.py`` for fault trees: per top event,
+
+* **probability** — exact over the modular BDD (f64 level evaluation),
+  direct propagation when the BDD blows up, or rare-event/MCUB over
+  minimal products;
+* **products** — minimal cut sets through the ZBDD (or MOCUS), with
+  non-declarative substitutions applied;
+* **importance** — autodiff-based measures (one backward pass; on CUDA
+  through the adjoint kernel);
+* **uncertainty** — batched epistemic sampling through the expression
+  tape (on CUDA through the stream kernel).
+
+The device is named by the caller.  Where the JAX package asks whether
+its backend is a TPU, this module asks whether the device is CUDA.
+
+Not ported yet, each raising ``NotImplementedError`` with its
+``ROADMAP.md`` item: event trees, alignment phases, SIL and time curves,
+the Monte Carlo approximation, uncertainty without an exact BDD, and on
+CUDA importance over the BDD-blow-up branch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..compiler.bdd import BddBlowupError, build_bdd
+from ..compiler.cutsets import CutSetGenerator, Product
+from ..compiler.expr_tape import ExpressionTape
+from ..compiler.graph import CompiledTree, compile_fault_tree
+from ..errors import LogicError
+from ..mef.event import BasicEvent, Gate
+from ..mef.model import Model
+from ..settings import Algorithm, Approximation, Settings
+from .bdd_eval import make_modular_evaluator
+from .cutset_quantify import (build_cutset_matrix, mcub,
+                              product_probabilities, rare_event)
+from .importance import importance_measures, occurrence_counts
+from .propagate import top_event_probability
+from .uncertainty import uncertainty_analysis
+
+__all__ = ["RiskAnalysis", "Report", "FaultTreeResult", "SequenceResult"]
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to canopy_tpu_torch yet (ROADMAP.md, {item})")
+
+
+@dataclasses.dataclass
+class FaultTreeResult:
+    fault_tree: str
+    top_event: str
+    method: str
+    probability: Optional[float] = None
+    mc_std_error: Optional[float] = None
+    products: Optional[list[tuple]] = None      # [(order, prob, [literals])]
+    n_products: Optional[int] = None
+    products_truncated: bool = False
+    importance: Optional[list[dict]] = None
+    uncertainty: Optional[dict] = None
+    sil: Optional[dict] = None
+    phase: Optional[str] = None
+    alignment: Optional[str] = None
+    time_curve: Optional[list[tuple[float, float]]] = None
+
+    def to_dict(self) -> dict:
+        return {k: v for k, v in dataclasses.asdict(self).items()
+                if v is not None}
+
+
+@dataclasses.dataclass
+class SequenceResult:
+    initiating_event: str
+    event_tree: str
+    sequence: str
+    states: dict[str, str]
+    probability: float
+    linked_trees: list[str]
+    uncertainty: Optional[dict] = None
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass
+class Report:
+    model: str
+    settings: dict
+    fault_trees: list[FaultTreeResult]
+    sequences: list[SequenceResult]
+    timings: dict[str, float]
+
+    def to_dict(self) -> dict:
+        return {"model": self.model, "settings": self.settings,
+                "fault_trees": [r.to_dict() for r in self.fault_trees],
+                "sequences": [s.to_dict() for s in self.sequences],
+                "timings": self.timings}
+
+    def to_json(self, **kw) -> str:
+        return json.dumps(self.to_dict(), default=_json_default, **kw)
+
+
+def _json_default(obj: Any):
+    if isinstance(obj, (np.floating, np.integer)):
+        return obj.item()
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    raise TypeError(f"Cannot serialize {type(obj)}")
+
+
+class RiskAnalysis:
+    """Runs every analysis requested by the settings on a model, on
+    ``device`` (``"cpu"`` or ``"cuda"``; never chosen implicitly)."""
+
+    def __init__(self, model: Model, settings: Settings, device):
+        self.model = model
+        self.settings = settings
+        self.device = resolve_device(device)
+        self._timings: dict[str, float] = {}
+
+    # -- public ------------------------------------------------------------
+
+    def run(self) -> Report:
+        t0 = time.perf_counter()
+        results: list[FaultTreeResult] = []
+
+        if self.settings.preprocessor:
+            # Stop after model setup (settings.h:310): report structure
+            # only, no quantification.
+            for fault_tree in self.model.fault_trees:
+                if not fault_tree.top_events:
+                    fault_tree.collect_top_events()
+                for top in fault_tree.top_events:
+                    results.append(FaultTreeResult(
+                        fault_tree=fault_tree.name, top_event=top.id,
+                        method="preprocessor-only"))
+            self._timings["total"] = time.perf_counter() - t0
+            return Report(model=self.model.name,
+                          settings=self.settings.to_dict(),
+                          fault_trees=results, sequences=[],
+                          timings=dict(self._timings))
+
+        if any(i.event_tree is not None
+               for i in self.model.initiating_events):
+            raise _not_ported("event-tree analysis", "Queue 1 item 6")
+        if self.model.alignments:
+            raise _not_ported("alignment-phase analysis", "Queue 1 item 6")
+        if self.settings.safety_integrity_levels() or (
+                self.settings.time_step() > 0
+                and self.settings.probability_analysis()):
+            raise _not_ported("SIL and time-curve analysis",
+                              "Queue 1 item 6")
+
+        for fault_tree in self.model.fault_trees:
+            if not fault_tree.top_events:
+                fault_tree.collect_top_events()
+            for top in fault_tree.top_events:
+                results.append(self._analyze_top(fault_tree.name, top))
+
+        self._timings["total"] = time.perf_counter() - t0
+        return Report(model=self.model.name,
+                      settings=self.settings.to_dict(),
+                      fault_trees=results, sequences=[],
+                      timings=dict(self._timings))
+
+    # -- fault trees -------------------------------------------------------
+
+    def _analyze_top(self, tree_name: str, top: Gate) -> FaultTreeResult:
+        settings = self.settings
+        device = self.device
+        on_cuda = device.type == "cuda"
+        t0 = time.perf_counter()
+        tree = compile_fault_tree(
+            _FaultTreeView(tree_name, [top]), top,
+            use_ccf=settings.ccf_analysis())
+        self._timings[f"compile:{top.id}"] = time.perf_counter() - t0
+
+        mission = settings.mission_time()
+        self.model.mission_time.set_value(mission)
+        tape = ExpressionTape.build(
+            [e.expression for e in tree.basic_events])
+        mean_p = torch.clamp(tape.evaluate_mean(mission, device), 0.0, 1.0)
+        house = tree.house_state_vector()
+        house_t = torch.as_tensor(house, device=device)
+
+        # Exact (BDD) evaluator: the default algorithm.  Modular
+        # decomposition (Dutuit-Rauzy) keeps per-module BDDs small; a tree
+        # with no modules degenerates to one monolithic BDD.
+        top_fn = None
+        modular_bdd = None
+        method = self._method_name()
+        if settings.algorithm() == Algorithm.BDD and \
+                settings.approximation() == Approximation.NONE:
+            try:
+                t0 = time.perf_counter()
+                from ..compiler.modules import (build_modular_bdd,
+                                                modular_probability)
+                modular = build_modular_bdd(tree, house_states=house)
+                modular_bdd = modular
+                top_fn = lambda p: modular_probability(modular, p)  # noqa: E731
+                self._timings[f"bdd:{top.id}"] = time.perf_counter() - t0
+            except BddBlowupError:
+                method = "bdd-fallback/direct-propagation"
+
+        result = FaultTreeResult(
+            fault_tree=tree_name, top_event=top.id, method=method)
+        mean_np = mean_p.cpu().numpy()
+
+        # Products (qualitative analysis).
+        products: list[Product] | None = None
+        if not settings.skip_products() and settings.algorithm() in (
+                Algorithm.MOCUS, Algorithm.ZBDD, Algorithm.BDD,
+                Algorithm.DIRECT):
+            t0 = time.perf_counter()
+            generator = CutSetGenerator(
+                tree, limit_order=settings.limit_order(),
+                cut_off=settings.cut_off()
+                if settings.approximation() != Approximation.NONE else 0.0,
+                probabilities=mean_np)
+            products = None
+            bdd_truncated = None
+            if top_fn is not None and not settings.prime_implicants():
+                # Exact minimal cut sets via the ZBDD minimal-solutions
+                # transform over a monolithic BDD (module pseudo-events
+                # would leak into products otherwise).
+                try:
+                    from ..compiler.zbdd import bdd_minimal_cut_sets
+                    bdd = build_bdd(tree, house_states=house)
+                    products, bdd_truncated = bdd_minimal_cut_sets(
+                        bdd, limit_order=settings.limit_order(),
+                        with_truncation=True)
+                except BddBlowupError:
+                    products = None
+            elif top_fn is not None:
+                # True prime implicants via the Coudert-Madre consensus
+                # recursion on the ROBDD (settings.h:77-90).
+                try:
+                    from ..compiler.prime_implicants import \
+                        bdd_prime_implicants
+                    bdd = build_bdd(tree, house_states=house)
+                    products, bdd_truncated = bdd_prime_implicants(
+                        bdd, limit_order=settings.limit_order(),
+                        with_truncation=True)
+                except (BddBlowupError, LogicError):
+                    # Record the demotion (never demote silently).
+                    products = None
+                    result.method += "/pi-fallback-mocus-approx"
+            if products is None:
+                products = generator.generate(top)
+            if not settings.prime_implicants():
+                # Minimal-cut-set mode: complemented literals are dropped
+                # (conservative coherent approximation — SCRAM's MOCUS
+                # behavior).
+                products = CutSetGenerator._minimize(
+                    frozenset(lit for lit in p if not lit[1])
+                    for p in products)
+            products = self._apply_substitutions(tree, products)
+            result.products_truncated = (bdd_truncated
+                                         if bdd_truncated is not None
+                                         else generator.truncated)
+            result.n_products = len(products)
+            self._timings[f"products:{top.id}"] = time.perf_counter() - t0
+
+        if settings.probability_analysis():
+            t0 = time.perf_counter()
+            approx = settings.approximation()
+            if approx == Approximation.NONE:
+                if top_fn is not None:
+                    result.probability = float(top_fn(mean_p))
+                else:
+                    result.probability = float(
+                        top_event_probability(tree, mean_p, house_t))
+            elif approx in (Approximation.RARE_EVENT, Approximation.MCUB):
+                matrix = build_cutset_matrix(products or [], tree.n_basic)
+                q = product_probabilities(matrix, mean_p)
+                value = rare_event(q) if approx == Approximation.RARE_EVENT \
+                    else mcub(q)
+                result.probability = float(value)
+            else:
+                raise _not_ported("the Monte Carlo approximation",
+                                  "Queue 1 item 10")
+            self._timings[f"probability:{top.id}"] = time.perf_counter() - t0
+
+        if products is not None:
+            probs = product_probabilities(
+                build_cutset_matrix(products, tree.n_basic),
+                mean_p).cpu().numpy() if products else np.zeros(0)
+            listed = sorted(zip(products, probs),
+                            key=lambda pair: -pair[1])
+            result.products = [
+                (len(p), float(q), sorted(
+                    self._literal_name(tree, slot, neg) for slot, neg in p))
+                for p, q in listed[:1000]]
+
+        if settings.importance_analysis():
+            t0 = time.perf_counter()
+            # On CUDA the backward pass runs as the adjoint stream kernel
+            # (ops/adjoint_kernel.py), on one trial (the kernels take any
+            # trial count) and in f64: in f32 the Shannon partials
+            # (hi - lo) * a cancel, and small MIFs lose three digits.
+            imp_fn = top_fn
+            if on_cuda:
+                if modular_bdd is None:
+                    raise _not_ported(
+                        "importance on CUDA without an exact BDD "
+                        "(make_stream_importance_fn)", "Queue 1 item 9")
+                ev = make_modular_evaluator(modular_bdd, device,
+                                            differentiable=True,
+                                            dtype=torch.float64)
+                imp_fn = lambda p: ev(p[None, :])[0]  # noqa: E731
+            imp = importance_measures(tree, mean_p, house_t, top_fn=imp_fn)
+            if products is not None:
+                imp.occurrences = occurrence_counts(products, tree.n_basic)
+            result.importance = imp.as_table(tree)
+            self._timings[f"importance:{top.id}"] = time.perf_counter() - t0
+
+        if settings.uncertainty_analysis() and tape.n_deviates:
+            t0 = time.perf_counter()
+            # Uncertainty propagates through the same quantification the
+            # point estimate used: exact BDD when available, otherwise the
+            # configured cut-set approximation per trial.
+            unc_fn = top_fn
+            unc_method = None
+            if modular_bdd is not None and on_cuda:
+                # Exact per-trial evaluation through the stream kernel, in
+                # f32: the method tag carries the precision so the
+                # demotion from the f64 level evaluation is never silent.
+                unc_fn = make_modular_evaluator(modular_bdd, device)
+                unc_method = unc_fn.method
+            if unc_fn is None and products is not None and \
+                    settings.approximation() in (Approximation.RARE_EVENT,
+                                                 Approximation.MCUB):
+                matrix_u = build_cutset_matrix(products, tree.n_basic)
+                reducer = (rare_event
+                           if settings.approximation() ==
+                           Approximation.RARE_EVENT else mcub)
+                unc_fn = lambda p: reducer(  # noqa: E731
+                    product_probabilities(matrix_u, p))
+            unc = uncertainty_analysis(
+                tree, tape, settings.seed(), settings.num_trials(), mission,
+                device, num_quantiles=settings.num_quantiles(),
+                num_bins=settings.num_bins(),
+                batch_size=(settings.batch_size()
+                            if settings.batch_size() > 1 else None),
+                top_fn=unc_fn)
+            ci = unc.confidence_interval(0.95)
+            result.uncertainty = {
+                "mean": unc.mean, "std": unc.std,
+                "error_factor": unc.error_factor,
+                "ci95": list(ci), "n_trials": unc.n_trials,
+                "quantiles": unc.quantiles.tolist(),
+                "histogram_edges": unc.histogram_edges.tolist(),
+                "histogram_density": unc.histogram_density.tolist()}
+            if unc_method is not None:
+                result.uncertainty["method"] = unc_method
+            self._timings[f"uncertainty:{top.id}"] = time.perf_counter() - t0
+
+        return result
+
+    def _method_name(self) -> str:
+        algo = self.settings.algorithm().name.lower()
+        approx = self.settings.approximation().name.lower()
+        return f"{algo}/{approx}" if approx != "none" else \
+            f"{algo}/direct-propagation"
+
+    def _literal_name(self, tree: CompiledTree, slot: int, neg: bool) -> str:
+        # Precomputed slot -> name array, cached ON the tree instance
+        # (an id()-keyed dict would alias a freed tree's address to a
+        # new one and return wrong names): the dict scan was O(n_basic)
+        # per literal — quadratic over large product lists.
+        names = getattr(tree, "_slot_name_cache", None)
+        if names is None:
+            names = [None] * tree.n_basic
+            for event_id, s in tree.basic_index.items():
+                names[s] = event_id
+            tree._slot_name_cache = names
+        event_id = names[slot] if slot < len(names) else None
+        if event_id is None:
+            return f"slot{slot}"
+        return f"not {event_id}" if neg else event_id
+
+    # -- substitutions -----------------------------------------------------
+
+    def _apply_substitutions(self, tree: CompiledTree,
+                             products: list[Product]) -> list[Product]:
+        """Apply substitution semantics at the product level."""
+        substitutions = list(self.model.substitutions)
+        if not substitutions:
+            return products
+
+        def slot_of(event: BasicEvent) -> int | None:
+            return tree.basic_index.get(event.id)
+
+        out = products
+        for substitution in substitutions:
+            hypothesis_slots = []
+            skip = False
+            for arg in substitution.hypothesis.args:
+                slot = slot_of(arg.event)
+                if slot is None:
+                    skip = True
+                    break
+                hypothesis_slots.append((slot, arg.complement))
+            if skip:
+                continue
+            hyp = set(hypothesis_slots)
+            source_slots = {slot_of(e) for e in substitution.source}
+            source_slots.discard(None)
+            target = substitution.target
+
+            new_products: list[Product] = []
+            for product in out:
+                literals = set(product)
+                if not hyp <= literals:
+                    new_products.append(product)
+                    continue
+                # Hypothesis satisfied by this product.
+                if target is False:
+                    continue  # delete-terms: drop the product.
+                if target is True or not source_slots:
+                    new_products.append(product)
+                    continue
+                replaced = {lit for lit in literals
+                            if lit[0] not in source_slots}
+                if isinstance(target, BasicEvent):
+                    t_slot = slot_of(target)
+                    if t_slot is not None:
+                        replaced.add((t_slot, False))
+                new_products.append(frozenset(replaced))
+            out = new_products
+        # Re-minimize after rewriting.
+        return CutSetGenerator._minimize(out)
+
+
+class _FaultTreeView:
+    """Minimal adapter so compile_fault_tree can anchor at a chosen top."""
+
+    def __init__(self, name: str, top_events: list[Gate]):
+        self.name = name
+        self.top_events = top_events
+
+    def collect_top_events(self):  # pragma: no cover - already collected
+        pass

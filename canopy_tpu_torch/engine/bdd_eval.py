@@ -1,0 +1,185 @@
+"""Exact probability evaluation over a level-scheduled ROBDD.
+
+Shannon recursion as batched tensor compute: per level, one gather of
+child values + one fused multiply-add per node —
+
+    P(node) = p[var] * P(high) + (1 - p[var]) * P(low)
+
+with terminals pinned to 0/1. Exact for any DAG (shared events included),
+batched over a leading trials axis for exact epistemic uncertainty, and
+differentiable by autograd for exact Birnbaum importances (the top
+probability is multilinear in p, so reverse mode through this evaluator
+*is* the exact partial-derivative vector).
+
+On CUDA, BDDs of at least ``_STREAM_MIN_NODES`` nodes run as stream
+programs through the hand-written kernels of ``ops/`` (f32 or f64, any
+trial count); the level evaluation keeps the input dtype (f64 by
+default).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..compiler.bdd import CompiledBdd
+
+__all__ = ["bdd_probability", "make_bdd_evaluator",
+           "make_modular_evaluator"]
+
+#: Below this node count the level-scheduled evaluation is already cheap
+#: (the JAX package's threshold, kept so both take the same path).
+_STREAM_MIN_NODES = 256
+
+
+def _tagged(fn, method: str, streams: bool = False):
+    """Wrap an evaluator with ``.method`` naming the compute path (and
+    its precision) so callers can record it instead of silently
+    demoting — the stream kernels evaluate in f32 while the level
+    evaluation keeps the input dtype (f64 by default).
+
+    ``.method_for(n_trials)`` resolves the tag for a batch size: the CUDA
+    kernels take any trial count, so a streaming evaluator streams every
+    batch."""
+    def call(*args, **kwargs):
+        return fn(*args, **kwargs)
+    call.method = method
+
+    def method_for(n_trials: int) -> str:
+        return method if streams else "bdd"
+    call.method_for = method_for
+    return call
+
+
+def bdd_probability(bdd: CompiledBdd, basic_p: torch.Tensor) -> torch.Tensor:
+    """Top-event probability; ``basic_p``: (..., n_basic); returns (...)."""
+    batch_shape = basic_p.shape[:-1]
+    if bdd.n_nodes == 0:
+        value = 1.0 if bdd.root_ptr == 1 else 0.0
+        return torch.full(batch_shape, value, dtype=basic_p.dtype,
+                          device=basic_p.device)
+    vals = torch.cat([
+        basic_p.new_zeros(batch_shape + (1,)),
+        basic_p.new_ones(batch_shape + (1,)),
+        basic_p.new_zeros(batch_shape + (bdd.n_nodes,)),
+    ], dim=-1)
+    device = basic_p.device
+    for level in bdd.levels:
+        var_slot, low_ptr, high_ptr, out_ptr = (
+            torch.from_numpy(a.astype(np.int64)).to(device) for a in level)
+        p = basic_p[..., var_slot]
+        lo = vals[..., low_ptr]
+        hi = vals[..., high_ptr]
+        vals = vals.index_copy(-1, out_ptr, p * hi + (1.0 - p) * lo)
+    return vals[..., bdd.root_ptr]
+
+
+_TAG = {torch.float32: "bdd-stream-f32", torch.float64: "bdd-stream-f64"}
+
+
+def _stream_call(bdd: CompiledBdd, differentiable: bool,
+                 dtype: torch.dtype):
+    """``f(values) -> (n_trials,)`` for one BDD's stream program.
+
+    The encoded program is cached on the BDD, so importance (f64,
+    differentiable) and uncertainty (f32) schedule and encode it once."""
+    from ..ops.adjoint_kernel import make_differentiable_stream
+    from ..ops.stream_kernel import (compile_bdd_stream, encode_stream,
+                                     stage_basic, stream_bdd_probability)
+    enc = getattr(bdd, "_stream_encoding", None)
+    if enc is None:
+        enc = bdd._stream_encoding = encode_stream(compile_bdd_stream(bdd))
+    if not differentiable:
+        return lambda values: stream_bdd_probability(enc, values, dtype)
+    f = make_differentiable_stream(enc, np.zeros(0, np.float32))
+    return lambda values: f(stage_basic(enc, values, dtype))
+
+
+def _streams_on(device: torch.device, engine: str) -> bool:
+    """Kernel path on CUDA; ``engine="stream"`` forces the same path on
+    the CPU through the kernels' plain versions (what the tests use)."""
+    return engine == "stream" or (engine == "auto" and
+                                  device.type == "cuda")
+
+
+def make_bdd_evaluator(bdd: CompiledBdd, device, engine: str = "auto",
+                       differentiable: bool = False,
+                       dtype: torch.dtype = torch.float32):
+    """An exact evaluator ``f(basic_p) -> top probability``.
+
+    On CUDA a BDD of at least ``_STREAM_MIN_NODES`` nodes runs
+    (n_trials, n_basic) batches through the stream kernel
+    (``ops/stream_kernel.py``); every other input takes the
+    level-scheduled evaluation above.  ``differentiable=True`` routes the
+    stream path through the adjoint kernel so autograd through the
+    evaluator runs the backward kernel.  ``dtype`` (float32 or float64)
+    is the kernels' value type, named in the tag (``bdd-stream-f32``).
+    """
+    device = torch.device(device)
+    call = None
+    if _streams_on(device, engine) and bdd.resolved_root() > 1 and \
+            (bdd.n_nodes >= _STREAM_MIN_NODES or engine == "stream"):
+        call = _stream_call(bdd, differentiable, dtype)
+
+    def fn(basic_p):
+        if call is not None and basic_p.ndim == 2:
+            return call(basic_p)
+        return bdd_probability(bdd, basic_p)
+    streams = call is not None
+    return _tagged(fn, _TAG[dtype] if streams else "bdd", streams=streams)
+
+
+def make_modular_evaluator(modular, device, engine: str = "auto",
+                           differentiable: bool = False,
+                           dtype: torch.dtype = torch.float32):
+    """An exact evaluator over a modular BDD chain.
+
+    Like :func:`make_bdd_evaluator` but for
+    :class:`~canopy_tpu_torch.compiler.modules.ModularBdd`: on CUDA each
+    module of at least ``_STREAM_MIN_NODES`` nodes runs as its own
+    stream-kernel program, reading the decision variables it needs
+    (basics + collapsed inner-module outputs) from the growing value
+    matrix.  Constant modules fold to their value, smaller modules take
+    the level evaluation.  The streaming chain runs in ``dtype``.
+    """
+    from ..compiler.modules import modular_probability
+
+    device = torch.device(device)
+    steps = None
+    if _streams_on(device, engine):
+        steps = []
+        for bdd, out_slot in modular.chain:
+            root = bdd.resolved_root()
+            if root <= 1:
+                steps.append((float(root), out_slot))
+            elif bdd.n_nodes < _STREAM_MIN_NODES and engine != "stream":
+                steps.append((bdd, out_slot))
+            else:
+                steps.append((_stream_call(bdd, differentiable, dtype),
+                              out_slot))
+
+    def fn(basic_p):
+        if steps is None or basic_p.ndim != 2:
+            return modular_probability(modular, basic_p)
+        n_trials = basic_p.shape[0]
+        vals = torch.cat([
+            basic_p.to(dtype),
+            basic_p.new_zeros((n_trials, modular.n_nodes - modular.n_basic),
+                              dtype=dtype)], dim=-1)
+        result = None
+        for step, out_slot in steps:
+            if isinstance(step, float):
+                value = vals.new_full((n_trials,), step)
+            elif isinstance(step, CompiledBdd):
+                value = bdd_probability(step, vals)
+            else:
+                value = step(vals)
+            if out_slot == modular.top_index:
+                result = value
+            # Out of place: autograd needs every earlier matrix intact.
+            vals = vals.index_copy(
+                1, torch.tensor([out_slot], device=vals.device),
+                value.unsqueeze(1))
+        return result
+    streams = steps is not None
+    return _tagged(fn, _TAG[dtype] if streams else "bdd", streams=streams)

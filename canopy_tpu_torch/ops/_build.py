@@ -1,0 +1,103 @@
+"""Build and load the CUDA kernels of ``csrc/`` (nvcc, plain C ABI, ctypes).
+
+The library is compiled at first use, from the package's own sources,
+into ``canopy_tpu_torch/_build/`` (listed in ``.gitignore``), named by a
+hash of the sources and the flags, so an edited kernel rebuilds and an
+unchanged one loads in milliseconds.  ``--fmad=false`` keeps every
+multiply and add rounded on its own, as in the plain PyTorch versions,
+so kernel and plain agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+__all__ = ["load_library", "build_info", "NVCC_FLAGS"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "csrc")
+_BUILD_DIR = os.path.join(_PKG, "_build")
+_SOURCES = ("stream.cu", "adjoint.cu")
+_HEADERS = ("stream_ops.cuh",)
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+_lib = None
+_info: dict = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (CUDA_HOME/bin or PATH): the "
+                           "CUDA kernels cannot be built")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in _SOURCES + _HEADERS:
+        with open(os.path.join(_CSRC, name), "rb") as fh:
+            h.update(name.encode() + b"\0" + fh.read())
+    return h.hexdigest()[:16]
+
+
+def _build() -> str:
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    lib_path = os.path.join(_BUILD_DIR, f"libcanopy_stream_{_digest()}.so")
+    _info.update(path=lib_path, built=False, seconds=0.0, ptxas="")
+    if os.path.exists(lib_path):
+        return lib_path
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        tmp_lib = os.path.join(tmp, "lib.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp_lib,
+               *(os.path.join(_CSRC, s) for s in _SOURCES)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp_lib, lib_path)
+    _info.update(built=True, seconds=time.perf_counter() - t0,
+                 cmd=" ".join(cmd), ptxas=proc.stderr)
+    return lib_path
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' ctypes handle (built on first call; raises on a
+    failed build — there is no fallback)."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(_build())
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for suffix in ("f32", "f64"):
+        fwd = getattr(lib, f"canopy_stream_forward_{suffix}")
+        fwd.argtypes = [vp, vp, vp, i32, vp, vp, vp, vp, vp, i64, i32, vp]
+        fwd.restype = i32
+        bwd = getattr(lib, f"canopy_stream_backward_{suffix}")
+        bwd.argtypes = [vp, vp, i32, vp, vp, vp, vp, vp, vp, i64, i32, vp]
+        bwd.restype = i32
+    lib.canopy_cuda_error_string.argtypes = [i32]
+    lib.canopy_cuda_error_string.restype = ctypes.c_char_p
+    lib.canopy_max_count_states.restype = i32
+    _lib = lib
+    return _lib
+
+
+def build_info() -> dict:
+    """Library path, whether this process compiled it, the seconds the
+    build took, and nvcc's ptxas report (registers, spills)."""
+    return dict(_info)

@@ -1,0 +1,195 @@
+"""Reverse mode of a stream program: CUDA adjoint kernel and plain version.
+
+Replaces ``canopy_tpu/ops/adjoint_kernel.py``: ``_tape_kernel`` becomes
+the forward kernel with its value log on (``csrc/stream.cu``, one row per
+gate output instead of the TPU's argument tape of about three rows per
+gate), and ``_adjoint_kernel`` becomes ``csrc/adjoint.cu``, which walks
+the encoded ops in reverse with an adjoint pool in device memory and
+accumulates staged arguments straight into the gradient.  The TPU's tape
+ring, slab flushes and adjoint schedule (``compiler/adjoint.py``) existed
+to fit VMEM and DMA; the value-log design needs none of them.
+
+What bounds the backward on the card: device-memory traffic of log,
+adjoint-pool and gradient rows (see ``csrc/adjoint.cu``).  The per-gate
+partials are those of ``_bgate_accumulate``: mux ``(hi - lo) a, p a,
+(1 - p) a``; pair; the zero-safe leave-one-out product; the leave-one-out
+count DP.
+
+:func:`make_differentiable_stream` wraps both kernels as a
+``torch.autograd.Function``: the forward runs the logging kernel only
+when a gradient is needed, the backward runs the adjoint kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..errors import LogicError
+from .stream_kernel import (COUNT, LAUNCHES, LOG, MUX, PAIR, POOL,
+                            PROD, SPILL, STAGED, _SUFFIX, EncodedStream,
+                            _check_cuda, _check_staged, _raise_on,
+                            house_tensor, stream_forward)
+
+__all__ = ["stream_backward", "stream_backward_plain",
+           "make_differentiable_stream"]
+
+
+def stream_backward_plain(enc: EncodedStream, staged: torch.Tensor,
+                          house: torch.Tensor, log: torch.Tensor,
+                          ct: torch.Tensor) -> torch.Tensor:
+    """d top / d staged for cotangent ``ct`` (n_trials,), in the adjoint
+    kernel's order: returns ``(n_basic, n_trials)``."""
+    ops, args, _fill = enc.plain_ops()
+    T = staged.shape[1]
+    zeros = torch.zeros(T, dtype=staged.dtype, device=staged.device)
+    adj = [zeros] * enc.pool_slots
+    grad = [zeros] * enc.n_basic
+    adj[enc.top_slot] = ct
+
+    def x(a):
+        src, idx = a[3], a[4]
+        if src == LOG:
+            v = log[idx]
+        elif src == STAGED:
+            v = staged[idx]
+        else:
+            v = house[idx].expand(T)
+        return 1.0 - v if a[2] else v
+
+    def accum(a, g, flip=True):
+        if flip and a[2]:
+            g = -g
+        if a[0] == POOL:
+            adj[a[1]] = adj[a[1]] + g
+        elif a[0] == STAGED:
+            grad[a[1]] = grad[a[1]] + g
+
+    for kind, out, b, e, aux0, aux1, _row in reversed(ops):
+        a = adj[out]
+        adj[out] = zeros
+        if kind == SPILL:
+            grad[args[b][1]] = grad[args[b][1]] + a
+        elif kind == MUX:
+            p, hi, lo = (x(args[j]) for j in range(b, b + 3))
+            accum(args[b], (hi - lo) * a, False)
+            accum(args[b + 1], p * a, False)
+            accum(args[b + 2], (1.0 - p) * a, False)
+        elif kind == PROD:
+            ae = -a if aux0 else a
+            F = e - b
+            if F == 1:
+                accum(args[b], ae)
+            elif F == 2:
+                x0, x1 = x(args[b]), x(args[b + 1])
+                accum(args[b], x1 * ae)
+                accum(args[b + 1], x0 * ae)
+            else:
+                xs = [x(args[j]) for j in range(b, e)]
+                total = xs[0]
+                for v in xs[1:]:
+                    total = total * v
+                zero = [v == 0.0 for v in xs]
+                zcnt = zero[0].to(xs[0].dtype)
+                nz = torch.where(zero[0], 1.0, xs[0])
+                for v, z in zip(xs[1:], zero[1:]):
+                    zcnt = zcnt + z.to(v.dtype)
+                    nz = nz * torch.where(z, 1.0, v)
+                for j, (v, z) in zip(range(b, e), zip(xs, zero)):
+                    safe = torch.where(z, 1.0, v)
+                    part = torch.where(
+                        zcnt == 0.0, total / safe,
+                        torch.where((zcnt == 1.0) & z, nz, 0.0))
+                    accum(args[j], part * ae)
+        elif kind == PAIR:
+            ae = -a if aux0 else a
+            x0, x1 = x(args[b]), x(args[b + 1])
+            accum(args[b], (1.0 - 2.0 * x1) * ae)
+            accum(args[b + 1], (1.0 - 2.0 * x0) * ae)
+        elif kind == COUNT:
+            cap = aux1 + 1
+            xs = [x(args[j]) for j in range(b, e)]
+            for s in range(e - b):
+                dp = [torch.ones_like(zeros)]
+                for j, v in enumerate(xs):
+                    if j == s:
+                        continue
+                    new = [dp[0] * (1.0 - v)]
+                    for k in range(1, len(dp)):
+                        new.append(dp[k] * (1.0 - v) + dp[k - 1] * v)
+                    if len(dp) <= cap:
+                        new.append(dp[-1] * v)
+                    else:
+                        new[-1] = new[-1] + dp[-1] * v
+                    dp = new
+
+                def mass(a0, b0):
+                    lo, hi = max(a0, 0), min(b0, len(dp) - 1)
+                    if lo > hi:
+                        return zeros
+                    acc = dp[lo]
+                    for k in range(lo + 1, hi + 1):
+                        acc = acc + dp[k]
+                    return acc
+                part = mass(aux0 - 1, aux1 - 1) - mass(aux0, aux1)
+                accum(args[b + s], part * a)
+        # FILL: a constant; its adjoint is dropped.
+    return torch.stack(grad) if grad else staged.new_zeros((0, T))
+
+
+def stream_backward(enc: EncodedStream, staged: torch.Tensor, house,
+                    log: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
+    """Gradient ``(n_basic, n_trials)`` of the top values with cotangent
+    ``ct``.  CPU tensors run the plain version; CUDA tensors launch
+    ``csrc/adjoint.cu`` or raise."""
+    _check_staged(enc, staged)
+    device, dtype = staged.device, staged.dtype
+    house_t = house_tensor(enc, house, device, dtype)
+    ct = ct.to(dtype)
+    T = staged.shape[1]
+    if log.shape != (enc.n_log, T) or ct.shape != (T,):
+        raise LogicError("log/cotangent shapes do not match the program")
+    if device.type != "cuda":
+        return stream_backward_plain(enc, staged, house_t, log, ct)
+    from ._build import load_library
+    lib = load_library()
+    staged, log, ct = staged.contiguous(), log.contiguous(), ct.contiguous()
+    _check_cuda(enc, dtype, staged, log, ct)
+    ops, args, _fill = enc.tables(device)
+    adj = torch.zeros((enc.pool_slots, T), dtype=dtype, device=device)
+    grad = torch.zeros((enc.n_basic, T), dtype=dtype, device=device)
+    LAUNCHES["adjoint"] += 1
+    code = getattr(lib, f"canopy_stream_backward_{_SUFFIX[dtype]}")(
+        ops.data_ptr(), args.data_ptr(), enc.n_ops, staged.data_ptr(),
+        house_t.data_ptr(), log.data_ptr(), ct.data_ptr(), adj.data_ptr(),
+        grad.data_ptr(), T, enc.top_slot,
+        torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(lib, code, "stream backward")
+    return grad
+
+
+class _DifferentiableStream(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, staged, enc, house):
+        top, log = stream_forward(enc, staged, house, with_log=True)
+        ctx.save_for_backward(staged, log)
+        ctx.enc, ctx.house = enc, house
+        return top
+
+    @staticmethod
+    def backward(ctx, ct):
+        staged, log = ctx.saved_tensors
+        grad = stream_backward(ctx.enc, staged, ctx.house, log, ct)
+        return grad.to(staged.dtype), None, None
+
+
+def make_differentiable_stream(enc: EncodedStream, house_states):
+    """``fn(staged) -> (n_trials,)`` whose gradient runs the adjoint
+    kernel.  Called without a gradient to track, it runs the plain
+    forward kernel (no log).  Staging stays outside (plain indexing), so
+    autograd maps the staged gradient back onto the caller's values."""
+
+    def fn(staged: torch.Tensor) -> torch.Tensor:
+        if torch.is_grad_enabled() and staged.requires_grad:
+            return _DifferentiableStream.apply(staged, enc, house_states)
+        return stream_forward(enc, staged, house_states)[0]
+    return fn

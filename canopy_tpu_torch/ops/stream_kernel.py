@@ -1,0 +1,462 @@
+"""Stream programs on PyTorch: encoder, CUDA forward kernel, plain version.
+
+A :class:`~canopy_tpu_torch.compiler.schedule.StreamProgram` (gates in
+depth-first order over a linear-scan-allocated pool: the scheduler shared
+with the JAX package for trees, :func:`compile_bdd_stream` without the
+TPU's caps for BDDs) is encoded once on the host into int32/float32
+tables (:func:`encode_stream`) and then run either by the hand-written
+CUDA kernel ``csrc/stream.cu`` or by :func:`stream_forward_plain`, the
+plain PyTorch version of the same arithmetic in the same op order.
+
+Replaces ``canopy_tpu/ops/stream_kernel.py:_stream_kernel`` (and, with the
+value log, ``canopy_tpu/ops/adjoint_kernel.py:_tape_kernel``).  The TPU
+kernel streamed (8, 128) trial tiles through VMEM with staging-chunk DMAs;
+on the H100 one thread runs one trial, the pool is a (pool_slots,
+n_trials) scratch in device memory with trials contiguous (coalesced
+rows), and any trial count works.  What bounds the kernel there is the
+pool's device-memory traffic (see the note in ``csrc/stream.cu``).
+
+Layouts.  The staged input is ``(n_basic, n_trials)`` in the program's
+staging order (row = staging position), the transpose of the JAX
+package's tile-major ``(n_tiles * n_basic_pad, 8, 128)``: the TPU tiling
+and chunk padding have no meaning here.  Its dtype, float32 or float64,
+is the kernels' value type (uncertainty batches run f32, importance
+f64).  Every public function
+takes and returns ``(n_trials, ...)`` like the JAX package's.
+
+Dispatch.  A wrapper runs the plain version for a CPU tensor and the
+kernel for a CUDA tensor; it never catches a build or launch failure and
+never moves data between devices.  ``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..compiler.graph import CompiledTree
+from ..compiler.schedule import StreamProgram, build_stream_schedule
+from ..errors import LogicError
+
+__all__ = ["compile_stream", "compile_bdd_stream", "EncodedStream",
+           "encode_stream", "stage_basic", "unstage_basic",
+           "stream_forward", "stream_forward_plain", "stream_propagate",
+           "stream_propagate_staged", "stream_bdd_probability", "house_tensor",
+           "LAUNCHES", "reset_launches"]
+
+# Op kinds and argument sources (csrc/stream_ops.cuh).
+PROD, PAIR, COUNT, MUX, FILL, SPILL = range(6)
+POOL, STAGED, HOUSE, LOG = range(4)
+_KIND = {"prod": PROD, "pair": PAIR, "count": COUNT, "mux": MUX,
+         "fill": FILL}
+_SRC = {"pool": POOL, "stage": STAGED, "house": HOUSE}
+#: Per-thread count-DP states in the kernels (a count gate needs hi + 2).
+MAX_COUNT_STATES = 64
+
+#: Kernel launches by kernel name: ``stream`` (forward), ``stream_log``
+#: (forward with the value log) and ``adjoint`` (backward).
+LAUNCHES = {"stream": 0, "stream_log": 0, "adjoint": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def compile_stream(tree: CompiledTree, chunk_tiles: int = 256,
+                   n_bufs: int = 3) -> StreamProgram:
+    """Schedule ``tree`` for streaming (raises ``LogicError`` when no
+    schedule exists)."""
+    return build_stream_schedule(tree, chunk_tiles=chunk_tiles,
+                                 n_bufs=n_bufs)
+
+
+def compile_bdd_stream(bdd) -> StreamProgram:
+    """Schedule exact ROBDD evaluation for the kernels: one fused mux per
+    Shannon node, in the shared scheduler's depth-first order, so every
+    op computes what the JAX package's stream computes.
+
+    The shared scheduler's caps (a 13 MiB VMEM pool, 400k unrolled edges)
+    belong to the TPU kernel.  Here the op table is data and the pool
+    lives in device memory, so none applies: every decision variable
+    keeps its own staged row (one staging chunk, no spills) and node
+    values take linear-scan pool slots.  Raises ``LogicError`` only for a
+    constant BDD or one without raw node arrays.
+    """
+    from ..compiler.schedule import _dfs_exec_rows
+    if bdd.raw_var is None:
+        raise LogicError("CompiledBdd is missing raw node arrays")
+    root = bdd.resolved_root()
+    if root <= 1:
+        raise LogicError("constant BDD: nothing to stream")
+    var_arr, low_arr, high_arr = bdd.raw_var, bdd.raw_low, bdd.raw_high
+    reach: set[int] = set()
+    stack = [root]
+    while stack:
+        n = stack.pop()
+        if n <= 1 or n in reach:
+            continue
+        reach.add(n)
+        stack += [int(low_arr[n]), int(high_arr[n])]
+    used_vars = sorted({int(var_arr[n]) for n in reach})
+    local_of_var = {v: i for i, v in enumerate(used_vars)}
+    n_b = len(used_vars)
+    rows = [("fill", n_b, [], 0.0), ("fill", n_b + 1, [], 1.0)] + [
+        ("mux", n_b + n, [(local_of_var[int(var_arr[n])], False),
+                          (n_b + int(high_arr[n]), False),
+                          (n_b + int(low_arr[n]), False)], None)
+        for n in sorted(reach)]
+    exec_rows = _dfs_exec_rows(rows, n_b, 0, n_b + root)
+
+    # Staging order = first use; a node's value is freed after its last
+    # reader (the shared scheduler's allocation without the staging ring).
+    stage_pos: dict[int, int] = {}
+    last_read: dict[int, int] = {}
+    for g, (_k, _out, args, _aux) in enumerate(exec_rows):
+        for slot, _flag in args:
+            if slot < n_b:
+                stage_pos.setdefault(slot, len(stage_pos))
+            else:
+                last_read[slot] = g
+    free: list[int] = []
+    n_slots = 0
+    pool_of: dict[int, int] = {}
+    frees_at: dict[int, list[int]] = {}
+    ops: list = [("start", 0, 0), ("wait", 0, 0)]
+    for g, (kind, out, args, aux) in enumerate(exec_rows):
+        locs = [((("stage", 0, stage_pos[s]) if s < n_b
+                  else ("pool", pool_of[s])), flag) for s, flag in args]
+        if free:
+            pool_of[out] = free.pop()
+        else:
+            pool_of[out] = n_slots
+            n_slots += 1
+        ops.append(("gate", kind, pool_of[out], locs, aux))
+        if out != n_b + root:
+            if out in last_read:
+                frees_at.setdefault(last_read[out], []).append(out)
+            else:
+                free.append(pool_of[out])
+        free += [pool_of[v] for v in frees_at.pop(g, ())]
+    program = StreamProgram(
+        ops=ops, basic_perm=np.fromiter(stage_pos, np.int64, n_b),
+        n_basic=n_b, n_basic_pad=n_b, chunk_tiles=n_b, n_chunks=1,
+        n_bufs=1, pool_slots=n_slots, top_slot=pool_of[n_b + root],
+        nnz=sum(len(r[2]) for r in exec_rows), n_house=0)
+    program.stage_cols = np.array([bdd.slot_of_var[v] for v in used_vars],
+                                  dtype=np.int64)
+    return program
+
+
+@dataclasses.dataclass
+class EncodedStream:
+    """A stream program as flat tables (``csrc/stream_ops.cuh``)."""
+
+    ops: np.ndarray        # (n_ops, 7) int32
+    args: np.ndarray       # (n_args, 5) int32
+    fill: np.ndarray       # (n_ops,) float32
+    n_log: int             # value-log rows (one per gate/fill op)
+    n_basic: int           # staged rows
+    n_house: int
+    pool_slots: int
+    top_slot: int
+    max_count_states: int  # largest count DP (hi + 2) in the program
+    staged_cols: np.ndarray  # (n_basic,) input column of each staged row
+    _cache: dict = dataclasses.field(default_factory=dict,
+                                            repr=False)
+
+    @property
+    def n_ops(self) -> int:
+        return len(self.ops)
+
+    def tables(self, device: torch.device):
+        """(ops, args, fill) as tensors on ``device`` (cached)."""
+        key = str(device)
+        if key not in self._cache:
+            self._cache[key] = (
+                torch.from_numpy(self.ops).to(device),
+                torch.from_numpy(self.args).to(device),
+                torch.from_numpy(self.fill).to(device))
+        return self._cache[key]
+
+    def plain_ops(self):
+        """The tables as Python lists for the plain versions' loops."""
+        if "plain" not in self._cache:
+            self._cache["plain"] = (
+                self.ops.tolist(), self.args.tolist(),
+                [float(v) for v in self.fill])
+        return self._cache["plain"]
+
+
+def encode_stream(program) -> EncodedStream:
+    """Encode a ``StreamProgram`` (this package's or the JAX package's).
+
+    ``start``/``wait`` DMA ops disappear; a ``("stage", buf, off)``
+    location becomes staged row ``chunk * chunk_tiles + off`` where
+    ``chunk`` is the chunk the last ``wait`` put in ``buf``; a spill
+    becomes a SPILL op copying that row into its pool slot.  Each argument
+    also records where the backward reads its value: the log row of the
+    op that last wrote its pool slot, its staged row (staged or spilled
+    basics), or its house constant.
+    """
+    ct = program.chunk_tiles
+    buf_chunk: dict[int, int] = {}
+    writer: dict[int, tuple[int, int]] = {}   # pool slot -> (src, index)
+    ops, args, fill = [], [], []
+    n_log = 0
+    max_states = 0
+    for op in program.ops:
+        tag = op[0]
+        if tag == "start":
+            continue
+        if tag == "wait":
+            buf_chunk[op[2]] = op[1]
+            continue
+        if tag == "spill":
+            _t, buf, off, slot = op
+            row = buf_chunk[buf] * ct + off
+            ops.append([SPILL, slot, len(args), len(args) + 1, 0, 0, -1])
+            args.append([STAGED, row, 0, STAGED, row])
+            fill.append(0.0)
+            writer[slot] = (STAGED, row)
+            continue
+        _t, kind, out_slot, locs, aux = op
+        begin = len(args)
+        for loc, flag in locs:
+            src = _SRC[loc[0]]
+            if src == STAGED:
+                index = buf_chunk[loc[1]] * ct + loc[2]
+                back = (STAGED, index)
+            elif src == HOUSE:
+                index = loc[1]
+                back = (HOUSE, index)
+            else:
+                index = loc[1]
+                back = writer[index]
+            args.append([src, index, int(bool(flag)), *back])
+        aux0 = aux1 = 0
+        value = 0.0
+        if kind in ("prod", "pair"):
+            aux0 = int(bool(aux))
+        elif kind == "count":
+            aux0, aux1 = int(aux[0]), int(aux[1])
+            max_states = max(max_states, aux1 + 2)
+        elif kind == "fill":
+            value = float(aux)
+        ops.append([_KIND[kind], out_slot, begin, len(args), aux0, aux1,
+                    n_log])
+        fill.append(value)
+        writer[out_slot] = (LOG, n_log)
+        n_log += 1
+    perm = np.asarray(program.basic_perm, dtype=np.int64)
+    cols = perm if program.stage_cols is None \
+        else np.asarray(program.stage_cols, dtype=np.int64)[perm]
+    return EncodedStream(
+        ops=np.asarray(ops, dtype=np.int32).reshape(-1, 7),
+        args=np.asarray(args, dtype=np.int32).reshape(-1, 5),
+        fill=np.asarray(fill, dtype=np.float32), n_log=n_log,
+        n_basic=program.n_basic, n_house=program.n_house,
+        pool_slots=max(program.pool_slots, 1), top_slot=program.top_slot,
+        max_count_states=max_states, staged_cols=cols)
+
+
+def stage_basic(enc: EncodedStream, values: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``(n_trials, >= max(staged_cols)+1)`` -> staged ``(n_basic,
+    n_trials)`` of ``dtype``, in staging order.
+
+    Plain indexing, so autograd maps a staged gradient back onto
+    ``values``.  For BDD programs ``values`` is the global value matrix
+    and the program's ``stage_cols`` pick its decision variables.
+    """
+    cols = torch.from_numpy(enc.staged_cols).to(values.device)
+    return values.to(dtype)[:, cols].T.contiguous()
+
+
+def unstage_basic(enc: EncodedStream, staged: torch.Tensor,
+                  n_cols: int) -> torch.Tensor:
+    """Staged ``(n_basic, n_trials)`` -> ``(n_trials, n_cols)`` with each
+    staged row summed into its input column (the adjoint of
+    :func:`stage_basic`; columns the program never reads stay zero)."""
+    out = torch.zeros(staged.shape[1], n_cols, dtype=staged.dtype,
+                      device=staged.device)
+    cols = torch.from_numpy(enc.staged_cols).to(staged.device)
+    return out.index_add_(1, cols, staged.T)
+
+
+def house_tensor(enc: EncodedStream, house, device,
+                 dtype=torch.float32) -> torch.Tensor:
+    """House-event states as the kernels read them: rounded to f32 (the
+    TPU kernels' constants), then ``dtype``, on ``device``."""
+    house = np.asarray(house, dtype=np.float32).reshape(-1)
+    if len(house) != enc.n_house:
+        raise LogicError(f"program reads {enc.n_house} house events, got "
+                         f"{len(house)} states")
+    # One spare element keeps the pointer valid for house-free programs.
+    return torch.from_numpy(np.concatenate([house, [0.0]]).astype(
+        np.float32)).to(device=device, dtype=dtype)
+
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _check_staged(enc: EncodedStream, staged: torch.Tensor) -> None:
+    if staged.ndim != 2 or staged.shape[0] != enc.n_basic:
+        raise LogicError(f"staged input must be ({enc.n_basic}, n_trials), "
+                         f"got {tuple(staged.shape)}")
+    if staged.dtype not in _SUFFIX:
+        raise LogicError(f"stream programs run in float32 or float64, got "
+                         f"{staged.dtype}")
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version: a loop over the encoded ops, vectorised over trials.
+# ---------------------------------------------------------------------------
+
+def stream_forward_plain(enc: EncodedStream, staged: torch.Tensor,
+                         house: torch.Tensor, with_log: bool = False):
+    """The kernel's arithmetic in plain torch (any dtype, any device,
+    differentiable by autograd).  Returns ``(top, log or None)``."""
+    ops, args, fill = enc.plain_ops()
+    T = staged.shape[1]
+    dtype = staged.dtype
+    pool: list = [None] * enc.pool_slots
+    log: list = [None] * enc.n_log if with_log else None
+
+    def load(a):
+        src, idx, flag = a[0], a[1], a[2]
+        if src == POOL:
+            v = pool[idx]
+        elif src == STAGED:
+            v = staged[idx]
+        else:
+            v = house[idx].expand(T)
+        return 1.0 - v if flag else v
+
+    for o, (kind, out, b, e, aux0, aux1, row) in enumerate(ops):
+        if kind == MUX:
+            p, hi, lo = (load(args[j]) for j in range(b, b + 3))
+            v = p * hi + (1.0 - p) * lo
+        elif kind == PROD:
+            v = load(args[b])
+            for j in range(b + 1, e):
+                v = v * load(args[j])
+            if aux0:
+                v = 1.0 - v
+        elif kind == PAIR:
+            a, c = load(args[b]), load(args[b + 1])
+            v = a + c - 2.0 * a * c
+            if aux0:
+                v = 1.0 - v
+        elif kind == COUNT:
+            cap = aux1 + 1
+            dp = [torch.ones(T, dtype=dtype, device=staged.device)] + \
+                 [torch.zeros(T, dtype=dtype, device=staged.device)] * cap
+            for j in range(b, e):
+                x = load(args[j])
+                new = [dp[0] * (1.0 - x)]
+                for k in range(1, cap):
+                    new.append(dp[k] * (1.0 - x) + dp[k - 1] * x)
+                new.append(dp[cap] + dp[cap - 1] * x)
+                dp = new
+            v = torch.zeros(T, dtype=dtype, device=staged.device)
+            if aux0 <= aux1:
+                v = dp[aux0]
+                for k in range(aux0 + 1, aux1 + 1):
+                    v = v + dp[k]
+        elif kind == FILL:
+            v = torch.full((T,), fill[o], dtype=torch.float32,
+                           device=staged.device).to(dtype)
+        else:  # SPILL
+            v = staged[args[b][1]]
+        pool[out] = v
+        if with_log and row >= 0:
+            log[row] = v
+    top = pool[enc.top_slot]
+    if with_log:
+        return top, (torch.stack(log) if log else
+                     staged.new_zeros((0, T)))
+    return top, None
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper.
+# ---------------------------------------------------------------------------
+
+def _check_cuda(enc: EncodedStream, dtype, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.device.type != "cuda" or t.dtype != dtype \
+                or not t.is_contiguous():
+            raise LogicError(f"stream kernel takes contiguous {dtype} CUDA "
+                             f"tensors, got {t.dtype} on {t.device}")
+    if enc.max_count_states > MAX_COUNT_STATES:
+        raise LogicError(
+            f"a count gate needs {enc.max_count_states} DP states; the "
+            f"kernels hold at most {MAX_COUNT_STATES} per thread")
+
+
+def _raise_on(lib, code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.canopy_cuda_error_string(code).decode()}")
+
+
+def stream_forward(enc: EncodedStream, staged: torch.Tensor, house,
+                   with_log: bool = False):
+    """Run the program on staged ``(n_basic, n_trials)`` input.
+
+    Returns ``(top (n_trials,), log (n_log, n_trials) or None)``.  CPU
+    tensors run :func:`stream_forward_plain`; CUDA tensors launch the
+    kernel (``csrc/stream.cu``) or raise.
+    """
+    _check_staged(enc, staged)
+    device, dtype = staged.device, staged.dtype
+    house_t = house_tensor(enc, house, device, dtype)
+    if device.type != "cuda":
+        return stream_forward_plain(enc, staged, house_t, with_log)
+    from ._build import load_library
+    lib = load_library()
+    staged = staged.contiguous()
+    _check_cuda(enc, dtype, staged)
+    T = staged.shape[1]
+    ops, args, fill = enc.tables(device)
+    pool = torch.empty((enc.pool_slots, T), dtype=dtype, device=device)
+    top = torch.empty(T, dtype=dtype, device=device)
+    log = torch.empty((enc.n_log, T), dtype=dtype, device=device) \
+        if with_log else None
+    LAUNCHES["stream_log" if with_log else "stream"] += 1
+    code = getattr(lib, f"canopy_stream_forward_{_SUFFIX[dtype]}")(
+        ops.data_ptr(), fill.data_ptr(), args.data_ptr(), enc.n_ops,
+        staged.data_ptr(), house_t.data_ptr(), pool.data_ptr(),
+        top.data_ptr(), log.data_ptr() if with_log else None, T,
+        enc.top_slot, torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(lib, code, "stream forward")
+    return top, log
+
+
+def stream_propagate_staged(enc: EncodedStream, staged: torch.Tensor,
+                            house_states) -> torch.Tensor:
+    """Top values ``(n_trials,)`` of an already-staged input."""
+    return stream_forward(enc, staged, house_states)[0]
+
+
+def stream_propagate(enc: EncodedStream, basic_p: torch.Tensor,
+                     house_states) -> torch.Tensor:
+    """``(n_trials, n_basic)`` -> ``(n_trials,)`` top values (stages,
+    then runs; any trial count)."""
+    return stream_propagate_staged(enc, stage_basic(enc, basic_p),
+                                   house_states)
+
+
+def stream_bdd_probability(enc: EncodedStream, values: torch.Tensor,
+                           dtype: torch.dtype = torch.float32
+                           ) -> torch.Tensor:
+    """Exact per-trial top probability of a BDD stream program.
+
+    ``values``: ``(n_trials, n_cols)``, the global probability matrix;
+    the program's staged columns select the decision variables it reads.
+    """
+    return stream_propagate_staged(enc, stage_basic(enc, values, dtype),
+                                   np.zeros(0, np.float32))

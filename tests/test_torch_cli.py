@@ -1,0 +1,105 @@
+"""Torch port, the CLI: ``python -m canopy_tpu_torch --device cpu`` against
+the JAX package's CLI report, field for field.
+
+Both CLIs run in-process with ``-o report.json``; the reports must be
+equal after leaving out timings (wall clock) and the sampled uncertainty
+statistics (the two packages draw from different generators).  Floats
+within 1e-12 relative (the same f64 operation order).
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+import xml.etree.ElementTree as ET
+
+import pytest
+
+from canopy_tpu.cli import main as jax_main
+from canopy_tpu_torch.cli import main as torch_main
+
+from torch_parity import fixture_path
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _strip(report: dict) -> dict:
+    report = dict(report)
+    report.pop("timings")
+    for ft in report["fault_trees"]:
+        ft.pop("uncertainty", None)
+    return report
+
+
+def _assert_same(got, want, path="report"):
+    if isinstance(want, float) and isinstance(got, float):
+        if math.isinf(want) or want == 0.0:
+            assert got == want, path
+        else:
+            assert abs(got - want) <= 1e-12 * abs(want), (path, got, want)
+    elif isinstance(want, dict):
+        assert sorted(got) == sorted(want), path
+        for key in want:
+            _assert_same(got[key], want[key], f"{path}.{key}")
+    elif isinstance(want, list):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_same(g, w, f"{path}[{i}]")
+    else:
+        assert got == want, (path, got, want)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--probability", "--importance"],
+    ["--rare-event", "--probability"],
+    ["--mcub", "--probability", "--importance"],
+    ["--pdag", "--probability", "--importance"],
+])
+def test_report_matches_jax_cli(tmp_path, flags):
+    model = fixture_path("aralia_like_small")
+    ours, ref = tmp_path / "ours.json", tmp_path / "ref.json"
+    assert torch_main([model, "--device", "cpu", *flags,
+                       "-o", str(ours)]) == 0
+    assert jax_main([model, *flags, "-o", str(ref)]) == 0
+    _assert_same(_strip(json.loads(ours.read_text())),
+                 _strip(json.loads(ref.read_text())))
+
+
+def test_module_entry_point_and_xml_report(tmp_path):
+    out = tmp_path / "report.xml"
+    proc = subprocess.run(
+        [sys.executable, "-m", "canopy_tpu_torch",
+         fixture_path("aralia_like_small"), "--device", "cpu",
+         "--probability", "-o", str(out)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    root = ET.parse(out).getroot()
+    assert root.tag == "report"
+    (analysis,) = root.iter("fault-tree-analysis")
+    assert float(analysis.find("probability").get("value")) > 0.0
+    assert root.find("information/software").get("name") == \
+        "canopy-tpu-torch"
+
+
+def test_profile_writes_a_torch_profiler_trace(tmp_path):
+    prof = tmp_path / "prof"
+    assert torch_main([fixture_path("aralia_like_small"), "--device", "cpu",
+                       "--probability", "--profile", str(prof),
+                       "-o", str(tmp_path / "r.json")]) == 0
+    trace = json.loads((prof / "trace.json").read_text())
+    assert trace["traceEvents"]
+    assert (prof / "ops.txt").read_text().strip()
+
+
+@pytest.mark.parametrize("argv,needle", [
+    (["--device", "cuda"], "cuda"),
+    (["--device", "cpu", "--validate"], "RELAX NG"),
+    (["--device", "cpu", "--monte-carlo", "--probability"], "ROADMAP.md"),
+])
+def test_errors_exit_nonzero_with_a_message(capsys, argv, needle):
+    import torch
+    if argv[1] == "cuda" and torch.cuda.is_available():
+        pytest.skip("a CUDA device exists here")
+    assert torch_main([fixture_path("aralia_like_small"), *argv]) == 1
+    assert needle in capsys.readouterr().err

@@ -1,0 +1,115 @@
+"""Torch port on the card: the CUDA kernels against their plain versions.
+
+Every test needs a CUDA device and skips without one (the kernels have no
+CPU mode; their plain versions are what the other ``test_torch_*`` files
+test here).  This file imports the port only, so it runs where neither
+jax nor lxml is installed:
+
+    python -m pytest tests/test_torch_gpu.py -q -m gpu
+
+Tolerances: kernel and plain version bit-equal (both round every
+operation on its own, the kernels being built with ``--fmad=false``);
+the f64 importance path against the f64 level evaluation within 1e-12
+relative to the largest value.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from canopy_tpu_torch.compiler.modules import build_modular_bdd
+from canopy_tpu_torch.compiler.schedule import StreamProgram
+from canopy_tpu_torch.engine.analysis import RiskAnalysis
+from canopy_tpu_torch.engine.bdd_eval import make_modular_evaluator
+from canopy_tpu_torch.errors import LogicError
+from canopy_tpu_torch.mef import Initializer
+from canopy_tpu_torch.ops import adjoint_kernel as tak
+from canopy_tpu_torch.ops import stream_kernel as tsk
+from canopy_tpu_torch.settings import Settings
+
+from torch_parity import (cuda_device, fixture_path,  # noqa: F401
+                          load_tree, overwriting_program)
+
+pytestmark = pytest.mark.gpu
+
+
+def _programs():
+    """(label, encoded program, house states) covering every op kind."""
+    out = [("overwriting", tsk.encode_stream(
+        overwriting_program(StreamProgram)), [])]
+    _m, tree = load_tree("canopy_tpu_torch", "aralia_like_noncoherent")
+    out.append(("noncoherent-tree",
+                tsk.encode_stream(tsk.compile_stream(tree)),
+                tree.house_state_vector()))
+    _m, tree = load_tree("canopy_tpu_torch", "aralia_like_ccf")
+    bdd = max(build_modular_bdd(tree).chain, key=lambda c: c[0].n_nodes)[0]
+    out.append(("ccf-bdd", tsk.encode_stream(tsk.compile_bdd_stream(bdd)),
+                []))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernels_match_plain(cuda_device, dtype):  # noqa: F811
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    for label, enc, house in _programs():
+        staged = (torch.rand((enc.n_basic, 1000), generator=gen,
+                             device=cuda_device, dtype=torch.float64)
+                  * 0.3).to(dtype)
+        ct = torch.rand(1000, generator=gen, device=cuda_device,
+                        dtype=torch.float64).to(dtype)
+        h = tsk.house_tensor(enc, house, cuda_device, dtype)
+        top, log = tsk.stream_forward(enc, staged, house, with_log=True)
+        ptop, plog = tsk.stream_forward_plain(enc, staged, h, True)
+        assert torch.equal(top, ptop) and torch.equal(log, plog), label
+        assert torch.equal(tsk.stream_forward(enc, staged, house)[0], top)
+        grad = tak.stream_backward(enc, staged, house, log, ct)
+        pgrad = tak.stream_backward_plain(enc, staged, h, plog, ct)
+        assert torch.equal(grad, pgrad), label
+
+
+def test_launch_counts_and_wrapper_checks(cuda_device):  # noqa: F811
+    label, enc, house = _programs()[1]
+    tsk.reset_launches()
+    staged = torch.rand((enc.n_basic, 64), device=cuda_device)
+    top, log = tsk.stream_forward(enc, staged, house, with_log=True)
+    tak.stream_backward(enc, staged, house, log, torch.ones_like(top))
+    tsk.stream_forward(enc, staged, house)
+    assert tsk.LAUNCHES == {"stream": 1, "stream_log": 1, "adjoint": 1}
+    with pytest.raises(LogicError):
+        tsk.stream_forward(enc, staged.half(), house)
+
+
+def test_analysis_on_cuda_matches_cpu(cuda_device):  # noqa: F811
+    """Probability (f64 level evaluation on both) and importance (the
+    f64 adjoint kernel on CUDA, autograd of the level evaluation on the
+    CPU) agree."""
+    settings = (Settings().algorithm("bdd").probability_analysis(True)
+                .importance_analysis(True))
+    model = Initializer([fixture_path("aralia_like_medium")],
+                        settings).model
+    tsk.reset_launches()
+    (gpu,) = RiskAnalysis(model, settings, "cuda").run().fault_trees
+    assert tsk.LAUNCHES["stream_log"] > 0 and tsk.LAUNCHES["adjoint"] > 0
+    (cpu,) = RiskAnalysis(model, settings, "cpu").run().fault_trees
+    assert gpu.probability == cpu.probability
+    mif = np.array([r["MIF"] for r in gpu.importance])
+    want = np.array([r["MIF"] for r in cpu.importance])
+    np.testing.assert_allclose(mif, want, rtol=0,
+                               atol=1e-12 * np.abs(want).max())
+
+
+def test_uncertainty_streams_on_cuda(cuda_device):  # noqa: F811
+    _m, tree = load_tree("canopy_tpu_torch", "torch_slice_plant",
+                         tree_name="slice")
+    modular = build_modular_bdd(tree)
+    ev = make_modular_evaluator(modular, cuda_device)
+    assert ev.method == "bdd-stream-f32" == ev.method_for(12345)
+    p = torch.rand((4096, tree.n_basic), device=cuda_device,
+                   dtype=torch.float64) * 0.02
+    tsk.reset_launches()
+    with torch.no_grad():
+        got = ev(p)
+    assert tsk.LAUNCHES["stream"] == 1
+    from canopy_tpu_torch.compiler.modules import modular_probability
+    want = modular_probability(modular, p)
+    assert float(((got.double() - want).abs() / want).max()) <= 1e-5

@@ -1,0 +1,194 @@
+"""Torch port, host layers: no jax, vendored copies, identical compilation.
+
+* ``import canopy_tpu_torch`` (and every module on its main path) leaves
+  ``jax`` out of ``sys.modules``, checked in a fresh interpreter.
+* Drift guard: each host module the port vendors is the ``canopy_tpu``
+  original apart from its import lines.  Two normalizations are allowed:
+  upstream source paths in docstrings lose their machine prefix, and the
+  native library's cache directory and log prefix name the port.
+* The port's compiled trees, modular BDDs and stream programs equal the
+  JAX package's on every fixture, array for array.
+* The standard-library XML reader builds the same element trees (names,
+  attributes, text, source lines) as the lxml reader from every fixture.
+"""
+
+import ast
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from torch_parity import ALL_FIXTURES, fixture_path, load_tree
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_PKG = os.path.join(ROOT, "canopy_tpu")
+PORT_PKG = os.path.join(ROOT, "canopy_tpu_torch")
+
+VENDORED = ["errors.py", "settings.py", "engine/event_tree_walk.py",
+            "compiler/graph.py", "compiler/bdd.py", "compiler/zbdd.py",
+            "compiler/cutsets.py", "compiler/prime_implicants.py",
+            "compiler/schedule.py", "native/__init__.py", "native/build.py"
+            ] + sorted(
+    os.path.relpath(os.path.join(d, f), JAX_PKG)
+    for d, _dirs, files in os.walk(os.path.join(JAX_PKG, "mef"))
+    for f in files if f.endswith(".py"))
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, canopy_tpu_torch, canopy_tpu_torch.cli, "
+            "canopy_tpu_torch.engine.analysis, "
+            "canopy_tpu_torch.ops.adjoint_kernel, canopy_tpu_torch.report; "
+            "print(sorted(m for m in sys.modules "
+            "if m == 'jax' or m.startswith(('jax.', 'canopy_tpu.'))))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def _without_imports(path: str) -> list[str]:
+    with open(path) as fh:
+        text = fh.read()
+    lines = text.splitlines()
+    drop = set()
+    for node in ast.walk(ast.parse(text)):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            drop.update(range(node.lineno - 1, node.end_lineno))
+    return [line for i, line in enumerate(lines) if i not in drop]
+
+
+def _normalize(lines: list[str]) -> list[str]:
+    return [re.sub(r"/\w+/reference/", "reference/", line)
+            .replace("canopy_tpu_torch", "canopy_tpu") for line in lines]
+
+
+@pytest.mark.parametrize("rel", VENDORED)
+def test_vendored_module_is_the_original(rel):
+    assert _normalize(_without_imports(os.path.join(PORT_PKG, rel))) == \
+        _normalize(_without_imports(os.path.join(JAX_PKG, rel)))
+
+
+def test_vendored_native_source_is_the_original():
+    with open(os.path.join(PORT_PKG, "native", "bdd.cpp"), "rb") as a, \
+            open(os.path.join(JAX_PKG, "native", "bdd.cpp"), "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_modules_builder_is_the_original():
+    """``compiler/modules.py`` is vendored up to ``modular_probability``,
+    the one function ported to torch."""
+    def head(pkg):
+        lines = _without_imports(os.path.join(pkg, "compiler", "modules.py"))
+        return lines[:next(i for i, line in enumerate(lines)
+                           if line.startswith("def modular_probability"))]
+    assert head(PORT_PKG) == head(JAX_PKG)
+
+
+def _assert_arrays_equal(a, b, what):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape and np.array_equal(a, b), what
+
+
+def _compare_trees(jt, tt):
+    for field in ("n_basic", "n_house", "n_gates", "basic_index",
+                  "house_index", "gate_index", "top_index"):
+        assert getattr(jt, field) == getattr(tt, field), field
+    assert len(jt.levels) == len(tt.levels)
+    for jl, tl in zip(jt.levels, tt.levels):
+        jb, tb = list(jl.iter_blocks()), list(tl.iter_blocks())
+        assert [k for k, _ in jb] == [k for k, _ in tb]
+        for (_k, x), (_k2, y) in zip(jb, tb):
+            for field, value in vars(x).items():
+                _assert_arrays_equal(value, getattr(y, field), field)
+
+
+def _compare_programs(jp, tp):
+    assert jp.ops == tp.ops
+    for field in ("n_basic", "n_basic_pad", "chunk_tiles", "n_chunks",
+                  "pool_slots", "top_slot", "nnz", "n_house"):
+        assert getattr(jp, field) == getattr(tp, field), field
+    _assert_arrays_equal(jp.basic_perm, tp.basic_perm, "basic_perm")
+    if jp.stage_cols is not None:
+        _assert_arrays_equal(jp.stage_cols, tp.stage_cols, "stage_cols")
+
+
+def _fault_trees(name):
+    import canopy_tpu.mef as jmef
+    import canopy_tpu.settings as jset
+    model = jmef.Initializer([fixture_path(name)],
+                             jset.Settings().ccf_analysis(True)).model
+    return [ft.name for ft in model.fault_trees]
+
+
+@pytest.mark.parametrize("name", ALL_FIXTURES)
+def test_compiled_structures_match(name):
+    from canopy_tpu.compiler.bdd import BddBlowupError as JaxBlowup
+    from canopy_tpu.compiler.modules import build_modular_bdd as jax_modular
+    from canopy_tpu.compiler.schedule import (
+        build_bdd_stream_schedule as jax_bdd_schedule,
+        build_stream_schedule as jax_schedule)
+    from canopy_tpu_torch.compiler.bdd import BddBlowupError
+    from canopy_tpu_torch.compiler.modules import build_modular_bdd
+    from canopy_tpu_torch.compiler.schedule import (
+        build_bdd_stream_schedule, build_stream_schedule)
+    for tree_name in _fault_trees(name):
+        _jm, jt = load_tree("canopy_tpu", name, tree_name=tree_name)
+        _tm, tt = load_tree("canopy_tpu_torch", name, tree_name=tree_name)
+        _compare_trees(jt, tt)
+        _compare_programs(jax_schedule(jt), build_stream_schedule(tt))
+        try:
+            jmod = jax_modular(jt, max_nodes=200_000)
+        except JaxBlowup:
+            with pytest.raises(BddBlowupError):
+                build_modular_bdd(tt, max_nodes=200_000)
+            continue
+        tmod = build_modular_bdd(tt, max_nodes=200_000)
+        assert (jmod.n_nodes, jmod.n_basic, jmod.top_index) == \
+            (tmod.n_nodes, tmod.n_basic, tmod.top_index)
+        for (jb, js), (tb, ts) in zip(jmod.chain, tmod.chain, strict=True):
+            assert (js, jb.n_nodes, jb.root_ptr, jb.root) == \
+                (ts, tb.n_nodes, tb.root_ptr, tb.root)
+            for jl, tl in zip(jb.levels, tb.levels, strict=True):
+                for x, y in zip(jl, tl, strict=True):
+                    _assert_arrays_equal(x, y, "bdd level")
+            if jb.n_nodes and jb.n_nodes <= 20_000:
+                _compare_programs(jax_bdd_schedule(jb),
+                                  build_bdd_stream_schedule(tb))
+
+
+def _element_tree(element):
+    return (element.name, element.line,
+            sorted(element._node.attrib.items()), element.text(),
+            [_element_tree(child) for child in element.children()])
+
+
+@pytest.mark.parametrize("name", ALL_FIXTURES)
+def test_stdlib_reader_matches_lxml_reader(name):
+    from canopy_tpu.io.xml import Document as LxmlDocument
+    from canopy_tpu_torch.io.xml import Document
+    path = fixture_path(name)
+    ours, ref = Document(path).root, LxmlDocument(path).root
+    assert ours.filename == ref.filename
+    assert _element_tree(ours) == _element_tree(ref)
+
+
+def test_stdlib_reader_includes_and_reports_lines(tmp_path):
+    from canopy_tpu_torch.errors import XmlParseError, XmlValidityError
+    from canopy_tpu_torch.io.xml import Document
+    inner = tmp_path / "inner.xml"
+    inner.write_text("<inner\n val='5'/>")
+    outer = tmp_path / "outer.xml"
+    outer.write_text("<doc xmlns:xi='http://www.w3.org/2001/XInclude'>\n"
+                     "<xi:include href='inner.xml'/><a x='y'/></doc>")
+    root = Document(str(outer)).root
+    assert root.child("inner").attribute("val", int) == 5
+    assert root.child("inner").line == 1 and root.child("a").line == 2
+    with pytest.raises(XmlValidityError) as err:
+        root.child("a").attribute("x", int)
+    assert err.value.line == 2
+    with pytest.raises(XmlParseError) as err:
+        Document.from_string("<doc>\n<unclosed></doc>")
+    assert err.value.line == 2
