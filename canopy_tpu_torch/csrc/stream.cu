@@ -26,23 +26,6 @@ using namespace canopy;
 
 namespace {
 
-template <typename V>
-__device__ __forceinline__ V load_arg(const int* __restrict__ arg,
-                                      const V* __restrict__ staged,
-                                      const V* __restrict__ house,
-                                      const V* pool, long long T, long long t) {
-  const int src = arg[0], idx = arg[1];
-  V v;
-  if (src == POOL) {
-    v = pool[at(idx, T, t)];
-  } else if (src == STAGED) {
-    v = staged[at(idx, T, t)];
-  } else {
-    v = house[idx];
-  }
-  return arg[2] ? V(1) - v : v;
-}
-
 template <typename V, bool WITH_LOG>
 __global__ void stream_forward_kernel(const int* __restrict__ ops,
                                       const float* __restrict__ fill,
@@ -53,52 +36,11 @@ __global__ void stream_forward_kernel(const int* __restrict__ ops,
                                       long long T, int top_slot) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= T) return;
+  const GlobalRows<V> rows{pool, T, t};
   for (int o = 0; o < n_ops; ++o) {
     const int* op = ops + (long long)o * OP_COLS;
-    const int kind = op[0], out = op[1], b = op[2], e = op[3];
-    V v;
-    if (kind == MUX) {
-      const V p = load_arg(args + b * ARG_COLS, staged, house, pool, T, t);
-      const V hi = load_arg(args + (b + 1) * ARG_COLS, staged, house, pool, T,
-                            t);
-      const V lo = load_arg(args + (b + 2) * ARG_COLS, staged, house, pool, T,
-                            t);
-      v = p * hi + (V(1) - p) * lo;
-    } else if (kind == PROD) {
-      v = load_arg(args + b * ARG_COLS, staged, house, pool, T, t);
-      for (int j = b + 1; j < e; ++j)
-        v = v * load_arg(args + j * ARG_COLS, staged, house, pool, T, t);
-      if (op[4]) v = V(1) - v;
-    } else if (kind == PAIR) {
-      const V a = load_arg(args + b * ARG_COLS, staged, house, pool, T, t);
-      const V c = load_arg(args + (b + 1) * ARG_COLS, staged, house, pool, T,
-                           t);
-      v = a + c - V(2) * a * c;
-      if (op[4]) v = V(1) - v;
-    } else if (kind == COUNT) {
-      // Poisson-binomial DP with the absorbing state `cap` (">= cap").
-      const int lo = op[4], hi = op[5], cap = hi + 1;
-      V dp[MAX_COUNT_STATES];
-      dp[0] = V(1);
-      for (int k = 1; k <= cap; ++k) dp[k] = V(0);
-      for (int j = b; j < e; ++j) {
-        const V x = load_arg(args + j * ARG_COLS, staged, house, pool, T, t);
-        dp[cap] = dp[cap] + dp[cap - 1] * x;
-        for (int k = cap - 1; k >= 1; --k)
-          dp[k] = dp[k] * (V(1) - x) + dp[k - 1] * x;
-        dp[0] = dp[0] * (V(1) - x);
-      }
-      v = V(0);
-      if (lo <= hi) {
-        v = dp[lo];
-        for (int k = lo + 1; k <= hi; ++k) v = v + dp[k];
-      }
-    } else if (kind == FILL) {
-      v = V(fill[o]);
-    } else {  // SPILL: a long-lived staged basic moves into the pool.
-      v = staged[at(args[b * ARG_COLS + 1], T, t)];
-    }
-    pool[at(out, T, t)] = v;
+    const V v = eval_op(op, o, fill, args, staged, house, rows, T, t);
+    pool[at(op[1], T, t)] = v;
     if (WITH_LOG && op[6] >= 0) log[at(op[6], T, t)] = v;
   }
   top[t] = pool[at(top_slot, T, t)];

@@ -3,22 +3,23 @@
 ``canopy_tpu/engine/analysis.py`` for fault trees: per top event,
 
 * **probability** — exact over the modular BDD (f64 level evaluation),
-  direct propagation when the BDD blows up, or rare-event/MCUB over
-  minimal products;
+  direct propagation (the f64 gather engine) when the BDD blows up or the
+  algorithm is not BDD, or rare-event/MCUB over minimal products;
 * **products** — minimal cut sets through the ZBDD (or MOCUS), with
   non-declarative substitutions applied;
 * **importance** — autodiff-based measures (one backward pass; on CUDA
-  through the adjoint kernel);
+  through the adjoint kernel, over the BDD's stream program or, without
+  one, the tree's);
 * **uncertainty** — batched epistemic sampling through the expression
-  tape (on CUDA through the stream kernel).
+  tape (on CUDA through the stream kernel over the BDD, or without one
+  through ``make_propagator``'s fused and stream kernels).
 
 The device is named by the caller.  Where the JAX package asks whether
 its backend is a TPU, this module asks whether the device is CUDA.
 
 Not ported yet, each raising ``NotImplementedError`` with its
 ``ROADMAP.md`` item: event trees, alignment phases, SIL and time curves,
-the Monte Carlo approximation, uncertainty without an exact BDD, and on
-CUDA importance over the BDD-blow-up branch.
+and the Monte Carlo approximation.
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ from ..settings import Algorithm, Approximation, Settings
 from .bdd_eval import make_modular_evaluator
 from .cutset_quantify import (build_cutset_matrix, mcub,
                               product_probabilities, rare_event)
-from .importance import importance_measures, occurrence_counts
+from .importance import (importance_measures, make_stream_importance_fn,
+                         occurrence_counts)
 from .propagate import top_event_probability
 from .uncertainty import uncertainty_analysis
 
@@ -307,16 +309,15 @@ class RiskAnalysis:
             # (ops/adjoint_kernel.py), on one trial (the kernels take any
             # trial count) and in f64: in f32 the Shannon partials
             # (hi - lo) * a cancel, and small MIFs lose three digits.
+            # Without a BDD it differentiates the tree's stream program.
             imp_fn = top_fn
-            if on_cuda:
-                if modular_bdd is None:
-                    raise _not_ported(
-                        "importance on CUDA without an exact BDD "
-                        "(make_stream_importance_fn)", "Queue 1 item 9")
+            if on_cuda and modular_bdd is not None:
                 ev = make_modular_evaluator(modular_bdd, device,
                                             differentiable=True,
                                             dtype=torch.float64)
                 imp_fn = lambda p: ev(p[None, :])[0]  # noqa: E731
+            elif on_cuda:
+                imp_fn = make_stream_importance_fn(tree, house, device)
             imp = importance_measures(tree, mean_p, house_t, top_fn=imp_fn)
             if products is not None:
                 imp.occurrences = occurrence_counts(products, tree.n_basic)
@@ -327,7 +328,9 @@ class RiskAnalysis:
             t0 = time.perf_counter()
             # Uncertainty propagates through the same quantification the
             # point estimate used: exact BDD when available, otherwise the
-            # configured cut-set approximation per trial.
+            # configured cut-set approximation per trial, otherwise direct
+            # propagation (make_propagator: the fused and stream kernels
+            # on CUDA).
             unc_fn = top_fn
             unc_method = None
             if modular_bdd is not None and on_cuda:
@@ -348,7 +351,7 @@ class RiskAnalysis:
             unc = uncertainty_analysis(
                 tree, tape, settings.seed(), settings.num_trials(), mission,
                 device, num_quantiles=settings.num_quantiles(),
-                num_bins=settings.num_bins(),
+                num_bins=settings.num_bins(), house_states=house,
                 batch_size=(settings.batch_size()
                             if settings.batch_size() > 1 else None),
                 top_fn=unc_fn)

@@ -8,7 +8,8 @@ importance factor
     MIF_i = dP(top)/dp_i = P(top | x_i=1) - P(top | x_i=0)
 
 is exact, and one reverse-mode pass (torch autograd; on CUDA through the
-adjoint kernel when the evaluator streams) yields every event's MIF at
+adjoint kernel, over the exact BDD's stream program or, without one, the
+tree's: :func:`make_stream_importance_fn`) yields every event's MIF at
 once. All other measures derive algebraically from (P, p, MIF):
 
     P(top | x_i=1) = P + (1 - p_i) * MIF_i
@@ -29,7 +30,8 @@ import torch
 from ..compiler.graph import CompiledTree
 from .propagate import top_event_probability
 
-__all__ = ["ImportanceResult", "importance_measures", "occurrence_counts"]
+__all__ = ["ImportanceResult", "importance_measures",
+           "make_stream_importance_fn", "occurrence_counts"]
 
 
 @dataclasses.dataclass
@@ -94,6 +96,36 @@ def importance_measures(tree: CompiledTree, basic_p: torch.Tensor,
         mif=mif.cpu().numpy(), cif=cif.cpu().numpy(),
         dif=dif.cpu().numpy(), raw=raw.cpu().numpy(),
         rrw=rrw.cpu().numpy())
+
+
+def make_stream_importance_fn(tree: CompiledTree, house_states, device):
+    """A differentiable ``top_fn(p)`` over the tree's uncapped stream
+    program (``ops/stream_kernel.compile_tree_stream``), whose backward
+    runs the adjoint kernel: direct-propagation semantics, the same math
+    as the gather engine.
+
+    The JAX package broadcasts ``p`` onto 1,024 float32 lanes and means
+    them; here the kernels run one trial in float64, as importance over a
+    BDD does (float32 partials cancel; ROADMAP.md Queue 3).  The program
+    exists for every tree with an anchored top, so on CUDA this never
+    returns ``None``; on the CPU it runs the kernels' plain versions.
+    ``p`` must lie on ``device``: nothing is moved between devices.
+    """
+    from ..errors import LogicError
+    from ..ops.adjoint_kernel import make_differentiable_stream
+    from ..ops.stream_kernel import stage_basic, tree_stream_encoding
+    device = torch.device(device)
+    enc = tree_stream_encoding(tree)
+    house = tree.house_state_vector() if house_states is None \
+        else np.asarray(house_states)
+    f = make_differentiable_stream(enc, house)
+
+    def top_fn(p):
+        if p.device.type != device.type:
+            raise LogicError(f"importance runs on {device}, got p on "
+                             f"{p.device}")
+        return f(stage_basic(enc, p[None, :], torch.float64))[0]
+    return top_fn
 
 
 def occurrence_counts(products, n_basic: int) -> np.ndarray:

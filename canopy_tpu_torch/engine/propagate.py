@@ -20,8 +20,15 @@ Per level (see ``compiler/graph.py``):
 Rows are written out of place (``index_copy``), so autograd differentiates
 the whole pass.  Exact when no basic event feeds two argument paths of the
 same gate subgraph; the BDD engine (``engine/bdd_eval.py``) is the exact
-path for shared-event models.  The kernel engines (``make_propagator`` and
-its staged and parameter variants) are not ported yet.
+path for shared-event models.
+
+:func:`make_propagator` picks an engine for a tree once and returns the
+evaluator: on CUDA the hand-written kernels (fused whole-tree, then the
+uncapped tree stream), elsewhere this gather engine.
+:func:`make_staged_propagator` splits the stream engine's staging from
+its kernel for hot loops.  ``make_param_propagator`` is not ported: it
+existed to keep index arrays out of remote-compile requests, and torch
+takes index tensors as plain arguments.
 """
 
 from __future__ import annotations
@@ -34,7 +41,8 @@ import torch
 from ..compiler.graph import CompiledTree, CountBlock, PairBlock, ProdBlock
 
 __all__ = ["propagate_probability", "top_event_probability",
-           "propagate_node_major", "mean_basic_probabilities"]
+           "propagate_node_major", "make_propagator",
+           "make_staged_propagator", "mean_basic_probabilities"]
 
 
 def _compute_dtype(vals: torch.Tensor) -> torch.dtype:
@@ -163,6 +171,170 @@ def top_event_probability(tree: CompiledTree, basic_p: torch.Tensor,
                                                      house_states)
     vals = propagate_node_major(tree, basic_nm, house_nm)
     return torch.reshape(vals[tree.top_index], batch_shape)
+
+
+#: Engines of the JAX package that wait for their kernels (ROADMAP.md).
+_NOT_PORTED = {"replay": "Queue 2 item 5", "spill": "Queue 2 item 10",
+               "block": "Queue 2 item 12"}
+
+
+def _build_house(tree: CompiledTree,
+                 house_states: np.ndarray | None) -> np.ndarray:
+    if house_states is None:
+        return tree.house_state_vector()
+    return np.asarray(house_states, dtype=np.float64)
+
+
+def _auto_engine(tree: CompiledTree, device: torch.device,
+                 output: str) -> str:
+    """The engine ``engine="auto"`` runs: on CUDA with an anchored top,
+    the tiled fused kernel when the tree fits it, then the lane-row one,
+    then the uncapped tree stream (which never refuses a tree); gather on
+    the CPU, for ``output="all"`` and for a tree without an anchored
+    top."""
+    from ..ops.fused_kernel import fused_supported, fused_tiled_supported
+    if device.type != "cuda" or output != "top" or tree.top_index is None:
+        return "gather"
+    if fused_tiled_supported(tree):
+        return "fused_tiled"
+    if fused_supported(tree):
+        return "fused"
+    return "stream"
+
+
+def _named(fn, engine: str):
+    fn.engine = engine
+    return fn
+
+
+def make_propagator(tree: CompiledTree, device, output: str = "top",
+                    engine: str = "auto",
+                    house_states: np.ndarray | None = None):
+    """An evaluator ``f(basic_p, house_states=None) -> prob`` for
+    ``(..., n_basic)`` probabilities on ``device``; ``f.engine`` names the
+    engine that runs.
+
+    ``house_states`` fixes the house-event vector at build time (default:
+    the tree's current states).  The kernel engines bake it into their
+    program as float32 constants, and a per-call override raises
+    ``ValueError``; only the gather engine honours one.
+
+    ``output``: ``"top"`` for the top event's value, ``"all"`` for every
+    node's (gather only).  ``engine``:
+
+    * ``"gather"`` — this module's level evaluation in the input's dtype
+      (top-only queries evaluate the pruned top cone, bit-identical);
+    * ``"fused"`` — the whole-tree kernel (``ops/fused_kernel.py``), the
+      tiled counterpart when the tree fits it, else the lane-row one;
+      float32, ``(n_trials, n_basic)`` input;
+    * ``"stream"`` — the stream kernel on the tree's uncapped stream
+      program (``ops/stream_kernel.compile_tree_stream``); float32,
+      ``(n_trials, n_basic)`` input;
+    * ``"auto"`` — on CUDA tiled fused, lane-row fused, then stream; the
+      gather engine on the CPU, for ``output="all"`` or without an
+      anchored top.  No CUDA path falls back to gather.
+
+    On the CPU ``"fused"`` and ``"stream"`` run the kernels' plain
+    versions (the rehearsal the tests use).  ``"replay"``, ``"spill"``
+    and ``"block"`` raise ``NotImplementedError``: their kernels are not
+    ported yet.
+    """
+    from ..ops.fused_kernel import (fused_propagate, fused_propagate_tiled,
+                                    fused_supported, fused_tiled_supported)
+    from ..ops.stream_kernel import stream_propagate, tree_stream_encoding
+    device = torch.device(device)
+    if engine in _NOT_PORTED:
+        raise NotImplementedError(
+            f"the {engine} engine is not ported to canopy_tpu_torch yet "
+            f"(ROADMAP.md, {_NOT_PORTED[engine]})")
+    if engine not in ("auto", "gather", "fused", "stream"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine == "auto":
+        engine = _auto_engine(tree, device, output)
+    elif engine == "fused":
+        engine = "fused_tiled" if fused_tiled_supported(tree) else "fused"
+    house = _build_house(tree, house_states)
+
+    if engine != "gather":
+        if output != "top":
+            raise ValueError(f"the {engine} engine only produces the top "
+                             f"value")
+        if engine == "stream":
+            enc = tree_stream_encoding(tree)
+
+            def run(basic_p):
+                return stream_propagate(enc, basic_p, house)
+        elif engine == "fused_tiled":
+            def run(basic_p):
+                return fused_propagate_tiled(tree, basic_p, house)
+        elif fused_supported(tree):
+            def run(basic_p):
+                return fused_propagate(tree, basic_p, house)
+        else:
+            raise ValueError(f"tree ({tree.n_gates} gates) does not fit the "
+                             f"fused kernels; use the stream engine")
+
+        def fn(basic_p, house_states=None):
+            if house_states is not None:
+                raise ValueError(
+                    f"the {engine} engine bakes house states at build "
+                    f"time; pass them to make_propagator(house_states=...)")
+            return run(basic_p)
+        return _named(fn, engine)
+
+    baked = torch.as_tensor(house, device=device)
+    if output == "top":
+        # Top-only queries skip gates outside the top cone (bit-identical:
+        # per-gate argument lists are unchanged).
+        eval_tree = tree
+        if tree.top_index is not None:
+            from ..compiler.graph import prune_to_top_cone
+            eval_tree = prune_to_top_cone(tree)
+
+        def fn(basic_p, house_states=None):
+            h = baked if house_states is None else house_states
+            return top_event_probability(eval_tree, basic_p, h)
+    else:
+        def fn(basic_p, house_states=None):
+            h = baked if house_states is None else house_states
+            return propagate_probability(tree, basic_p, h)
+    return _named(fn, "gather")
+
+
+def make_staged_propagator(tree: CompiledTree, device,
+                           house_states: np.ndarray | None = None,
+                           engine: str = "auto"):
+    """An amortizing ``(stage, run)`` pair for hot loops.
+
+    ``staged = stage(basic_p)`` pays the input layout transform once;
+    ``run(staged)`` then runs the kernel per call.  As in the JAX
+    package: the stream engine (here the uncapped tree stream, so it
+    exists for every anchored tree) on CUDA, otherwise the identity stage
+    over the gather engine on the pruned top cone.  ``engine="stream"``
+    forces the stream pair on the CPU (the kernels' plain versions).
+    Callers hold the staged tensor themselves: there is no cache keyed on
+    the input's identity.  ``run.engine`` names the engine.
+    """
+    from ..ops.stream_kernel import (stage_basic, stream_propagate_staged,
+                                     tree_stream_encoding)
+    device = torch.device(device)
+    house = _build_house(tree, house_states)
+    streams = engine == "stream" or (engine == "auto"
+                                     and device.type == "cuda")
+    if streams and tree.top_index is not None:
+        enc = tree_stream_encoding(tree)
+
+        def stage(basic_p):
+            return stage_basic(enc, basic_p)
+
+        def run(staged):
+            return stream_propagate_staged(enc, staged, house)
+        return stage, _named(run, "stream")
+    gather = make_propagator(tree, device, "top", "gather", house)
+
+    def run_gather(basic_p):
+        return gather(basic_p)
+    return (lambda p: p), _named(run_gather, "gather")
 
 
 def mean_basic_probabilities(tree: CompiledTree) -> np.ndarray:

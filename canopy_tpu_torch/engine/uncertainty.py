@@ -4,8 +4,8 @@ The reference's Monte-Carlo uncertainty surface (``settings.h:118-175``:
 num_trials, quantiles, bins): the expression tape draws ``num_trials``
 probability vectors in one vectorized pass on the analysis device
 (``compiler/expr_tape.py``), the whole batch goes through the top-event
-evaluator at once (on CUDA the exact-BDD stream kernel), and statistics
-reduce on the host.
+evaluator at once (on CUDA the exact-BDD stream kernel, or without a BDD
+``make_propagator``'s kernels), and statistics reduce on the host.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 
 from ..compiler.expr_tape import ExpressionTape
 from ..compiler.graph import CompiledTree
+from .propagate import make_propagator
 
 __all__ = ["UncertaintyResult", "uncertainty_analysis",
            "sample_basic_probabilities"]
@@ -55,20 +56,24 @@ def uncertainty_analysis(tree: CompiledTree, tape: ExpressionTape,
                          seed: int, n_trials: int, mission_time: float,
                          device, num_quantiles: int = 20,
                          num_bins: int = 20,
+                         house_states: np.ndarray | None = None,
                          batch_size: int | None = None,
                          top_fn=None) -> UncertaintyResult:
     """Distribution of the top-event probability under parameter uncertainty.
 
     ``batch_size`` splits the trials axis into chunks; batch ``b`` draws
     with key ``(seed, b)``, so a batch's samples do not depend on how many
-    batches there are.  ``top_fn(p_batch) -> (trials,)`` is the evaluator
-    (e.g. exact BDD evaluation).
+    batches there are.  ``top_fn(p_batch) -> (trials,)`` overrides the
+    evaluator (e.g. exact BDD evaluation); by default
+    :func:`~.propagate.make_propagator` dispatches (the fused and stream
+    kernels on CUDA, gather on the CPU) with ``house_states`` (default:
+    the tree's) baked in.
     """
     if top_fn is None:
-        raise NotImplementedError(
-            "uncertainty without an exact BDD needs the kernel propagator "
-            "(make_propagator), which is not ported yet (ROADMAP.md, "
-            "Queue 1 item 7)")
+        house = tree.house_state_vector() if house_states is None \
+            else np.asarray(house_states)
+        top_fn = make_propagator(tree, device, output="top",
+                                 house_states=house)
 
     def run_batch(batch_index: int, batch_trials: int) -> torch.Tensor:
         p = sample_basic_probabilities(tape, (seed, batch_index),

@@ -3,9 +3,11 @@
 The library is compiled at first use, from the package's own sources,
 into ``canopy_tpu_torch/_build/`` (listed in ``.gitignore``), named by a
 hash of the sources and the flags, so an edited kernel rebuilds and an
-unchanged one loads in milliseconds.  ``--fmad=false`` keeps every
-multiply and add rounded on its own, as in the plain PyTorch versions,
-so kernel and plain agree bit for bit.
+unchanged one loads in milliseconds.  Each source compiles in its own
+``nvcc`` process, all started together, and one more links them (a
+build's time is its slowest source's, not their sum).  ``--fmad=false``
+keeps every multiply and add rounded on its own, as in the plain PyTorch
+versions, so kernel and plain agree bit for bit.
 """
 
 from __future__ import annotations
@@ -23,12 +25,11 @@ __all__ = ["load_library", "build_info", "NVCC_FLAGS"]
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(_PKG, "_build")
-_SOURCES = ("stream.cu", "adjoint.cu")
+_SOURCES = ("stream.cu", "adjoint.cu", "fused.cu")
 _HEADERS = ("stream_ops.cuh",)
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 _info: dict = {}
@@ -61,17 +62,38 @@ def _build() -> str:
     if os.path.exists(lib_path):
         return lib_path
     t0 = time.perf_counter()
+    nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        objects, procs = [], []
+        for name in _SOURCES:
+            obj = os.path.join(tmp, name + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                   os.path.join(_CSRC, name)]
+            objects.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        reports = []
+        for cmd, proc in procs:
+            _out, err = proc.communicate()
+            if proc.returncode != 0:
+                for _c, other in procs:
+                    other.kill()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{err}")
+            reports.append(err)
         tmp_lib = os.path.join(tmp, "lib.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp_lib,
-               *(os.path.join(_CSRC, s) for s in _SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        link = [nvcc, "-shared", NVCC_FLAGS[0], NVCC_FLAGS[1], "-o",
+                tmp_lib, *objects]
+        proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stderr}")
         os.replace(tmp_lib, lib_path)
     _info.update(built=True, seconds=time.perf_counter() - t0,
-                 cmd=" ".join(cmd), ptxas=proc.stderr)
+                 cmd="\n".join(" ".join(c) for c in
+                                [*(cmd for cmd, _p in procs), link]),
+                 ptxas="".join(reports))
     return lib_path
 
 
@@ -90,6 +112,10 @@ def load_library() -> ctypes.CDLL:
         bwd = getattr(lib, f"canopy_stream_backward_{suffix}")
         bwd.argtypes = [vp, vp, i32, vp, vp, vp, vp, vp, vp, i64, i32, vp]
         bwd.restype = i32
+    lib.canopy_fused_forward_f32.argtypes = [vp, vp, i32, vp, vp, vp, i64,
+                                             i32, i32, i32, vp]
+    lib.canopy_fused_forward_f32.restype = i32
+    lib.canopy_fused_max_smem_bytes.restype = i32
     lib.canopy_cuda_error_string.argtypes = [i32]
     lib.canopy_cuda_error_string.restype = ctypes.c_char_p
     lib.canopy_max_count_states.restype = i32
@@ -99,5 +125,6 @@ def load_library() -> ctypes.CDLL:
 
 def build_info() -> dict:
     """Library path, whether this process compiled it, the seconds the
-    build took, and nvcc's ptxas report (registers, spills)."""
+    build took, its nvcc commands (one per line) and nvcc's ptxas report
+    (registers, spills)."""
     return dict(_info)

@@ -2,9 +2,10 @@
 
 A :class:`~canopy_tpu_torch.compiler.schedule.StreamProgram` (gates in
 depth-first order over a linear-scan-allocated pool: the scheduler shared
-with the JAX package for trees, :func:`compile_bdd_stream` without the
-TPU's caps for BDDs) is encoded once on the host into int32/float32
-tables (:func:`encode_stream`) and then run either by the hand-written
+with the JAX package, or :func:`compile_tree_stream` and
+:func:`compile_bdd_stream`, the same order without the TPU's caps) is
+encoded once on the host into int32/float32 tables
+(:func:`encode_stream`) and then run either by the hand-written
 CUDA kernel ``csrc/stream.cu`` or by :func:`stream_forward_plain`, the
 plain PyTorch version of the same arithmetic in the same op order.
 
@@ -40,7 +41,8 @@ from ..compiler.graph import CompiledTree
 from ..compiler.schedule import StreamProgram, build_stream_schedule
 from ..errors import LogicError
 
-__all__ = ["compile_stream", "compile_bdd_stream", "EncodedStream",
+__all__ = ["compile_stream", "compile_bdd_stream", "compile_tree_stream",
+           "tree_stream_encoding", "EncodedStream",
            "encode_stream", "stage_basic", "unstage_basic",
            "stream_forward", "stream_forward_plain", "stream_propagate",
            "stream_propagate_staged", "stream_bdd_probability", "house_tensor",
@@ -52,12 +54,15 @@ POOL, STAGED, HOUSE, LOG = range(4)
 _KIND = {"prod": PROD, "pair": PAIR, "count": COUNT, "mux": MUX,
          "fill": FILL}
 _SRC = {"pool": POOL, "stage": STAGED, "house": HOUSE}
-#: Per-thread count-DP states in the kernels (a count gate needs hi + 2).
-MAX_COUNT_STATES = 64
+#: Per-thread count-DP states in the kernels (a count gate needs hi + 2;
+#: the top of ``aralia_like_nested_count``, at least 32 of 86, needs 88).
+MAX_COUNT_STATES = 128
 
 #: Kernel launches by kernel name: ``stream`` (forward), ``stream_log``
-#: (forward with the value log) and ``adjoint`` (backward).
-LAUNCHES = {"stream": 0, "stream_log": 0, "adjoint": 0}
+#: (forward with the value log), ``adjoint`` (backward), and the fused
+#: whole-tree kernels ``fused_tiled`` and ``fused`` (``fused_kernel.py``).
+LAUNCHES = {"stream": 0, "stream_log": 0, "adjoint": 0, "fused_tiled": 0,
+            "fused": 0}
 
 
 def reset_launches() -> None:
@@ -73,6 +78,62 @@ def compile_stream(tree: CompiledTree, chunk_tiles: int = 256,
                                  n_bufs=n_bufs)
 
 
+def _uncapped_program(exec_rows, n_b: int, n_h: int,
+                      top: int) -> StreamProgram:
+    """Allocate ``exec_rows`` (value slots: staged inputs below ``n_b``,
+    house events below ``n_b + n_h``, gates above) without the TPU's caps.
+
+    Every input the rows read gets its own staged row, in first-use
+    order (one staging chunk, no spills); gate values take linear-scan
+    pool slots, freed after their last reader — the shared scheduler's
+    allocation without its staging ring, so wherever that scheduler
+    spills nothing both give the same tables.
+    """
+    stage_pos: dict[int, int] = {}
+    last_read: dict[int, int] = {}
+    for g, (_k, _out, args, _aux) in enumerate(exec_rows):
+        for slot, _flag in args:
+            if slot < n_b:
+                stage_pos.setdefault(slot, len(stage_pos))
+            elif slot >= n_b + n_h:
+                last_read[slot] = g
+    if not stage_pos:
+        raise LogicError("stream schedule needs at least one basic event")
+
+    def loc(s: int):
+        if s < n_b:
+            return ("stage", 0, stage_pos[s])
+        if s < n_b + n_h:
+            return ("house", s - n_b)
+        return ("pool", pool_of[s])
+
+    free: list[int] = []
+    n_slots = 0
+    pool_of: dict[int, int] = {}
+    frees_at: dict[int, list[int]] = {}
+    ops: list = [("start", 0, 0), ("wait", 0, 0)]
+    for g, (kind, out, args, aux) in enumerate(exec_rows):
+        locs = [(loc(s), flag) for s, flag in args]
+        if free:
+            pool_of[out] = free.pop()
+        else:
+            pool_of[out] = n_slots
+            n_slots += 1
+        ops.append(("gate", kind, pool_of[out], locs, aux))
+        if out != top:
+            if out in last_read:
+                frees_at.setdefault(last_read[out], []).append(out)
+            else:
+                free.append(pool_of[out])
+        free += [pool_of[v] for v in frees_at.pop(g, ())]
+    n_staged = len(stage_pos)
+    return StreamProgram(
+        ops=ops, basic_perm=np.fromiter(stage_pos, np.int64, n_staged),
+        n_basic=n_staged, n_basic_pad=n_staged, chunk_tiles=n_staged,
+        n_chunks=1, n_bufs=1, pool_slots=n_slots, top_slot=pool_of[top],
+        nnz=sum(len(r[2]) for r in exec_rows), n_house=n_h)
+
+
 def compile_bdd_stream(bdd) -> StreamProgram:
     """Schedule exact ROBDD evaluation for the kernels: one fused mux per
     Shannon node, in the shared scheduler's depth-first order, so every
@@ -80,10 +141,9 @@ def compile_bdd_stream(bdd) -> StreamProgram:
 
     The shared scheduler's caps (a 13 MiB VMEM pool, 400k unrolled edges)
     belong to the TPU kernel.  Here the op table is data and the pool
-    lives in device memory, so none applies: every decision variable
-    keeps its own staged row (one staging chunk, no spills) and node
-    values take linear-scan pool slots.  Raises ``LogicError`` only for a
-    constant BDD or one without raw node arrays.
+    lives in device memory, so none applies (:func:`_uncapped_program`).
+    Raises ``LogicError`` only for a constant BDD or one without raw node
+    arrays.
     """
     from ..compiler.schedule import _dfs_exec_rows
     if bdd.raw_var is None:
@@ -108,46 +168,43 @@ def compile_bdd_stream(bdd) -> StreamProgram:
                           (n_b + int(high_arr[n]), False),
                           (n_b + int(low_arr[n]), False)], None)
         for n in sorted(reach)]
-    exec_rows = _dfs_exec_rows(rows, n_b, 0, n_b + root)
-
-    # Staging order = first use; a node's value is freed after its last
-    # reader (the shared scheduler's allocation without the staging ring).
-    stage_pos: dict[int, int] = {}
-    last_read: dict[int, int] = {}
-    for g, (_k, _out, args, _aux) in enumerate(exec_rows):
-        for slot, _flag in args:
-            if slot < n_b:
-                stage_pos.setdefault(slot, len(stage_pos))
-            else:
-                last_read[slot] = g
-    free: list[int] = []
-    n_slots = 0
-    pool_of: dict[int, int] = {}
-    frees_at: dict[int, list[int]] = {}
-    ops: list = [("start", 0, 0), ("wait", 0, 0)]
-    for g, (kind, out, args, aux) in enumerate(exec_rows):
-        locs = [((("stage", 0, stage_pos[s]) if s < n_b
-                  else ("pool", pool_of[s])), flag) for s, flag in args]
-        if free:
-            pool_of[out] = free.pop()
-        else:
-            pool_of[out] = n_slots
-            n_slots += 1
-        ops.append(("gate", kind, pool_of[out], locs, aux))
-        if out != n_b + root:
-            if out in last_read:
-                frees_at.setdefault(last_read[out], []).append(out)
-            else:
-                free.append(pool_of[out])
-        free += [pool_of[v] for v in frees_at.pop(g, ())]
-    program = StreamProgram(
-        ops=ops, basic_perm=np.fromiter(stage_pos, np.int64, n_b),
-        n_basic=n_b, n_basic_pad=n_b, chunk_tiles=n_b, n_chunks=1,
-        n_bufs=1, pool_slots=n_slots, top_slot=pool_of[n_b + root],
-        nnz=sum(len(r[2]) for r in exec_rows), n_house=0)
+    program = _uncapped_program(_dfs_exec_rows(rows, n_b, 0, n_b + root),
+                                n_b, 0, n_b + root)
     program.stage_cols = np.array([bdd.slot_of_var[v] for v in used_vars],
                                   dtype=np.int64)
     return program
+
+
+def compile_tree_stream(tree: CompiledTree) -> StreamProgram:
+    """Schedule a compiled tree's top cone for the kernels: the tree
+    counterpart of :func:`compile_bdd_stream`.
+
+    Gates run in the shared scheduler's depth-first order
+    (``compiler/schedule._dfs_exec_rows``), so every op computes what the
+    JAX package's stream computes.  None of the TPU's caps applies (no
+    400k-edge limit, no staging ring, no VMEM budget): every reachable
+    basic event keeps its own staged row in first-use order and gate
+    values take linear-scan pool slots in device memory.  Raises
+    ``LogicError`` only when the tree has no anchored top or its cone
+    reads no basic event.
+    """
+    from ..compiler.schedule import _dfs_exec_rows, _emit_gate_ops
+    if tree.top_index is None:
+        raise LogicError("stream schedule needs an anchored top event")
+    n_b, n_h = tree.n_basic, tree.n_house
+    exec_rows = _dfs_exec_rows(_emit_gate_ops(tree), n_b, n_h,
+                               tree.top_index)
+    return _uncapped_program(exec_rows, n_b, n_h, tree.top_index)
+
+
+def tree_stream_encoding(tree: CompiledTree) -> "EncodedStream":
+    """The encoded :func:`compile_tree_stream` program of ``tree``, cached
+    on the tree so importance (f64) and uncertainty (f32) schedule and
+    encode it once."""
+    enc = getattr(tree, "_stream_encoding", None)
+    if enc is None:
+        enc = tree._stream_encoding = encode_stream(compile_tree_stream(tree))
+    return enc
 
 
 @dataclasses.dataclass

@@ -1,1 +1,2 @@
-"""Utilities: phase timers and the profiler trace context."""
+"""Utilities: phase timers, the profiler trace context, and synthetic
+fault trees (``synthetic.py``, vendored from the JAX package)."""

@@ -9,21 +9,48 @@ false or the package is missing).  Phases, each raising on failure:
 1. the device: ``nvidia-smi`` name and power limit;
 2. the kernel build (``nvcc`` for ``sm_90a`` from ``canopy_tpu_torch/csrc``);
 3. every kernel against its plain PyTorch version on the card: the
-   forward bit-equal at 1,048,576 trials on the slice's big BDD module and
-   on the prod/pair/count tree programs of two fixtures; the logged
+   forward bit-equal at 1,048,576 trials on the slice's big BDD module, on
+   the slice tree's uncapped stream program (the direct-propagation
+   path's importance program) and on the prod/pair/count tree programs of
+   two fixtures; the logged
    forward and the backward, f32 and f64, bit-equal at 1 and 1,024
    trials, and the backward within ``GRAD_RTOL`` of torch autograd
    through the f64 plain forward; CUDA-event times of kernel and plain;
-4. the slice, through the CLI in-process
+4. the fused whole-tree kernels (``csrc/fused.cu``) against their plain
+   version, bit-equal at 1,048,576 and 100,003 trials: the tiled
+   counterpart on the slice tree and on ``demo_plant`` (a house event),
+   the lane-row one on ``aralia_like_large`` and
+   ``aralia_like_nested_count`` (count gates up to 88 DP states);
+   CUDA-event times of kernel and plain;
+5. dispatch: ``make_propagator(engine="auto")`` picks the tiled kernel on
+   the slice tree, the lane-row one on ``aralia_like_large`` and the
+   uncapped tree stream on the 9,363-gate hierarchical tree of
+   ``bench.py``'s importance section (16,384 trials); each launches its
+   kernel once and agrees with the f64 gather engine within ``TOP_RTOL``
+   (per trial for the fused kernels; for the stream, whose tree has tops
+   near 1e-5 that float32 cannot resolve to 1e-5 relative, normwise and
+   bit-equal to the float32 gather);
+6. the BDD slice, through the CLI in-process
    (``tests/fixtures/torch_slice_plant.xml --device cuda --bdd
-   --importance --uncertainty --num-trials 1048576 --seed 7``): every
-   kernel launched, the stream method tag, probability / MIF / cut-set
+   --importance --uncertainty --num-trials 1048576 --seed 7``): its
+   kernels launched, the stream method tag, probability / MIF / cut-set
    count against ``tests/fixtures/torch_slice_golden.json``, and the
    kernel's per-trial tops of 65,536 sampled trials against the f64 level
-   evaluation of the same samples.
+   evaluation of the same samples;
+7. the direct-propagation slice, through ``RiskAnalysis`` with
+   ``algorithm("pdag").approximation("none")``, importance and 1,048,576
+   uncertainty trials: ``fused_tiled``, ``stream_log`` and ``adjoint``
+   launched, probability / MIF / cut-set count against
+   ``tests/fixtures/torch_pdag_golden.json``, the redrawn batch
+   reproducing the reported mean exactly, and 65,536 of its trials'
+   kernel tops against the f64 gather engine.
 
-Long output goes to ``chiprun_out/``.  The last lines are the kernels'
-JSON record, the card's ``nvidia-smi`` line, and the contract line
+Each path (5, 6, 7) runs with the launch counts set to 0 just before it
+and read just after; a kernel of the path that never launched fails the
+run.  Long output goes to ``chiprun_out/``.  The last lines are the
+kernels' JSON record (with each kernel's bound: the larger of its bytes
+over the card's memory rate and its operations over its peak rate), the
+card's ``nvidia-smi`` line, and the contract line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -43,9 +70,15 @@ FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 SLICE_MODEL = os.path.join(FIXTURES, "torch_slice_plant.xml")
 SLICE_GOLDEN = os.path.join(FIXTURES, "torch_slice_golden.json")
+PDAG_GOLDEN = os.path.join(FIXTURES, "torch_pdag_golden.json")
 SLICE_TRIALS = 1 << 20
+RAGGED_TRIALS = 100_003
 SLICE_SEED = 7
 AGREE_TRIALS = 65_536
+#: Trials of the hierarchical tree's stream dispatch (bench.py's size),
+#: and how many of them the f64 gather engine re-evaluates.
+HIER_TRIALS = 16_384
+HIER_AGREE = 2_048
 
 #: Backward kernel against autograd through the f64 plain forward, as the
 #: per-trial normwise relative error (largest error over largest
@@ -58,8 +91,16 @@ PROB_RTOL = 1e-12
 #: MIF of the (f64) adjoint kernel against the frozen f64 JAX MIF, for
 #: every event above 1e-6 of the largest MIF.
 MIF_RTOL = 1e-4
+#: The same on the direct-propagation path: the tree's f64 adjoint
+#: against the JAX package's f64 gather autodiff (same gate arithmetic).
+PDAG_MIF_RTOL = 1e-10
 #: Per-trial f32 kernel tops against the f64 level evaluation.
 TOP_RTOL = 1e-5
+
+#: One H100 SXM at its full 700 W (NVIDIA's data sheet): HBM3 rate, and
+#: peak rates outside the tensor cores by value size (float32, float64).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {4: 67e12, 8: 34e12}
 
 KERNELS = {
     "stream": ("canopy_tpu_torch/csrc/stream.cu",
@@ -68,7 +109,15 @@ KERNELS = {
                    "canopy_tpu/ops/adjoint_kernel.py:40"),
     "adjoint": ("canopy_tpu_torch/csrc/adjoint.cu",
                 "canopy_tpu/ops/adjoint_kernel.py:164"),
+    "fused_tiled": ("canopy_tpu_torch/csrc/fused.cu",
+                    "canopy_tpu/ops/pallas_kernels.py:258"),
+    "fused": ("canopy_tpu_torch/csrc/fused.cu",
+              "canopy_tpu/ops/pallas_kernels.py:175"),
 }
+#: The path whose launch count each kernel's record reports.
+PATH_OF = {"stream": "bdd-slice", "stream_log": "pdag-slice",
+           "adjoint": "pdag-slice", "fused_tiled": "pdag-slice",
+           "fused": "dispatch"}
 
 
 def log(msg: str) -> None:
@@ -109,8 +158,61 @@ def load_tree(name: str):
     from canopy_tpu_torch.settings import Settings
     model = Initializer([os.path.join(FIXTURES, f"{name}.xml")],
                         Settings().ccf_analysis(True)).model
-    tree_name = "slice" if name == "torch_slice_plant" else name
+    tree_name = {"torch_slice_plant": "slice",
+                 "demo_plant": "Cooling"}.get(name, name)
     return compile_fault_tree(model.fault_trees.get(tree_name))
+
+
+def op_flops(enc, backward: bool = False) -> int:
+    """Arithmetic operations of one trial of an encoded program, counted
+    from its op table: complements, products, sums and the count DP (the
+    backward: each partial, its product with the adjoint and its
+    accumulation)."""
+    from canopy_tpu_torch.ops.stream_kernel import COUNT, MUX, PAIR, PROD
+    flags = enc.args[:, 2]
+    total = 0
+    for kind, _out, b, e, aux0, aux1, _row in enc.ops.tolist():
+        n_args = e - b
+        total += int(flags[b:e].sum())
+        if kind == MUX:
+            total += 8 if backward else 4
+        elif kind == PROD:
+            total += (4 * n_args - 1 if backward else n_args - 1) + aux0
+        elif kind == PAIR:
+            total += (8 if backward else 4) + aux0
+        elif kind == COUNT:
+            cap = aux1 + 1
+            dp = n_args * (3 * cap + 1) + max(aux1 - aux0, 0)
+            total += n_args * (dp + 3) if backward else dp
+    return total
+
+
+def bound(n_bytes: float, flops: float, itemsize: int) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[itemsize] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def reset_counts() -> None:
+    from canopy_tpu_torch.ops.stream_kernel import reset_launches
+    torch.cuda.synchronize()
+    reset_launches()
+
+
+def read_counts(record: dict, path: str, kernels) -> dict:
+    """The launch counts of ``path``; fails unless each of its kernels
+    launched."""
+    from canopy_tpu_torch.ops.stream_kernel import LAUNCHES
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    record.setdefault("paths", {})[path] = launches
+    for name in kernels:
+        check(launches[name] > 0, f"{path}: kernel {name} never launched")
+    return launches
 
 
 def phase_build() -> None:
@@ -120,28 +222,40 @@ def phase_build() -> None:
     info = build_info()
     log(f"[build] {time.perf_counter() - t0:.3f} s (nvcc "
         f"{info['seconds']:.3f} s, built={info['built']}): {info['path']}")
-    if info.get("cmd"):
-        log(f"[build] {info['cmd']}")
+    for line in info.get("cmd", "").splitlines():
+        log(f"[build] {line}")
     for line in info.get("ptxas", "").splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[build] ptxas {line.strip()}")
     from canopy_tpu_torch.ops.stream_kernel import MAX_COUNT_STATES
     check(lib.canopy_max_count_states() == MAX_COUNT_STATES,
           "kernel and wrapper disagree on the count-DP bound")
+    from canopy_tpu_torch.ops.fused_kernel import SMEM_BYTES
+    smem = lib.canopy_fused_max_smem_bytes()
+    log(f"[build] opt-in shared memory per block: {smem} B (the fused "
+        f"kernels assume {SMEM_BYTES})")
+    check(smem >= SMEM_BYTES, "less shared memory than the fused kernels "
+                              "assume")
 
 
 def programs():
-    """(label, encoded program, house) of every program phase 3 checks."""
+    """(label, encoded program, house) of every program phase 3 checks:
+    the slice's big BDD module (the BDD slice's stream program), the slice
+    tree's uncapped stream program (the direct-propagation slice's
+    importance program), and two fixtures' shared-scheduler programs."""
     from canopy_tpu_torch.compiler.modules import build_modular_bdd
     from canopy_tpu_torch.ops.stream_kernel import (compile_bdd_stream,
                                                     compile_stream,
-                                                    encode_stream)
+                                                    encode_stream,
+                                                    tree_stream_encoding)
     out = []
     slice_tree = load_tree("torch_slice_plant")
     for bdd, _slot in build_modular_bdd(slice_tree).chain:
         if bdd.n_nodes >= 256:
             out.append((f"slice-module-{bdd.n_nodes}",
                         encode_stream(compile_bdd_stream(bdd)), []))
+    out.append(("slice-tree", tree_stream_encoding(slice_tree),
+                slice_tree.house_state_vector()))
     for name in ("aralia_like_ccf", "aralia_like_noncoherent"):
         tree = load_tree(name)
         out.append((f"{name}-tree", encode_stream(compile_stream(tree)),
@@ -177,7 +291,11 @@ def phase_kernels(device, record: dict) -> None:
                            dtype=torch.float64) * 0.02).to(dtype)
 
     for label, enc, house in progs:
+        # The stream record is the BDD slice's program at its uncertainty
+        # shape; the logged forward's and the adjoint's are the
+        # direct-propagation slice's importance program (PATH_OF).
         main = label.startswith("slice-module")
+        importance = label == "slice-tree"
         h32 = house_tensor(enc, house, device)
         # Forward at the uncertainty batch size, f32 as uncertainty runs.
         staged = probabilities((enc.n_basic, SLICE_TRIALS))
@@ -193,10 +311,11 @@ def phase_kernels(device, record: dict) -> None:
             f"f32 forward at {SLICE_TRIALS} trials bit-equal to plain; "
             f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
         if main:
-            record["stream"].update(max_abs_err=err, ms=ms,
-                                    plain_ms=plain_ms,
-                                    shape=f"{enc.n_ops} ops x "
-                                          f"{SLICE_TRIALS} trials, f32")
+            record["stream"].update(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                shape=f"{enc.n_ops} ops x {SLICE_TRIALS} trials, f32",
+                **bound((enc.n_basic + 1) * SLICE_TRIALS * 4,
+                        op_flops(enc) * SLICE_TRIALS, 4))
         del staged, top, plain
         torch.cuda.empty_cache()
         # Logged forward and backward, in both value types, at 1 trial
@@ -242,15 +361,20 @@ def phase_kernels(device, record: dict) -> None:
                     f"autograd {rel:.3e} (limit {limit}); log kernel "
                     f"{ms_log:.3f} ms / plain {pms_log:.3f} ms; adjoint "
                     f"kernel {ms_bwd:.3f} ms / plain {pms_bwd:.3f} ms")
-                if main and n == 1 and name == "f64":
+                if importance and n == 1 and name == "f64":
                     record["stream_log"].update(
                         max_abs_err=log_err, ms=ms_log, plain_ms=pms_log,
-                        shape=f"{enc.n_ops} ops x 1 trial, f64")
+                        shape=f"{enc.n_ops} ops x 1 trial, f64",
+                        **bound((enc.n_basic + 1 + enc.n_log) * 8,
+                                op_flops(enc), 8))
                     record["adjoint"].update(
                         max_abs_err=grad_err, ms=ms_bwd, plain_ms=pms_bwd,
-                        shape=f"{enc.n_ops} ops x 1 trial, f64")
-                if main:
-                    record.setdefault("timings", {})[f"{name}@{n}"] = {
+                        shape=f"{enc.n_ops} ops x 1 trial, f64",
+                        **bound((2 * enc.n_basic + enc.n_log + 1) * 8,
+                                op_flops(enc, backward=True), 8))
+                if main or importance:
+                    record.setdefault("timings", {})[
+                        f"{label} {name}@{n}"] = {
                         "log_ms": ms_log, "log_plain_ms": pms_log,
                         "adjoint_ms": ms_bwd, "adjoint_plain_ms": pms_bwd}
 
@@ -263,7 +387,6 @@ def phase_slice(device, record: dict) -> None:
     from canopy_tpu_torch.engine.bdd_eval import make_modular_evaluator
     from canopy_tpu_torch.engine.uncertainty import \
         sample_basic_probabilities
-    from canopy_tpu_torch.ops.stream_kernel import LAUNCHES, reset_launches
 
     with open(SLICE_GOLDEN) as fh:
         golden = json.load(fh)
@@ -271,19 +394,16 @@ def phase_slice(device, record: dict) -> None:
     argv = [SLICE_MODEL, "--device", "cuda", "--bdd", "--importance",
             "--uncertainty", "--num-trials", str(SLICE_TRIALS), "--seed",
             str(SLICE_SEED), "-o", report_path]
-    torch.cuda.synchronize()
-    reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     rc = cli_main(argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
+    launches = read_counts(record, "bdd-slice",
+                           ("stream", "stream_log", "adjoint"))
     check(rc == 0, f"CLI exited {rc}")
     log(f"[slice] python -m canopy_tpu_torch {' '.join(argv)}: "
         f"{seconds:.3f} s, launches {launches}")
-    for name in KERNELS:
-        record[name]["launches"] = launches[name]
-        check(launches[name] > 0, f"kernel {name} never launched")
     with open(report_path) as fh:
         report = json.load(fh)
     (ft,) = report["fault_trees"]
@@ -337,6 +457,232 @@ def phase_slice(device, record: dict) -> None:
     record["slice_seconds"] = seconds
 
 
+def phase_fused(device, record: dict) -> None:
+    """(a) Each fused kernel against its plain version, bit-equal."""
+    from canopy_tpu_torch.ops.fused_kernel import (LANE_TRIALS, TILED_TRIALS,
+                                                   encode_fused,
+                                                   fused_forward,
+                                                   fused_forward_plain,
+                                                   fused_supported,
+                                                   fused_tiled_supported)
+    from canopy_tpu_torch.ops.stream_kernel import (house_tensor,
+                                                    stream_forward,
+                                                    tree_stream_encoding)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(20261)
+    cases = [("torch_slice_plant", "fused_tiled"),
+             ("demo_plant", "fused_tiled"),
+             ("aralia_like_large", "fused"),
+             ("aralia_like_nested_count", "fused")]
+    for name, kernel in cases:
+        tree = load_tree(name)
+        tiled = kernel == "fused_tiled"
+        check(fused_tiled_supported(tree) == tiled and
+              fused_supported(tree), f"{name}: not a {kernel} tree")
+        width = TILED_TRIALS if tiled else LANE_TRIALS
+        enc = encode_fused(tree)
+        house = tree.house_state_vector()
+        h32 = house_tensor(enc, house, device)
+        for n in (SLICE_TRIALS, RAGGED_TRIALS):
+            staged = (torch.rand((enc.n_basic, n), generator=gen,
+                                 device=device, dtype=torch.float64)
+                      * 0.02).to(torch.float32)
+            top = fused_forward(enc, staged, house, width)
+            plain = fused_forward_plain(enc, staged, h32)
+            torch.cuda.synchronize()
+            err = float((top - plain).abs().max())
+            check(err == 0.0, f"{name}: {kernel} differs from plain at "
+                              f"{n} trials ({err})")
+            ms = cuda_ms(lambda: fused_forward(enc, staged, house, width),
+                         5)
+            plain_ms = cuda_ms(lambda: fused_forward_plain(enc, staged,
+                                                           h32), 1)
+            log(f"[fused] {name}: {kernel}, {tree.n_gates} gates x {width} "
+                f"trials per block, {enc.n_basic} basics, {n} trials: "
+                f"bit-equal to plain; kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.3f} ms")
+            main = name in ("torch_slice_plant", "aralia_like_large")
+            if main and n == SLICE_TRIALS:
+                # The stream kernel on the same tree and inputs (its
+                # uncapped program, pool in device memory), for dispatch:
+                # every gate runs the same arithmetic in either order.
+                senc = tree_stream_encoding(tree)
+                sstaged = staged[torch.from_numpy(senc.staged_cols)
+                                 .to(device)]
+                check(torch.equal(stream_forward(senc, sstaged, house)[0],
+                                  top), f"{name}: stream and fused differ")
+                stream_ms = cuda_ms(lambda: stream_forward(
+                    senc, sstaged, house)[0], 5)
+                log(f"[fused] {name}: the stream kernel on the same "
+                    f"inputs ({senc.n_ops} ops, pool {senc.pool_slots}): "
+                    f"{stream_ms:.3f} ms")
+                record[f"{kernel}_vs_stream_ms"] = stream_ms
+                del sstaged
+                record[kernel].update(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    shape=f"{name}, {tree.n_gates} gates x {n} trials, "
+                          f"f32",
+                    **bound((enc.n_basic + 1) * n * 4, op_flops(enc) * n,
+                            4))
+            del staged, top, plain
+        torch.cuda.empty_cache()
+
+
+def phase_dispatch(device, record: dict) -> None:
+    """(b) ``make_propagator(engine="auto")`` on three trees, each against
+    the f64 gather engine."""
+    from canopy_tpu_torch.engine.propagate import make_propagator
+    from canopy_tpu_torch.ops.stream_kernel import (stage_basic,
+                                                    stream_forward,
+                                                    tree_stream_encoding)
+    from canopy_tpu_torch.utils.synthetic import synthetic_hierarchical_tree
+    t0 = time.perf_counter()
+    hier = synthetic_hierarchical_tree(n_basic=65536, branching=8,
+                                       share_fraction=0.1, n_shared=128,
+                                       seed=0)
+    check((hier.n_gates, hier.nnz) == (9363, 74904),
+          f"hierarchical tree {hier.n_gates} gates, {hier.nnz} edges")
+    enc = tree_stream_encoding(hier)
+    log(f"[dispatch] hierarchical tree: {hier.n_gates} gates, {hier.nnz} "
+        f"edges; its uncapped stream program {enc.n_ops} ops over "
+        f"{enc.pool_slots} pool slots, {enc.n_basic} staged basics "
+        f"(built and encoded in {time.perf_counter() - t0:.3f} s)")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(20262)
+    cases = [("torch_slice_plant", load_tree("torch_slice_plant"),
+              "fused_tiled", AGREE_TRIALS, AGREE_TRIALS),
+             ("aralia_like_large", load_tree("aralia_like_large"), "fused",
+              AGREE_TRIALS, AGREE_TRIALS),
+             ("hierarchical", hier, "stream", HIER_TRIALS, HIER_AGREE)]
+    reset_counts()
+    for name, tree, engine, n, n_ref in cases:
+        fn = make_propagator(tree, device)
+        check(fn.engine == engine, f"{name}: auto picked {fn.engine}")
+        p = torch.rand((n, tree.n_basic), generator=gen, device=device,
+                       dtype=torch.float64) * 0.02
+        gather = make_propagator(tree, device, engine="gather")
+        with torch.no_grad():
+            tops = fn(p)
+            ref = gather(p[:n_ref])
+            err = (tops[:n_ref].double() - ref).abs()
+        rel = float((err / ref.abs()).max())
+        if engine == "stream":
+            # This tree's smallest tops (about 1e-5) are ORs computed as
+            # 1 - prod(1 - p), whose float32 rounding is absolute: per
+            # trial only float32's own error is attainable.  The kernel
+            # runs the gather engine's products in its order, so it is
+            # held to the float32 gather bit for bit, and to the f64 one
+            # normwise (largest error over largest top).
+            with torch.no_grad():
+                same = torch.equal(tops[:n_ref], gather(p[:n_ref].float()))
+            check(same, f"{name}: stream tops differ from the f32 gather")
+            norm = float(err.max() / ref.abs().max())
+            check(norm <= TOP_RTOL, f"{name}: stream tops vs f64 gather "
+                                    f"normwise {norm:.3e}")
+            what = (f"bit-equal to the f32 gather; vs f64 gather normwise "
+                    f"{norm:.3e} (limit {TOP_RTOL}), per trial {rel:.3e}")
+        else:
+            check(rel <= TOP_RTOL,
+                  f"{name}: {engine} tops vs gather {rel:.3e}")
+            what = (f"vs f64 gather max rel err {rel:.3e} (limit "
+                    f"{TOP_RTOL})")
+        log(f"[dispatch] {name}: auto -> {engine} at {n} trials; on "
+            f"{n_ref} of them {what}")
+        if engine == "stream":
+            hier_p = p
+        del p, tops, ref, err
+    launches = read_counts(record, "dispatch",
+                           ("fused_tiled", "fused", "stream"))
+    # The stream kernel alone on the staged input (after the count).
+    staged = stage_basic(enc, hier_p)
+    del hier_p
+    ms = cuda_ms(lambda: stream_forward(enc, staged, [])[0], 5)
+    log(f"[dispatch] hierarchical: stream kernel {ms:.3f} ms at "
+        f"{HIER_TRIALS} trials (staged input {enc.n_basic} x "
+        f"{HIER_TRIALS} f32)")
+    record["hier_stream_ms"] = ms
+    del staged
+    log(f"[dispatch] launches {launches}")
+    torch.cuda.empty_cache()
+
+
+def phase_pdag(device, record: dict) -> None:
+    """(c) The direct-propagation slice through ``RiskAnalysis``."""
+    from canopy_tpu_torch.compiler.expr_tape import ExpressionTape
+    from canopy_tpu_torch.engine.analysis import RiskAnalysis
+    from canopy_tpu_torch.engine.propagate import make_propagator
+    from canopy_tpu_torch.engine.uncertainty import \
+        sample_basic_probabilities
+    from canopy_tpu_torch.mef import Initializer
+    from canopy_tpu_torch.settings import Settings
+
+    with open(PDAG_GOLDEN) as fh:
+        golden = json.load(fh)
+    settings = (Settings().algorithm("pdag").approximation("none")
+                .importance_analysis(True).uncertainty_analysis(True)
+                .num_trials(SLICE_TRIALS).seed(SLICE_SEED))
+    model = Initializer([SLICE_MODEL], settings).model
+    reset_counts()
+    t0 = time.perf_counter()
+    report = RiskAnalysis(model, settings, "cuda").run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts(record, "pdag-slice",
+                           ("fused_tiled", "stream_log", "adjoint"))
+    log(f"[pdag] RiskAnalysis(pdag, approximation none, importance, "
+        f"{SLICE_TRIALS} trials, seed {SLICE_SEED}, cuda): {seconds:.3f} s, "
+        f"launches {launches}")
+    log(f"[pdag] timings {json.dumps(report.timings)}")
+    (ft,) = report.fault_trees
+    check(ft.method == golden["method"], f"method {ft.method}")
+    p_err = abs(ft.probability - golden["probability"]) \
+        / golden["probability"]
+    check(p_err <= PROB_RTOL, f"probability rel err {p_err:.3e}")
+    check(ft.n_products == golden["n_products"],
+          f"{ft.n_products} cut sets, golden {golden['n_products']}")
+    gold_imp = golden["importance"]
+    mif_max = max(v["MIF"] for v in gold_imp.values())
+    worst, n_checked = 0.0, 0
+    for row in ft.importance:
+        want = gold_imp[row["event"]]["MIF"]
+        if want > 1e-6 * mif_max:
+            worst = max(worst, abs(row["MIF"] - want) / want)
+            n_checked += 1
+    check(worst <= PDAG_MIF_RTOL, f"MIF rel err {worst:.3e}")
+    unc = ft.uncertainty
+    check("method" not in unc, "the direct-propagation report gained a "
+                               "method key")
+    log(f"[pdag] P = {ft.probability!r} (rel err {p_err:.3e}, limit "
+        f"{PROB_RTOL}); {ft.n_products} cut sets; MIF of {n_checked} "
+        f"events within {worst:.3e} (limit {PDAG_MIF_RTOL}); uncertainty "
+        f"mean {unc['mean']!r}")
+
+    # Redraw the run's one batch (key = (seed, 0)) through the propagator
+    # the analysis used, then hold 65,536 of its trials against gather.
+    tree = load_tree("torch_slice_plant")
+    tape = ExpressionTape.build([e.expression for e in tree.basic_events])
+    samples = sample_basic_probabilities(tape, (SLICE_SEED, 0),
+                                         SLICE_TRIALS,
+                                         Settings().mission_time(), device)
+    fn = make_propagator(tree, device, house_states=tree.house_state_vector())
+    check(fn.engine == "fused_tiled", f"slice dispatch {fn.engine}")
+    with torch.no_grad():
+        tops = fn(samples)
+        mean = float(tops.cpu().numpy().mean())
+        check(mean == unc["mean"], f"redrawn batch mean {mean!r} != "
+                                   f"reported {unc['mean']!r}")
+        ref = make_propagator(tree, device, engine="gather")(
+            samples[:AGREE_TRIALS])
+    rel = float(((tops[:AGREE_TRIALS].double() - ref).abs()
+                 / ref.abs()).max())
+    check(rel <= TOP_RTOL, f"per-trial tops rel err {rel:.3e}")
+    log(f"[pdag] {AGREE_TRIALS} sampled trials: fused tops vs f64 gather "
+        f"max rel err {rel:.3e} (limit {TOP_RTOL}); redrawn batch "
+        f"reproduces the reported mean exactly")
+    record["pdag_seconds"] = seconds
+    record["pdag_timings"] = report.timings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -355,11 +701,17 @@ def main() -> int:
                      "replaces": rep} for name, (src, rep) in
               KERNELS.items()}
     phase_kernels(device, record)
+    phase_fused(device, record)
+    phase_dispatch(device, record)
     phase_slice(device, record)
+    phase_pdag(device, record)
     check("jax" not in sys.modules, "the port imported jax")
+    for name in KERNELS:
+        record[name]["launches"] = record["paths"][PATH_OF[name]][name]
     kernels = [{k: record[name][k] for k in
                 ("name", "route", "source", "replaces", "launches",
-                 "max_abs_err", "ms", "plain_ms")} for name in KERNELS]
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")} for name in KERNELS]
     with open(os.path.join(OUT_DIR, "chip_smoke_record.json"), "w") as fh:
         json.dump({"card": smi, **record}, fh, indent=1)
     log(json.dumps({"kernels": kernels}))

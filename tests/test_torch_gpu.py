@@ -9,8 +9,10 @@ jax nor lxml is installed:
 
 Tolerances: kernel and plain version bit-equal (both round every
 operation on its own, the kernels being built with ``--fmad=false``);
-the f64 importance path against the f64 level evaluation within 1e-12
-relative to the largest value.
+the f64 importance path against the f64 level evaluation (or gather
+autodiff, without a BDD) within 1e-12 relative to the largest value;
+float32 propagator tops against the f64 gather engine within 1e-5
+relative.
 """
 
 import numpy as np
@@ -23,7 +25,9 @@ from canopy_tpu_torch.engine.analysis import RiskAnalysis
 from canopy_tpu_torch.engine.bdd_eval import make_modular_evaluator
 from canopy_tpu_torch.errors import LogicError
 from canopy_tpu_torch.mef import Initializer
+from canopy_tpu_torch.engine.propagate import make_propagator
 from canopy_tpu_torch.ops import adjoint_kernel as tak
+from canopy_tpu_torch.ops import fused_kernel as tfk
 from canopy_tpu_torch.ops import stream_kernel as tsk
 from canopy_tpu_torch.settings import Settings
 
@@ -74,7 +78,8 @@ def test_launch_counts_and_wrapper_checks(cuda_device):  # noqa: F811
     top, log = tsk.stream_forward(enc, staged, house, with_log=True)
     tak.stream_backward(enc, staged, house, log, torch.ones_like(top))
     tsk.stream_forward(enc, staged, house)
-    assert tsk.LAUNCHES == {"stream": 1, "stream_log": 1, "adjoint": 1}
+    assert tsk.LAUNCHES == {"stream": 1, "stream_log": 1, "adjoint": 1,
+                            "fused_tiled": 0, "fused": 0}
     with pytest.raises(LogicError):
         tsk.stream_forward(enc, staged.half(), house)
 
@@ -113,3 +118,72 @@ def test_uncertainty_streams_on_cuda(cuda_device):  # noqa: F811
     from canopy_tpu_torch.compiler.modules import modular_probability
     want = modular_probability(modular, p)
     assert float(((got.double() - want).abs() / want).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("name,tree_name", [
+    ("torch_slice_plant", "slice"), ("aralia_like_large", None),
+    ("aralia_like_nested_count", None), ("demo_plant", "Cooling")])
+def test_fused_kernels_match_plain(cuda_device, name,  # noqa: F811
+                                   tree_name):
+    _m, tree = load_tree("canopy_tpu_torch", name, tree_name=tree_name)
+    enc = tfk.encode_fused(tree)
+    house = tree.house_state_vector()
+    h32 = tsk.house_tensor(enc, house, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    for n in (1, 1000, 4099):
+        staged = torch.rand((tree.n_basic, n), generator=gen,
+                            device=cuda_device) * 0.3
+        want = tfk.fused_forward_plain(enc, staged, h32)
+        widths = [tfk.LANE_TRIALS] + (
+            [tfk.TILED_TRIALS] if tfk.fused_tiled_supported(tree) else [])
+        for width in widths:
+            got = tfk.fused_forward(enc, staged, house, width)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (name, n, width)
+
+
+def test_propagator_dispatch_on_cuda(cuda_device):  # noqa: F811
+    from canopy_tpu_torch.utils.synthetic import synthetic_hierarchical_tree
+    big = synthetic_hierarchical_tree(n_basic=16384, branching=8,
+                                      share_fraction=0.1, n_shared=32,
+                                      seed=0)
+    cases = [(load_tree("canopy_tpu_torch", "torch_slice_plant",
+                        tree_name="slice")[1], "fused_tiled"),
+             (load_tree("canopy_tpu_torch", "aralia_like_large")[1],
+              "fused"), (big, "stream")]
+    for tree, engine in cases:
+        fn = make_propagator(tree, cuda_device)
+        assert fn.engine == engine
+        p = torch.rand((3000, tree.n_basic), device=cuda_device,
+                       dtype=torch.float64) * 0.02
+        tsk.reset_launches()
+        got = fn(p)
+        assert tsk.LAUNCHES[engine] == 1
+        want = make_propagator(tree, cuda_device, engine="gather")(p)
+        assert float(((got.double() - want).abs() / want).max()) <= 1e-5
+
+
+def test_pdag_analysis_on_cuda_matches_cpu(cuda_device):  # noqa: F811
+    """Without a BDD: the f64 gather probability, importance through the
+    tree's f64 stream and adjoint kernels, uncertainty through the fused
+    kernel; against the CPU run (gather autodiff)."""
+    settings = (Settings().algorithm("pdag").approximation("none")
+                .probability_analysis(True).importance_analysis(True)
+                .uncertainty_analysis(True).num_trials(5000).seed(3)
+                .skip_products(True))
+    # The slice model: its basic events carry lognormal deviates, so the
+    # analysis samples them (constant-only models skip uncertainty).
+    model = Initializer([fixture_path("torch_slice_plant")],
+                        settings).model
+    tsk.reset_launches()
+    (gpu,) = RiskAnalysis(model, settings, "cuda").run().fault_trees
+    assert tsk.LAUNCHES["stream_log"] == 1 and tsk.LAUNCHES["adjoint"] == 1
+    assert tsk.LAUNCHES["fused_tiled"] == 1
+    (cpu,) = RiskAnalysis(model, settings, "cpu").run().fault_trees
+    assert abs(gpu.probability - cpu.probability) <= \
+        1e-12 * abs(cpu.probability)
+    mif = np.array([r["MIF"] for r in gpu.importance])
+    want = np.array([r["MIF"] for r in cpu.importance])
+    np.testing.assert_allclose(mif, want, rtol=0,
+                               atol=1e-12 * np.abs(want).max())
+    assert "method" not in gpu.uncertainty

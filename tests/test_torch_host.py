@@ -30,8 +30,8 @@ PORT_PKG = os.path.join(ROOT, "canopy_tpu_torch")
 VENDORED = ["errors.py", "settings.py", "engine/event_tree_walk.py",
             "compiler/graph.py", "compiler/bdd.py", "compiler/zbdd.py",
             "compiler/cutsets.py", "compiler/prime_implicants.py",
-            "compiler/schedule.py", "native/__init__.py", "native/build.py"
-            ] + sorted(
+            "compiler/schedule.py", "native/__init__.py", "native/build.py",
+            "utils/synthetic.py"] + sorted(
     os.path.relpath(os.path.join(d, f), JAX_PKG)
     for d, _dirs, files in os.walk(os.path.join(JAX_PKG, "mef"))
     for f in files if f.endswith(".py"))
@@ -40,7 +40,9 @@ VENDORED = ["errors.py", "settings.py", "engine/event_tree_walk.py",
 def test_import_leaves_jax_out():
     code = ("import sys, canopy_tpu_torch, canopy_tpu_torch.cli, "
             "canopy_tpu_torch.engine.analysis, "
-            "canopy_tpu_torch.ops.adjoint_kernel, canopy_tpu_torch.report; "
+            "canopy_tpu_torch.ops.adjoint_kernel, "
+            "canopy_tpu_torch.ops.fused_kernel, "
+            "canopy_tpu_torch.utils.synthetic, canopy_tpu_torch.report; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'canopy_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
