@@ -18,7 +18,7 @@
 // At each gate the output's adjoint is read and zeroed BEFORE the
 // arguments accumulate: the linear-scan allocator may give an op an out
 // slot that one of its own arguments was read from.
-#include "stream_ops.cuh"
+#include "adjoint_ops.cuh"
 
 using namespace canopy;
 
@@ -63,16 +63,6 @@ struct Ctx {
 };
 
 template <typename V>
-__device__ V dp_mass(const V* dp, int len, int a0, int b0) {
-  const int lo = a0 > 0 ? a0 : 0;
-  const int hi = b0 < len - 1 ? b0 : len - 1;
-  if (lo > hi) return V(0);
-  V acc = dp[lo];
-  for (int k = lo + 1; k <= hi; ++k) acc = acc + dp[k];
-  return acc;
-}
-
-template <typename V>
 __global__ void stream_backward_kernel(const int* __restrict__ ops,
                                        const int* __restrict__ args, int n_ops,
                                        const V* __restrict__ staged,
@@ -86,80 +76,14 @@ __global__ void stream_backward_kernel(const int* __restrict__ ops,
   adj[at(top_slot, T, t)] = ct[t];
   for (int o = n_ops - 1; o >= 0; --o) {
     const int* op = ops + (long long)o * OP_COLS;
-    const int kind = op[0], out = op[1], b = op[2], e = op[3];
+    const int kind = op[0], out = op[1], b = op[2];
     const V a = adj[at(out, T, t)];
     adj[at(out, T, t)] = V(0);
     if (kind == SPILL) {
       const long long row = at(args[b * ARG_COLS + 1], T, t);
       grad[row] = grad[row] + a;
-    } else if (kind == MUX) {
-      const V p = c.x(b), hi = c.x(b + 1), lo = c.x(b + 2);
-      c.accum(b, (hi - lo) * a, false);
-      c.accum(b + 1, p * a, false);
-      c.accum(b + 2, (V(1) - p) * a, false);
-    } else if (kind == PROD) {
-      const V ae = op[4] ? -a : a;
-      const int F = e - b;
-      if (F == 1) {
-        c.accum(b, ae, true);
-      } else if (F == 2) {
-        const V x0 = c.x(b), x1 = c.x(b + 1);
-        c.accum(b, x1 * ae, true);
-        c.accum(b + 1, x0 * ae, true);
-      } else {
-        // Zero-safe leave-one-out product.
-        V total = c.x(b);
-        for (int j = b + 1; j < e; ++j) total = total * c.x(j);
-        const V x0 = c.x(b);
-        V zcnt = x0 == V(0) ? V(1) : V(0);
-        V nz = x0 == V(0) ? V(1) : x0;
-        for (int j = b + 1; j < e; ++j) {
-          const V xj = c.x(j);
-          zcnt = zcnt + (xj == V(0) ? V(1) : V(0));
-          nz = nz * (xj == V(0) ? V(1) : xj);
-        }
-        for (int j = b; j < e; ++j) {
-          const V xj = c.x(j);
-          const bool z = xj == V(0);
-          const V safe = z ? V(1) : xj;
-          const V part =
-              zcnt == V(0) ? total / safe : ((zcnt == V(1) && z) ? nz : V(0));
-          c.accum(j, part * ae, true);
-        }
-      }
-    } else if (kind == PAIR) {
-      const V ae = op[4] ? -a : a;
-      const V x0 = c.x(b), x1 = c.x(b + 1);
-      c.accum(b, (V(1) - V(2) * x1) * ae, true);
-      c.accum(b + 1, (V(1) - V(2) * x0) * ae, true);
-    } else if (kind == COUNT) {
-      // Leave-one-out Poisson-binomial DP, states growing up to cap + 1.
-      const int lo_n = op[4], hi_n = op[5], cap = hi_n + 1;
-      for (int s = b; s < e; ++s) {
-        V dp[MAX_COUNT_STATES];
-        int len = 1;
-        dp[0] = V(1);
-        for (int j = b; j < e; ++j) {
-          if (j == s) continue;
-          const V v = c.x(j);
-          if (len <= cap) {
-            dp[len] = dp[len - 1] * v;
-            for (int k = len - 1; k >= 1; --k)
-              dp[k] = dp[k] * (V(1) - v) + dp[k - 1] * v;
-            dp[0] = dp[0] * (V(1) - v);
-            ++len;
-          } else {  // Absorbing cap beyond what the mass sums need.
-            const V last = dp[len - 1];
-            for (int k = len - 1; k >= 1; --k)
-              dp[k] = dp[k] * (V(1) - v) + dp[k - 1] * v;
-            dp[0] = dp[0] * (V(1) - v);
-            dp[len - 1] = dp[len - 1] + last * v;
-          }
-        }
-        const V part = dp_mass(dp, len, lo_n - 1, hi_n - 1) -
-                       dp_mass(dp, len, lo_n, hi_n);
-        c.accum(s, part * a, true);
-      }
+    } else {
+      backward_gate(op, a, c);
     }
     // FILL: a constant; its adjoint is dropped.
   }

@@ -1,0 +1,102 @@
+// Per-gate reverse arithmetic shared by the stream and replay backward
+// kernels (adjoint.cu, replay_adjoint.cu): the partials of
+// canopy_tpu/ops/adjoint_kernel.py:_bgate_accumulate, one body for both.
+//
+// A context C supplies x(j), the forward value of argument j (complement
+// applied), and accum(j, g, flip), which adds partial g into argument j's
+// adjoint (negated where flip is set and j is complemented).  Where each
+// adjoint lives (device-memory pool, shared-memory pool, eviction-log
+// adjoint, gradient row) is the context's business.
+#pragma once
+
+#include "stream_ops.cuh"
+
+namespace canopy {
+
+template <typename V>
+__device__ V dp_mass(const V* dp, int len, int a0, int b0) {
+  const int lo = a0 > 0 ? a0 : 0;
+  const int hi = b0 < len - 1 ? b0 : len - 1;
+  if (lo > hi) return V(0);
+  V acc = dp[lo];
+  for (int k = lo + 1; k <= hi; ++k) acc = acc + dp[k];
+  return acc;
+}
+
+// Propagate adjoint `a` of gate op `op` (MUX, PROD, PAIR or COUNT) to its
+// arguments; FILL and SPILL are the caller's.
+template <typename V, typename C>
+__device__ __forceinline__ void backward_gate(const int* op, V a, const C& c) {
+  const int kind = op[0], b = op[2], e = op[3];
+  if (kind == MUX) {
+    const V p = c.x(b), hi = c.x(b + 1), lo = c.x(b + 2);
+    c.accum(b, (hi - lo) * a, false);
+    c.accum(b + 1, p * a, false);
+    c.accum(b + 2, (V(1) - p) * a, false);
+  } else if (kind == PROD) {
+    const V ae = op[4] ? -a : a;
+    const int F = e - b;
+    if (F == 1) {
+      c.accum(b, ae, true);
+    } else if (F == 2) {
+      const V x0 = c.x(b), x1 = c.x(b + 1);
+      c.accum(b, x1 * ae, true);
+      c.accum(b + 1, x0 * ae, true);
+    } else {
+      // Zero-safe leave-one-out product.
+      V total = c.x(b);
+      for (int j = b + 1; j < e; ++j) total = total * c.x(j);
+      const V x0 = c.x(b);
+      V zcnt = x0 == V(0) ? V(1) : V(0);
+      V nz = x0 == V(0) ? V(1) : x0;
+      for (int j = b + 1; j < e; ++j) {
+        const V xj = c.x(j);
+        zcnt = zcnt + (xj == V(0) ? V(1) : V(0));
+        nz = nz * (xj == V(0) ? V(1) : xj);
+      }
+      for (int j = b; j < e; ++j) {
+        const V xj = c.x(j);
+        const bool z = xj == V(0);
+        const V safe = z ? V(1) : xj;
+        const V part =
+            zcnt == V(0) ? total / safe : ((zcnt == V(1) && z) ? nz : V(0));
+        c.accum(j, part * ae, true);
+      }
+    }
+  } else if (kind == PAIR) {
+    const V ae = op[4] ? -a : a;
+    const V x0 = c.x(b), x1 = c.x(b + 1);
+    c.accum(b, (V(1) - V(2) * x1) * ae, true);
+    c.accum(b + 1, (V(1) - V(2) * x0) * ae, true);
+  } else if (kind == COUNT) {
+    // Leave-one-out Poisson-binomial DP, states growing up to cap + 1.
+    const int lo_n = op[4], hi_n = op[5], cap = hi_n + 1;
+    for (int s = b; s < e; ++s) {
+      V dp[MAX_COUNT_STATES];
+      int len = 1;
+      dp[0] = V(1);
+      for (int j = b; j < e; ++j) {
+        if (j == s) continue;
+        const V v = c.x(j);
+        if (len <= cap) {
+          dp[len] = dp[len - 1] * v;
+          for (int k = len - 1; k >= 1; --k)
+            dp[k] = dp[k] * (V(1) - v) + dp[k - 1] * v;
+          dp[0] = dp[0] * (V(1) - v);
+          ++len;
+        } else {  // Absorbing cap beyond what the mass sums need.
+          const V last = dp[len - 1];
+          for (int k = len - 1; k >= 1; --k)
+            dp[k] = dp[k] * (V(1) - v) + dp[k - 1] * v;
+          dp[0] = dp[0] * (V(1) - v);
+          dp[len - 1] = dp[len - 1] + last * v;
+        }
+      }
+      const V part = dp_mass(dp, len, lo_n - 1, hi_n - 1) -
+                     dp_mass(dp, len, lo_n, hi_n);
+      c.accum(s, part * a, true);
+    }
+  }
+}
+
+}  // namespace canopy

@@ -19,7 +19,11 @@
 
 namespace canopy {
 
-enum Kind { PROD = 0, PAIR = 1, COUNT = 2, MUX = 3, FILL = 4, SPILL = 5 };
+// EVICT and REFILL occur in replay programs only (replay_ops.cuh).
+enum Kind {
+  PROD = 0, PAIR = 1, COUNT = 2, MUX = 3, FILL = 4, SPILL = 5, EVICT = 6,
+  REFILL = 7
+};
 enum Src { POOL = 0, STAGED = 1, HOUSE = 2, LOG = 3 };
 
 constexpr int OP_COLS = 7;

@@ -12,7 +12,7 @@
   one, the tree's);
 * **uncertainty** — batched epistemic sampling through the expression
   tape (on CUDA through the stream kernel over the BDD, or without one
-  through ``make_propagator``'s fused and stream kernels).
+  through ``make_propagator``'s stream kernel).
 
 The device is named by the caller.  Where the JAX package asks whether
 its backend is a TPU, this module asks whether the device is CUDA.
@@ -329,8 +329,7 @@ class RiskAnalysis:
             # Uncertainty propagates through the same quantification the
             # point estimate used: exact BDD when available, otherwise the
             # configured cut-set approximation per trial, otherwise direct
-            # propagation (make_propagator: the fused and stream kernels
-            # on CUDA).
+            # propagation (make_propagator: the stream kernel on CUDA).
             unc_fn = top_fn
             unc_method = None
             if modular_bdd is not None and on_cuda:

@@ -128,6 +128,38 @@ def make_stream_importance_fn(tree: CompiledTree, house_states, device):
     return top_fn
 
 
+def _make_replay_importance_fn(tree: CompiledTree, house_states, device):
+    """A differentiable ``top_fn(p)`` over the tree's replay program,
+    whose backward runs the replay backward kernel
+    (``ops/replay_adjoint_kernel.py``): the JAX package's importance path
+    for trees its stream pool rejects.
+
+    On CUDA the tree's uncapped stream serves every anchored tree, so
+    :func:`make_stream_importance_fn` keeps the stream adjoint and this
+    helper is reached explicitly (``importance_measures(...,
+    top_fn=...)``).  Forward segments are capped at 2,048 ops as in the
+    JAX package; one float64 trial, as the stream path runs.  A tree the
+    builder cannot schedule raises ``LogicError``: there is no fallback.
+    """
+    from ..errors import LogicError
+    from ..ops.replay_adjoint_kernel import (compile_replay_adjoint,
+                                             make_differentiable_replay)
+    from ..ops.stream_kernel import encode_replay, stage_replay
+    device = torch.device(device)
+    aprog = compile_replay_adjoint(tree, max_ops_per_segment=2048)
+    enc = encode_replay(aprog.base)
+    house = tree.house_state_vector() if house_states is None \
+        else np.asarray(house_states)
+    f = make_differentiable_replay(aprog, house)
+
+    def top_fn(p):
+        if p.device.type != device.type:
+            raise LogicError(f"importance runs on {device}, got p on "
+                             f"{p.device}")
+        return f(stage_replay(enc, p[None, :], torch.float64))[0]
+    return top_fn
+
+
 def occurrence_counts(products, n_basic: int) -> np.ndarray:
     """How many minimal products each basic event appears in."""
     counts = np.zeros(n_basic, dtype=np.int64)

@@ -23,8 +23,9 @@ same gate subgraph; the BDD engine (``engine/bdd_eval.py``) is the exact
 path for shared-event models.
 
 :func:`make_propagator` picks an engine for a tree once and returns the
-evaluator: on CUDA the hand-written kernels (fused whole-tree, then the
-uncapped tree stream), elsewhere this gather engine.
+evaluator: on CUDA the uncapped tree stream's hand-written kernel (the
+fused whole-tree and replay kernels on request), elsewhere this gather
+engine.
 :func:`make_staged_propagator` splits the stream engine's staging from
 its kernel for hot loops.  ``make_param_propagator`` is not ported: it
 existed to keep index arrays out of remote-compile requests, and torch
@@ -174,8 +175,7 @@ def top_event_probability(tree: CompiledTree, basic_p: torch.Tensor,
 
 
 #: Engines of the JAX package that wait for their kernels (ROADMAP.md).
-_NOT_PORTED = {"replay": "Queue 2 item 5", "spill": "Queue 2 item 10",
-               "block": "Queue 2 item 12"}
+_NOT_PORTED = {"spill": "Queue 2 item 10", "block": "Queue 2 item 12"}
 
 
 def _build_house(tree: CompiledTree,
@@ -187,18 +187,13 @@ def _build_house(tree: CompiledTree,
 
 def _auto_engine(tree: CompiledTree, device: torch.device,
                  output: str) -> str:
-    """The engine ``engine="auto"`` runs: on CUDA with an anchored top,
-    the tiled fused kernel when the tree fits it, then the lane-row one,
-    then the uncapped tree stream (which never refuses a tree); gather on
-    the CPU, for ``output="all"`` and for a tree without an anchored
-    top."""
-    from ..ops.fused_kernel import fused_supported, fused_tiled_supported
+    """The engine ``engine="auto"`` runs: on CUDA with an anchored top the
+    uncapped tree stream, which refuses no such tree and measured 7-10x
+    faster on the card than the fused kernels on the trees they fit
+    (``PERF.md``); gather on the CPU, for ``output="all"`` and for a tree
+    without an anchored top."""
     if device.type != "cuda" or output != "top" or tree.top_index is None:
         return "gather"
-    if fused_tiled_supported(tree):
-        return "fused_tiled"
-    if fused_supported(tree):
-        return "fused"
     return "stream"
 
 
@@ -230,24 +225,31 @@ def make_propagator(tree: CompiledTree, device, output: str = "top",
     * ``"stream"`` — the stream kernel on the tree's uncapped stream
       program (``ops/stream_kernel.compile_tree_stream``); float32,
       ``(n_trials, n_basic)`` input;
-    * ``"auto"`` — on CUDA tiled fused, lane-row fused, then stream; the
-      gather engine on the CPU, for ``output="all"`` or without an
-      anchored top.  No CUDA path falls back to gather.
+    * ``"replay"`` — the replay kernel on the tree's replay program
+      (``ops/stream_kernel.compile_replay_stream``: a shared-memory pool,
+      an eviction log in device memory); float32,
+      ``(n_trials, n_basic)`` input;
+    * ``"auto"`` — on CUDA the stream kernel; the gather engine on the
+      CPU, for ``output="all"`` or without an anchored top.  No CUDA path
+      falls back to gather, and auto never picks the fused or replay
+      kernels (explicit engines).
 
-    On the CPU ``"fused"`` and ``"stream"`` run the kernels' plain
-    versions (the rehearsal the tests use).  ``"replay"``, ``"spill"``
+    On the CPU ``"fused"``, ``"stream"`` and ``"replay"`` run the
+    kernels' plain versions (the rehearsal the tests use).  ``"spill"``
     and ``"block"`` raise ``NotImplementedError``: their kernels are not
     ported yet.
     """
     from ..ops.fused_kernel import (fused_propagate, fused_propagate_tiled,
                                     fused_supported, fused_tiled_supported)
-    from ..ops.stream_kernel import stream_propagate, tree_stream_encoding
+    from ..ops.stream_kernel import (compile_replay_stream, encode_replay,
+                                     replay_propagate, stream_propagate,
+                                     tree_stream_encoding)
     device = torch.device(device)
     if engine in _NOT_PORTED:
         raise NotImplementedError(
             f"the {engine} engine is not ported to canopy_tpu_torch yet "
             f"(ROADMAP.md, {_NOT_PORTED[engine]})")
-    if engine not in ("auto", "gather", "fused", "stream"):
+    if engine not in ("auto", "gather", "fused", "stream", "replay"):
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "auto":
         engine = _auto_engine(tree, device, output)
@@ -264,6 +266,11 @@ def make_propagator(tree: CompiledTree, device, output: str = "top",
 
             def run(basic_p):
                 return stream_propagate(enc, basic_p, house)
+        elif engine == "replay":
+            renc = encode_replay(compile_replay_stream(tree))
+
+            def run(basic_p):
+                return replay_propagate(renc, basic_p, house)
         elif engine == "fused_tiled":
             def run(basic_p):
                 return fused_propagate_tiled(tree, basic_p, house)
@@ -311,14 +318,27 @@ def make_staged_propagator(tree: CompiledTree, device,
     package: the stream engine (here the uncapped tree stream, so it
     exists for every anchored tree) on CUDA, otherwise the identity stage
     over the gather engine on the pruned top cone.  ``engine="stream"``
-    forces the stream pair on the CPU (the kernels' plain versions).
-    Callers hold the staged tensor themselves: there is no cache keyed on
-    the input's identity.  ``run.engine`` names the engine.
+    forces the stream pair on the CPU (the kernels' plain versions);
+    ``engine="replay"`` gives ``(stage_replay, replay_propagate_staged)``
+    on the tree's replay program, on any device.  Callers hold the staged
+    tensor themselves: there is no cache keyed on the input's identity.
+    ``run.engine`` names the engine.
     """
-    from ..ops.stream_kernel import (stage_basic, stream_propagate_staged,
+    from ..ops.stream_kernel import (compile_replay_stream, encode_replay,
+                                     replay_propagate_staged, stage_basic,
+                                     stage_replay, stream_propagate_staged,
                                      tree_stream_encoding)
     device = torch.device(device)
     house = _build_house(tree, house_states)
+    if engine == "replay":
+        renc = encode_replay(compile_replay_stream(tree))
+
+        def stage_r(basic_p):
+            return stage_replay(renc, basic_p)
+
+        def run_r(staged):
+            return replay_propagate_staged(renc, staged, house)
+        return stage_r, _named(run_r, "replay")
     streams = engine == "stream" or (engine == "auto"
                                      and device.type == "cuda")
     if streams and tree.top_index is not None:

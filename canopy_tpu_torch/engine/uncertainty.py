@@ -65,8 +65,8 @@ def uncertainty_analysis(tree: CompiledTree, tape: ExpressionTape,
     with key ``(seed, b)``, so a batch's samples do not depend on how many
     batches there are.  ``top_fn(p_batch) -> (trials,)`` overrides the
     evaluator (e.g. exact BDD evaluation); by default
-    :func:`~.propagate.make_propagator` dispatches (the fused and stream
-    kernels on CUDA, gather on the CPU) with ``house_states`` (default:
+    :func:`~.propagate.make_propagator` dispatches (the stream kernel on
+    CUDA, gather on the CPU) with ``house_states`` (default:
     the tree's) baked in.
     """
     if top_fn is None:

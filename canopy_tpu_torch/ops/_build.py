@@ -25,8 +25,9 @@ __all__ = ["load_library", "build_info", "NVCC_FLAGS"]
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(_PKG, "_build")
-_SOURCES = ("stream.cu", "adjoint.cu", "fused.cu")
-_HEADERS = ("stream_ops.cuh",)
+_SOURCES = ("stream.cu", "adjoint.cu", "fused.cu", "replay.cu",
+            "replay_adjoint.cu")
+_HEADERS = ("stream_ops.cuh", "adjoint_ops.cuh", "replay_ops.cuh")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -111,6 +112,18 @@ def load_library() -> ctypes.CDLL:
         fwd.restype = i32
         bwd = getattr(lib, f"canopy_stream_backward_{suffix}")
         bwd.argtypes = [vp, vp, i32, vp, vp, vp, vp, vp, vp, i64, i32, vp]
+        bwd.restype = i32
+        fwd = getattr(lib, f"canopy_replay_forward_{suffix}")
+        fwd.argtypes = [vp, vp, i32, vp, vp, vp, vp, i64, i32, i32, i32, i32,
+                        vp]
+        fwd.restype = i32
+        tape = getattr(lib, f"canopy_replay_tape_forward_{suffix}")
+        tape.argtypes = [vp, vp, i32, vp, vp, vp, vp, vp, i64, i32, i32, i32,
+                         i32, vp]
+        tape.restype = i32
+        bwd = getattr(lib, f"canopy_replay_backward_{suffix}")
+        bwd.argtypes = [vp, vp, i32, vp, vp, vp, vp, vp, vp, i64, i32, i32,
+                        i32, vp]
         bwd.restype = i32
     lib.canopy_fused_forward_f32.argtypes = [vp, vp, i32, vp, vp, vp, i64,
                                              i32, i32, i32, vp]

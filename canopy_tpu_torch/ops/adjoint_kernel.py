@@ -34,6 +34,79 @@ __all__ = ["stream_backward", "stream_backward_plain",
            "make_differentiable_stream"]
 
 
+def _plain_backward_gate(op, a, args, x, accum, zeros) -> None:
+    """Propagate adjoint ``a`` of one gate op (MUX, PROD, PAIR, COUNT) to
+    its arguments in plain torch: the one plain body of
+    ``csrc/adjoint_ops.cuh``'s ``backward_gate``.  ``x(arg)`` is the
+    argument's forward value, ``accum(arg, g, flip=True)`` adds a partial
+    into its adjoint."""
+    kind, _out, b, e, aux0, aux1, _row = op
+    if kind == MUX:
+        p, hi, lo = (x(args[j]) for j in range(b, b + 3))
+        accum(args[b], (hi - lo) * a, False)
+        accum(args[b + 1], p * a, False)
+        accum(args[b + 2], (1.0 - p) * a, False)
+    elif kind == PROD:
+        ae = -a if aux0 else a
+        F = e - b
+        if F == 1:
+            accum(args[b], ae)
+        elif F == 2:
+            x0, x1 = x(args[b]), x(args[b + 1])
+            accum(args[b], x1 * ae)
+            accum(args[b + 1], x0 * ae)
+        else:
+            xs = [x(args[j]) for j in range(b, e)]
+            total = xs[0]
+            for v in xs[1:]:
+                total = total * v
+            zero = [v == 0.0 for v in xs]
+            zcnt = zero[0].to(xs[0].dtype)
+            nz = torch.where(zero[0], 1.0, xs[0])
+            for v, z in zip(xs[1:], zero[1:]):
+                zcnt = zcnt + z.to(v.dtype)
+                nz = nz * torch.where(z, 1.0, v)
+            for j, (v, z) in zip(range(b, e), zip(xs, zero)):
+                safe = torch.where(z, 1.0, v)
+                part = torch.where(
+                    zcnt == 0.0, total / safe,
+                    torch.where((zcnt == 1.0) & z, nz, 0.0))
+                accum(args[j], part * ae)
+    elif kind == PAIR:
+        ae = -a if aux0 else a
+        x0, x1 = x(args[b]), x(args[b + 1])
+        accum(args[b], (1.0 - 2.0 * x1) * ae)
+        accum(args[b + 1], (1.0 - 2.0 * x0) * ae)
+    elif kind == COUNT:
+        cap = aux1 + 1
+        xs = [x(args[j]) for j in range(b, e)]
+        for s in range(e - b):
+            dp = [torch.ones_like(zeros)]
+            for j, v in enumerate(xs):
+                if j == s:
+                    continue
+                new = [dp[0] * (1.0 - v)]
+                for k in range(1, len(dp)):
+                    new.append(dp[k] * (1.0 - v) + dp[k - 1] * v)
+                if len(dp) <= cap:
+                    new.append(dp[-1] * v)
+                else:
+                    new[-1] = new[-1] + dp[-1] * v
+                dp = new
+
+            def mass(a0, b0):
+                lo, hi = max(a0, 0), min(b0, len(dp) - 1)
+                if lo > hi:
+                    return zeros
+                acc = dp[lo]
+                for k in range(lo + 1, hi + 1):
+                    acc = acc + dp[k]
+                return acc
+            part = mass(aux0 - 1, aux1 - 1) - mass(aux0, aux1)
+            accum(args[b + s], part * a)
+    # FILL: a constant; its adjoint is dropped.
+
+
 def stream_backward_plain(enc: EncodedStream, staged: torch.Tensor,
                           house: torch.Tensor, log: torch.Tensor,
                           ct: torch.Tensor) -> torch.Tensor:
@@ -64,75 +137,14 @@ def stream_backward_plain(enc: EncodedStream, staged: torch.Tensor,
         elif a[0] == STAGED:
             grad[a[1]] = grad[a[1]] + g
 
-    for kind, out, b, e, aux0, aux1, _row in reversed(ops):
+    for op in reversed(ops):
+        kind, out, b = op[0], op[1], op[2]
         a = adj[out]
         adj[out] = zeros
         if kind == SPILL:
             grad[args[b][1]] = grad[args[b][1]] + a
-        elif kind == MUX:
-            p, hi, lo = (x(args[j]) for j in range(b, b + 3))
-            accum(args[b], (hi - lo) * a, False)
-            accum(args[b + 1], p * a, False)
-            accum(args[b + 2], (1.0 - p) * a, False)
-        elif kind == PROD:
-            ae = -a if aux0 else a
-            F = e - b
-            if F == 1:
-                accum(args[b], ae)
-            elif F == 2:
-                x0, x1 = x(args[b]), x(args[b + 1])
-                accum(args[b], x1 * ae)
-                accum(args[b + 1], x0 * ae)
-            else:
-                xs = [x(args[j]) for j in range(b, e)]
-                total = xs[0]
-                for v in xs[1:]:
-                    total = total * v
-                zero = [v == 0.0 for v in xs]
-                zcnt = zero[0].to(xs[0].dtype)
-                nz = torch.where(zero[0], 1.0, xs[0])
-                for v, z in zip(xs[1:], zero[1:]):
-                    zcnt = zcnt + z.to(v.dtype)
-                    nz = nz * torch.where(z, 1.0, v)
-                for j, (v, z) in zip(range(b, e), zip(xs, zero)):
-                    safe = torch.where(z, 1.0, v)
-                    part = torch.where(
-                        zcnt == 0.0, total / safe,
-                        torch.where((zcnt == 1.0) & z, nz, 0.0))
-                    accum(args[j], part * ae)
-        elif kind == PAIR:
-            ae = -a if aux0 else a
-            x0, x1 = x(args[b]), x(args[b + 1])
-            accum(args[b], (1.0 - 2.0 * x1) * ae)
-            accum(args[b + 1], (1.0 - 2.0 * x0) * ae)
-        elif kind == COUNT:
-            cap = aux1 + 1
-            xs = [x(args[j]) for j in range(b, e)]
-            for s in range(e - b):
-                dp = [torch.ones_like(zeros)]
-                for j, v in enumerate(xs):
-                    if j == s:
-                        continue
-                    new = [dp[0] * (1.0 - v)]
-                    for k in range(1, len(dp)):
-                        new.append(dp[k] * (1.0 - v) + dp[k - 1] * v)
-                    if len(dp) <= cap:
-                        new.append(dp[-1] * v)
-                    else:
-                        new[-1] = new[-1] + dp[-1] * v
-                    dp = new
-
-                def mass(a0, b0):
-                    lo, hi = max(a0, 0), min(b0, len(dp) - 1)
-                    if lo > hi:
-                        return zeros
-                    acc = dp[lo]
-                    for k in range(lo + 1, hi + 1):
-                        acc = acc + dp[k]
-                    return acc
-                part = mass(aux0 - 1, aux1 - 1) - mass(aux0, aux1)
-                accum(args[b + s], part * a)
-        # FILL: a constant; its adjoint is dropped.
+        else:
+            _plain_backward_gate(op, a, args, x, accum, zeros)
     return torch.stack(grad) if grad else staged.new_zeros((0, T))
 
 

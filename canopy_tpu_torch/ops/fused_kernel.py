@@ -47,17 +47,15 @@ import torch
 from ..compiler.graph import CompiledTree
 from ..compiler.schedule import _emit_gate_ops
 from ..errors import LogicError
-from .stream_kernel import (HOUSE, LAUNCHES, POOL, STAGED, EncodedStream,
-                            _KIND, _check_cuda, _raise_on, house_tensor,
-                            stream_forward_plain)
+from .stream_kernel import (HOUSE, LAUNCHES, POOL, SMEM_BYTES, STAGED,
+                            EncodedStream, _KIND, _check_cuda, _raise_on,
+                            house_tensor, stream_forward_plain)
 
 __all__ = ["SMEM_BYTES", "TILED_TRIALS", "LANE_TRIALS", "fused_supported",
            "fused_tiled_supported", "encode_fused", "tile_trials",
            "fused_forward", "fused_forward_plain", "fused_propagate",
            "fused_propagate_tiled", "fused_propagate_tiled_staged"]
 
-#: Shared memory one block may use on an H100 (227 KB, opt-in above 48 KB).
-SMEM_BYTES = 232_448
 #: Trials per block of the tiled counterpart and of the lane-row one.
 TILED_TRIALS = 128
 LANE_TRIALS = 32

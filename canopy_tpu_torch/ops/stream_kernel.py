@@ -25,6 +25,15 @@ is the kernels' value type (uncertainty batches run f32, importance
 f64).  Every public function
 takes and returns ``(n_trials, ...)`` like the JAX package's.
 
+Replay programs.  The JAX package keeps its replay engine here too
+(``_replay_kernel``, ``replay_propagate_staged``), and so does the port:
+:func:`compile_replay_stream` sizes ``compiler/replay.py``'s schedule for
+shared memory, :func:`encode_replay` flattens it into one op table of the
+same format (``csrc/replay_ops.cuh``), and :func:`replay_forward` runs it
+through ``csrc/replay.cu`` or :func:`replay_forward_plain`.  The staged
+basic replay stream is ``(brs_len_pad, n_trials)``, one row per basic
+read, trials contiguous.
+
 Dispatch.  A wrapper runs the plain version for a CPU tensor and the
 kernel for a CUDA tensor; it never catches a build or launch failure and
 never moves data between devices.  ``LAUNCHES`` counts kernel launches.
@@ -46,10 +55,15 @@ __all__ = ["compile_stream", "compile_bdd_stream", "compile_tree_stream",
            "encode_stream", "stage_basic", "unstage_basic",
            "stream_forward", "stream_forward_plain", "stream_propagate",
            "stream_propagate_staged", "stream_bdd_probability", "house_tensor",
-           "LAUNCHES", "reset_launches"]
+           "SMEM_BYTES", "REPLAY_SLOTS", "REPLAY_TRIALS",
+           "compile_replay_stream", "EncodedReplay", "encode_replay",
+           "stage_replay", "unstage_replay", "replay_grad_basic",
+           "replay_forward", "replay_forward_plain", "replay_propagate",
+           "replay_propagate_staged", "LAUNCHES", "reset_launches"]
 
-# Op kinds and argument sources (csrc/stream_ops.cuh).
-PROD, PAIR, COUNT, MUX, FILL, SPILL = range(6)
+# Op kinds and argument sources (csrc/stream_ops.cuh); EVICT and REFILL
+# occur in replay programs only.
+PROD, PAIR, COUNT, MUX, FILL, SPILL, EVICT, REFILL = range(8)
 POOL, STAGED, HOUSE, LOG = range(4)
 _KIND = {"prod": PROD, "pair": PAIR, "count": COUNT, "mux": MUX,
          "fill": FILL}
@@ -59,10 +73,29 @@ _SRC = {"pool": POOL, "stage": STAGED, "house": HOUSE}
 MAX_COUNT_STATES = 128
 
 #: Kernel launches by kernel name: ``stream`` (forward), ``stream_log``
-#: (forward with the value log), ``adjoint`` (backward), and the fused
-#: whole-tree kernels ``fused_tiled`` and ``fused`` (``fused_kernel.py``).
+#: (forward with the value log), ``adjoint`` (backward), the fused
+#: whole-tree kernels ``fused_tiled`` and ``fused`` (``fused_kernel.py``),
+#: and the replay kernels ``replay`` (forward), ``replay_tape`` (forward
+#: with the value log) and ``replay_bwd`` (``replay_adjoint_kernel.py``).
 LAUNCHES = {"stream": 0, "stream_log": 0, "adjoint": 0, "fused_tiled": 0,
-            "fused": 0}
+            "fused": 0, "replay": 0, "replay_tape": 0, "replay_bwd": 0}
+
+#: Shared memory one block may use on an H100 (227 KB, opt-in above 48 KB).
+SMEM_BYTES = 232_448
+#: The most pool plus resident slots a replay program may have: what one
+#: block of one warp (32 float32 trials) holds in shared memory.
+REPLAY_SLOTS = SMEM_BYTES // (32 * 4)
+#: The default replay sizing: blocks of this many float32 trials, so a
+#: pool of ``SMEM_BYTES // (4 * REPLAY_TRIALS)`` = 113 slots and no
+#: resident tier.  The kernels are latency-bound and an SM holds one
+#: block, so fewer slots run more trials at once; on the card this was
+#: the fastest of 32 to 1,024 trials per block at 65,536 trials
+#: (``tools/replay_occupancy.py``, ``PERF.md``).
+REPLAY_TRIALS = 512
+#: The replay builders' TPU VMEM budget has no meaning on the card (the
+#: port checks shared memory on the built program): one no program
+#: reaches.
+_NO_VMEM_BUDGET = 1 << 62
 
 
 def reset_launches() -> None:
@@ -372,13 +405,53 @@ def _check_staged(enc: EncodedStream, staged: torch.Tensor) -> None:
 # Plain PyTorch version: a loop over the encoded ops, vectorised over trials.
 # ---------------------------------------------------------------------------
 
+def _plain_value(op, fill_value: float, args, load, staged: torch.Tensor):
+    """The value of one encoded op in plain torch, its arguments read
+    through ``load`` (the one plain body of ``csrc/stream_ops.cuh``'s
+    ``eval_op``, shared by the stream, fused and replay plain versions)."""
+    kind, _out, b, e, aux0, aux1, _row = op
+    T, dtype, device = staged.shape[1], staged.dtype, staged.device
+    if kind == MUX:
+        p, hi, lo = (load(args[j]) for j in range(b, b + 3))
+        return p * hi + (1.0 - p) * lo
+    if kind == PROD:
+        v = load(args[b])
+        for j in range(b + 1, e):
+            v = v * load(args[j])
+        return 1.0 - v if aux0 else v
+    if kind == PAIR:
+        a, c = load(args[b]), load(args[b + 1])
+        v = a + c - 2.0 * a * c
+        return 1.0 - v if aux0 else v
+    if kind == COUNT:
+        cap = aux1 + 1
+        dp = [torch.ones(T, dtype=dtype, device=device)] + \
+             [torch.zeros(T, dtype=dtype, device=device)] * cap
+        for j in range(b, e):
+            x = load(args[j])
+            new = [dp[0] * (1.0 - x)]
+            for k in range(1, cap):
+                new.append(dp[k] * (1.0 - x) + dp[k - 1] * x)
+            new.append(dp[cap] + dp[cap - 1] * x)
+            dp = new
+        v = torch.zeros(T, dtype=dtype, device=device)
+        if aux0 <= aux1:
+            v = dp[aux0]
+            for k in range(aux0 + 1, aux1 + 1):
+                v = v + dp[k]
+        return v
+    if kind == FILL:
+        return torch.full((T,), fill_value, dtype=torch.float32,
+                          device=device).to(dtype)
+    return staged[args[b][1]]   # SPILL
+
+
 def stream_forward_plain(enc: EncodedStream, staged: torch.Tensor,
                          house: torch.Tensor, with_log: bool = False):
     """The kernel's arithmetic in plain torch (any dtype, any device,
     differentiable by autograd).  Returns ``(top, log or None)``."""
     ops, args, fill = enc.plain_ops()
     T = staged.shape[1]
-    dtype = staged.dtype
     pool: list = [None] * enc.pool_slots
     log: list = [None] * enc.n_log if with_log else None
 
@@ -392,45 +465,11 @@ def stream_forward_plain(enc: EncodedStream, staged: torch.Tensor,
             v = house[idx].expand(T)
         return 1.0 - v if flag else v
 
-    for o, (kind, out, b, e, aux0, aux1, row) in enumerate(ops):
-        if kind == MUX:
-            p, hi, lo = (load(args[j]) for j in range(b, b + 3))
-            v = p * hi + (1.0 - p) * lo
-        elif kind == PROD:
-            v = load(args[b])
-            for j in range(b + 1, e):
-                v = v * load(args[j])
-            if aux0:
-                v = 1.0 - v
-        elif kind == PAIR:
-            a, c = load(args[b]), load(args[b + 1])
-            v = a + c - 2.0 * a * c
-            if aux0:
-                v = 1.0 - v
-        elif kind == COUNT:
-            cap = aux1 + 1
-            dp = [torch.ones(T, dtype=dtype, device=staged.device)] + \
-                 [torch.zeros(T, dtype=dtype, device=staged.device)] * cap
-            for j in range(b, e):
-                x = load(args[j])
-                new = [dp[0] * (1.0 - x)]
-                for k in range(1, cap):
-                    new.append(dp[k] * (1.0 - x) + dp[k - 1] * x)
-                new.append(dp[cap] + dp[cap - 1] * x)
-                dp = new
-            v = torch.zeros(T, dtype=dtype, device=staged.device)
-            if aux0 <= aux1:
-                v = dp[aux0]
-                for k in range(aux0 + 1, aux1 + 1):
-                    v = v + dp[k]
-        elif kind == FILL:
-            v = torch.full((T,), fill[o], dtype=torch.float32,
-                           device=staged.device).to(dtype)
-        else:  # SPILL
-            v = staged[args[b][1]]
-        pool[out] = v
-        if with_log and row >= 0:
-            log[row] = v
+    for o, op in enumerate(ops):
+        v = _plain_value(op, fill[o], args, load, staged)
+        pool[op[1]] = v
+        if with_log and op[6] >= 0:
+            log[op[6]] = v
     top = pool[enc.top_slot]
     if with_log:
         return top, (torch.stack(log) if log else
@@ -517,3 +556,376 @@ def stream_bdd_probability(enc: EncodedStream, values: torch.Tensor,
     """
     return stream_propagate_staged(enc, stage_basic(enc, values, dtype),
                                    np.zeros(0, np.float32))
+
+
+# ---------------------------------------------------------------------------
+# Replay programs (compiler/replay.py): schedule, encoder, staging, kernel.
+# ---------------------------------------------------------------------------
+
+def _check_replay_fits(program) -> None:
+    """Shared-memory check of a BUILT replay program: its pool plus its
+    resident tier as built (``res_tiles`` is padded up to the basic-stream
+    chunk, so it may exceed what was asked for) against what one block of
+    one warp holds."""
+    slots = program.pool_slots + program.res_tiles
+    if slots > REPLAY_SLOTS:
+        raise LogicError(
+            f"replay program needs {program.pool_slots} pool + "
+            f"{program.res_tiles} resident slots; one block holds "
+            f"{REPLAY_SLOTS} at 32 trials ({SMEM_BYTES} B of shared "
+            f"memory)")
+
+
+def _replay_sizing(tree: CompiledTree, kwargs: dict) -> dict:
+    """The card's defaults for the replay builders: no resident tier, a
+    pool of what a block of ``REPLAY_TRIALS`` float32 trials holds (113
+    slots) or the widest gate's working set if that is more, and no TPU
+    VMEM budget."""
+    from ..compiler.schedule import _emit_gate_ops
+    kwargs = dict(kwargs)
+    kwargs.setdefault("resident_tiles", 0)
+    if "pool_slots" not in kwargs:
+        widest = max((len(row[2]) for row in _emit_gate_ops(tree)),
+                     default=0)
+        kwargs["pool_slots"] = max(SMEM_BYTES // (4 * REPLAY_TRIALS),
+                                   widest + 2)
+    kwargs.setdefault("vmem_budget", _NO_VMEM_BUDGET)
+    return kwargs
+
+
+def compile_replay_stream(tree: CompiledTree, **kwargs):
+    """Schedule ``tree`` as a replay program (``compiler/replay.py``,
+    the shared builder) sized for the card.
+
+    The JAX package sizes the pool from the TPU's 13 MiB of VMEM with a
+    1,024-tile resident tier.  Here pool and resident tier share one
+    block's 232,448 B of shared memory: by default a pool of 113 slots
+    (blocks of ``REPLAY_TRIALS`` = 512 trials) and no resident tier; a
+    resident tier asked for adds its slots, rounded up to the
+    basic-stream chunk.  Any builder keyword may be given; the built
+    program is then checked, and a pool plus resident tier beyond
+    ``REPLAY_SLOTS`` (1,816: one warp's block) raises ``LogicError``.
+    """
+    from ..compiler.replay import build_replay_schedule
+    program = build_replay_schedule(tree, **_replay_sizing(tree, kwargs))
+    _check_replay_fits(program)
+    return program
+
+
+@dataclasses.dataclass(kw_only=True)
+class EncodedReplay(EncodedStream):
+    """A replay program as one flat op table (``csrc/replay_ops.cuh``).
+
+    ``n_basic`` counts the rows of the staged basic replay stream
+    (``brs_len_pad``) and ``staged_cols`` gives each row's input column;
+    ``n_log`` counts gates (the value log's rows).  Pool arguments index
+    the pool (``< pool_slots``), the resident tier (``< pool_slots +
+    res_rows``), then the eviction log.
+    """
+
+    res_rows: int          # resident tier: staged rows [0, res_rows)
+    n_evicted: int         # eviction-log rows
+    n_columns: int         # the tree's basic events (input width)
+    read_rows: np.ndarray  # staged rows the program reads (the rest pad)
+
+
+def encode_replay(program) -> EncodedReplay:
+    """Flatten a ``ReplayProgram``'s segments into one op table (cached on
+    the program).
+
+    The encoder replays the TPU schedule's ring bookkeeping once on the
+    host: a ``bwait``/``gwait`` names the chunk a ring buffer holds, an
+    ``evict`` the slab position of eviction-log row ``e`` (the ``e``-th
+    eviction, the row its later flush names), an ``rwait`` the row a
+    refill reads.  Each read then resolves to where its value lives on
+    the card: a pool slot, a resident slot, a basic-stream row, an
+    eviction-log row (slab reads, refills and gate-stream reads alike) or
+    a house constant.  DMA starts and waits, flushes and the segment
+    boundaries' dump and load have no counterpart.  Each argument also
+    records its forward value for the backward: the value-log row of the
+    gate that produced it, its staged row, or its house constant.
+    """
+    enc = getattr(program, "_encoded", None)
+    if enc is not None:
+        return enc
+    P, R = program.pool_slots, program.res_tiles
+    log_base = P + R
+    ops: list = []
+    args: list = []
+    value_of_slot: dict[int, int] = {}   # pool slot -> value-log row
+    value_of_row: dict[int, int] = {}    # eviction-log row -> value-log row
+    slab_row: dict[tuple[int, int], int] = {}
+    bring: dict[int, int] = {}
+    gring: dict[int, int] = {}
+    read: set[int] = set()
+    n_evicted = n_log = max_states = 0
+    for k, seg in enumerate(program.segments):
+        grs_rows = program.grs_rows[k]
+        for op in seg:
+            tag = op[0]
+            if tag == "bwait":
+                bring[op[2]] = op[1]
+            elif tag == "gwait":
+                gring[op[2]] = op[1]
+            elif tag == "evict":
+                _t, slot, sbuf, soff = op
+                slab_row[(sbuf, soff)] = n_evicted
+                value_of_row[n_evicted] = value_of_slot[slot]
+                ops.append([EVICT, slot, 0, 0, n_evicted, 0, -1])
+                n_evicted += 1
+            elif tag == "rwait":
+                _t, scratch_row, slot, _sem = op
+                row = scratch_row - P
+                value_of_slot[slot] = value_of_row[row]
+                ops.append([REFILL, slot, 0, 0, row, 0, -1])
+            elif tag == "gate":
+                _t, kind, out_slot, locs, aux = op
+                begin = len(args)
+                for loc, flag in locs:
+                    where = loc[0]
+                    if where == "pool":
+                        entry = [POOL, loc[1], LOG, value_of_slot[loc[1]]]
+                    elif where == "rbas":
+                        read.add(loc[1])
+                        entry = [POOL, P + loc[1], STAGED, loc[1]]
+                    elif where == "brs":
+                        row = bring[loc[1]] * program.brs_chunk + loc[2]
+                        read.add(row)
+                        entry = [STAGED, row, STAGED, row]
+                    elif where == "house":
+                        entry = [HOUSE, loc[1], HOUSE, loc[1]]
+                    else:
+                        if where == "grs":
+                            pos = gring[loc[1]] * program.grs_chunk + loc[2]
+                            row = int(grs_rows[pos]) - P
+                        else:   # slab
+                            row = slab_row[(loc[1], loc[2])]
+                        entry = [POOL, log_base + row, LOG,
+                                 value_of_row[row]]
+                    args.append(entry[:2] + [int(bool(flag))] + entry[2:])
+                if kind == "count":
+                    aux0, aux1 = int(aux[0]), int(aux[1])
+                    max_states = max(max_states, aux1 + 2)
+                elif kind in ("prod", "pair"):
+                    aux0, aux1 = int(bool(aux)), 0
+                else:
+                    raise LogicError(f"replay programs hold no {kind} op")
+                ops.append([_KIND[kind], out_slot, begin, len(args), aux0,
+                            aux1, n_log])
+                value_of_slot[out_slot] = n_log
+                n_log += 1
+    if n_evicted != program.n_evicted:
+        raise LogicError(f"replay program evicts {program.n_evicted} "
+                         f"values, its ops {n_evicted}")
+    enc = EncodedReplay(
+        ops=np.asarray(ops, dtype=np.int32).reshape(-1, 7),
+        args=np.asarray(args, dtype=np.int32).reshape(-1, 5),
+        fill=np.zeros(len(ops), dtype=np.float32), n_log=n_log,
+        n_basic=program.brs_len_pad, n_house=program.n_house,
+        pool_slots=max(P, 1), top_slot=program.top_slot,
+        max_count_states=max_states,
+        staged_cols=np.asarray(program.brs_cols, dtype=np.int64),
+        res_rows=R, n_evicted=n_evicted, n_columns=program.n_basic,
+        read_rows=np.array(sorted(read), dtype=np.int64))
+    program._encoded = enc
+    return enc
+
+
+def _stage_rows(enc: EncodedReplay, basic_p: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    cols = torch.from_numpy(enc.staged_cols).to(basic_p.device)
+    return basic_p.to(dtype).T.contiguous().index_select(0, cols)
+
+
+def _grad_plan(enc: EncodedReplay):
+    """The read rows grouped by occurrence: step ``k`` pairs each column's
+    ``k``-th read row (in stream order) with that column, so no step
+    names a column twice."""
+    if "grad_plan" not in enc._cache:
+        rows = enc.read_rows
+        cols = enc.staged_cols[rows]
+        order = np.argsort(cols, kind="stable")
+        sorted_cols = cols[order]
+        starts = np.flatnonzero(np.r_[True, sorted_cols[1:]
+                                      != sorted_cols[:-1]])
+        rank = np.arange(len(order)) - np.repeat(
+            starts, np.diff(np.r_[starts, len(order)]))
+        steps = []
+        for k in range(int(rank.max()) + 1 if len(rank) else 0):
+            pick = order[rank == k]
+            steps.append((rows[pick], cols[pick]))
+        enc._cache["grad_plan"] = steps
+    return enc._cache["grad_plan"]
+
+
+def replay_grad_basic(enc: EncodedReplay, g_brs: torch.Tensor
+                      ) -> torch.Tensor:
+    """A basic-stream cotangent ``(brs_len_pad, n_trials)`` summed back to
+    ``(n_trials, n_columns)``: the adjoint of :func:`stage_replay`.
+
+    A segment-sum by column in a fixed order (each column's reads in
+    stream order, one step per occurrence, no column twice in a step), so
+    the result is the same on every device and run; columns the program
+    never reads stay zero.
+    """
+    out = g_brs.new_zeros((enc.n_columns, g_brs.shape[1]))
+    for rows, cols in _grad_plan(enc):
+        out.index_add_(0, torch.from_numpy(cols).to(g_brs.device),
+                       g_brs[torch.from_numpy(rows).to(g_brs.device)])
+    return out.T
+
+
+class _StageReplay(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, basic_p, enc, dtype):
+        ctx.enc, ctx.in_dtype = enc, basic_p.dtype
+        return _stage_rows(enc, basic_p, dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return replay_grad_basic(ctx.enc, g).to(ctx.in_dtype), None, None
+
+
+def stage_replay(enc: EncodedReplay, basic_p: torch.Tensor,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``(n_trials, n_columns)`` -> the basic replay stream
+    ``(brs_len_pad, n_trials)`` of ``dtype``: one row per basic read in
+    execution order (the resident tier its prefix), trials contiguous,
+    the transpose of the TPU's tile-major layout; any trial count.
+
+    Stage once per batch (the stream is ``brs_len_pad`` rows, several
+    times the input).  Under autograd the gradient flows back through
+    :func:`replay_grad_basic`.
+    """
+    if basic_p.ndim != 2 or basic_p.shape[1] != enc.n_columns:
+        raise LogicError(f"replay staging takes (n_trials, "
+                         f"{enc.n_columns}), got {tuple(basic_p.shape)}")
+    if torch.is_grad_enabled() and basic_p.requires_grad:
+        return _StageReplay.apply(basic_p, enc, dtype)
+    return _stage_rows(enc, basic_p, dtype)
+
+
+def unstage_replay(enc: EncodedReplay, brs: torch.Tensor) -> torch.Tensor:
+    """``(n_trials, n_columns)`` from a staged replay stream: each basic's
+    first read row (all its rows carry the same value); basics the
+    program never reads come back zero (they cannot reach the top)."""
+    rows = enc.read_rows
+    cols, first = np.unique(enc.staged_cols[rows], return_index=True)
+    out = brs.new_zeros((brs.shape[1], enc.n_columns))
+    out[:, torch.from_numpy(cols).to(brs.device)] = \
+        brs[torch.from_numpy(rows[first]).to(brs.device)].T
+    return out
+
+
+def replay_forward_plain(enc: EncodedReplay, staged: torch.Tensor,
+                         house: torch.Tensor, with_log: bool = False):
+    """The replay kernel's arithmetic in plain torch (any dtype, any
+    device, differentiable by autograd), in the kernel's op order.
+    Returns ``(top, value log or None)``."""
+    ops, args, _fill = enc.plain_ops()
+    T = staged.shape[1]
+    shared_rows = enc.pool_slots + enc.res_rows
+    shared: list = [None] * enc.pool_slots + \
+        [staged[i] for i in range(enc.res_rows)]
+    evlog: list = [None] * enc.n_evicted
+    vlog: list = [None] * enc.n_log if with_log else None
+
+    def load(a):
+        src, idx, flag = a[0], a[1], a[2]
+        if src == POOL:
+            v = shared[idx] if idx < shared_rows else \
+                evlog[idx - shared_rows]
+        elif src == STAGED:
+            v = staged[idx]
+        else:
+            v = house[idx].expand(T)
+        return 1.0 - v if flag else v
+
+    for op in ops:
+        kind, slot = op[0], op[1]
+        if kind == EVICT:
+            evlog[op[4]] = shared[slot]
+        elif kind == REFILL:
+            shared[slot] = evlog[op[4]]
+        else:
+            v = _plain_value(op, 0.0, args, load, staged)
+            shared[slot] = v
+            if with_log:
+                vlog[op[6]] = v
+    return shared[enc.top_slot], (torch.stack(vlog) if with_log else None)
+
+
+def _replay_block_trials(slots: int, dtype: torch.dtype) -> int:
+    """Trials per block: the widest power of two up to 1,024 (a block's
+    most threads) whose ``slots`` rows of ``dtype`` fit one block's shared
+    memory (32 in float32 and 16 in float64 at ``REPLAY_SLOTS``, 512 and
+    256 at the default 113).  An SM holds one such block, so fewer slots
+    hold more trials at once."""
+    size = torch.finfo(dtype).bits // 8
+    width = 1024
+    while width > 1 and slots * width * size > SMEM_BYTES:
+        width //= 2
+    if slots * width * size > SMEM_BYTES:
+        raise LogicError(f"{slots} replay slots of {dtype} exceed one "
+                         f"block's {SMEM_BYTES} B of shared memory")
+    return width
+
+
+def replay_forward(enc: EncodedReplay, staged: torch.Tensor, house,
+                   with_log: bool = False):
+    """Run a replay program on its staged stream ``(brs_len_pad,
+    n_trials)``.
+
+    Returns ``(top (n_trials,), value log (n_log, n_trials) or None)``.
+    CPU tensors run :func:`replay_forward_plain`; CUDA tensors launch
+    ``csrc/replay.cu`` (with the log, ``csrc/replay_adjoint.cu``'s taped
+    forward) or raise.
+    """
+    _check_staged(enc, staged)
+    device, dtype = staged.device, staged.dtype
+    house_t = house_tensor(enc, house, device, dtype)
+    if device.type != "cuda":
+        return replay_forward_plain(enc, staged, house_t, with_log)
+    from ._build import load_library
+    lib = load_library()
+    staged = staged.contiguous()
+    _check_cuda(enc, dtype, staged)
+    width = _replay_block_trials(enc.pool_slots + enc.res_rows, dtype)
+    T = staged.shape[1]
+    ops, args, _fill = enc.tables(device)
+    evlog = torch.empty((max(enc.n_evicted, 1), T), dtype=dtype,
+                        device=device)
+    top = torch.empty(T, dtype=dtype, device=device)
+    common = (enc.pool_slots, enc.res_rows, enc.top_slot, width,
+              torch.cuda.current_stream(device).cuda_stream)
+    vlog = None
+    if with_log:
+        vlog = torch.empty((enc.n_log, T), dtype=dtype, device=device)
+        LAUNCHES["replay_tape"] += 1
+        code = getattr(lib, f"canopy_replay_tape_forward_{_SUFFIX[dtype]}")(
+            ops.data_ptr(), args.data_ptr(), enc.n_ops, staged.data_ptr(),
+            house_t.data_ptr(), evlog.data_ptr(), vlog.data_ptr(),
+            top.data_ptr(), T, *common)
+    else:
+        LAUNCHES["replay"] += 1
+        code = getattr(lib, f"canopy_replay_forward_{_SUFFIX[dtype]}")(
+            ops.data_ptr(), args.data_ptr(), enc.n_ops, staged.data_ptr(),
+            house_t.data_ptr(), evlog.data_ptr(), top.data_ptr(), T,
+            *common)
+    _raise_on(lib, code, "replay forward")
+    return top, vlog
+
+
+def replay_propagate_staged(enc: EncodedReplay, staged: torch.Tensor,
+                            house_states) -> torch.Tensor:
+    """Top values ``(n_trials,)`` of an already-staged replay stream."""
+    return replay_forward(enc, staged, house_states)[0]
+
+
+def replay_propagate(enc: EncodedReplay, basic_p: torch.Tensor,
+                     house_states) -> torch.Tensor:
+    """``(n_trials, n_columns)`` -> ``(n_trials,)`` top values (stages,
+    then runs; hot loops stage once and call
+    :func:`replay_propagate_staged`)."""
+    return replay_propagate_staged(enc, stage_replay(enc, basic_p),
+                                   house_states)

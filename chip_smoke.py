@@ -22,14 +22,14 @@ false or the package is missing).  Phases, each raising on failure:
    the lane-row one on ``aralia_like_large`` and
    ``aralia_like_nested_count`` (count gates up to 88 DP states);
    CUDA-event times of kernel and plain;
-5. dispatch: ``make_propagator(engine="auto")`` picks the tiled kernel on
-   the slice tree, the lane-row one on ``aralia_like_large`` and the
-   uncapped tree stream on the 9,363-gate hierarchical tree of
-   ``bench.py``'s importance section (16,384 trials); each launches its
-   kernel once and agrees with the f64 gather engine within ``TOP_RTOL``
-   (per trial for the fused kernels; for the stream, whose tree has tops
-   near 1e-5 that float32 cannot resolve to 1e-5 relative, normwise and
-   bit-equal to the float32 gather);
+5. dispatch: ``make_propagator(engine="auto")`` picks the uncapped tree
+   stream on the slice tree, on ``aralia_like_large`` and on the
+   9,363-gate hierarchical tree of ``bench.py``'s importance section
+   (16,384 trials), and ``engine="fused"`` the tiled kernel on the slice
+   tree and the lane-row one on ``aralia_like_large``; each agrees with
+   the f64 gather engine within ``TOP_RTOL`` (per trial, except on the
+   hierarchical tree, whose tops near 1e-5 float32 cannot resolve to 1e-5
+   relative: there normwise and bit-equal to the float32 gather);
 6. the BDD slice, through the CLI in-process
    (``tests/fixtures/torch_slice_plant.xml --device cuda --bdd
    --importance --uncertainty --num-trials 1048576 --seed 7``): its
@@ -39,13 +39,28 @@ false or the package is missing).  Phases, each raising on failure:
    evaluation of the same samples;
 7. the direct-propagation slice, through ``RiskAnalysis`` with
    ``algorithm("pdag").approximation("none")``, importance and 1,048,576
-   uncertainty trials: ``fused_tiled``, ``stream_log`` and ``adjoint``
+   uncertainty trials: ``stream``, ``stream_log`` and ``adjoint``
    launched, probability / MIF / cut-set count against
    ``tests/fixtures/torch_pdag_golden.json``, the redrawn batch
    reproducing the reported mean exactly, and 65,536 of its trials'
-   kernel tops against the f64 gather engine.
+   kernel tops against the f64 gather engine;
+8. the replay path (``csrc/replay.cu``, ``csrc/replay_adjoint.cu``):
+   (a) ``bench.py``'s 65,536-gate replay tree at 65,536 trials through
+   ``make_propagator(engine="replay")`` and the staged pair, bit-equal to
+   the plain version and to the stream kernel on the same inputs, 2,048
+   trials within ``TOP_RTOL`` of the f64 gather engine; (b) the
+   16,384-gate replay-adjoint tree under a forced small schedule (every
+   kind of read: pool, resident, basic stream, slab, refill, gate
+   stream), forward, taped forward and backward bit-equal to plain; (c)
+   ``make_differentiable_replay`` on that tree at 1,024 float32 trials
+   (``bench.py``'s size), taped forward and backward bit-equal to plain
+   and the gradient within ``GRAD_RTOL`` of autograd through the f64
+   plain forward; (d) ``_make_replay_importance_fn`` (f64, one trial),
+   its MIF within ``REPLAY_MIF_RTOL`` of the stream adjoint's.  Inputs
+   come from numpy (seed ``REPLAY_SEED``), so the CPU can reproduce any
+   trial.  CUDA-event times of replay, stream and plain.
 
-Each path (5, 6, 7) runs with the launch counts set to 0 just before it
+Each path (5, 6, 7, 8) runs with the launch counts set to 0 just before it
 and read just after; a kernel of the path that never launched fails the
 run.  Long output goes to ``chiprun_out/``.  The last lines are the
 kernels' JSON record (with each kernel's bound: the larger of its bytes
@@ -63,6 +78,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -86,6 +102,22 @@ HIER_AGREE = 2_048
 #: nearly cancel, so single entries can be far off in relative terms; the
 #: f64 kernels (importance's path) carry no such loss.
 GRAD_RTOL = {"f32": 1e-4, "f64": 1e-12}
+#: Phase 8: ``bench.py``'s replay tree and its replay-adjoint tree (the
+#: same generator at 16,384 gates), the trial counts, the seed of the
+#: numpy inputs (uniform(0, 0.05), as ``bench.py`` draws them), and the
+#: forced small schedule under which every kind of read occurs.
+REPLAY_TREE = dict(n_basic=8192, n_gates=65536, fanin=4, n_levels=14,
+                   seed=0)
+ADJOINT_TREE = dict(REPLAY_TREE, n_gates=16384)
+REPLAY_RUN_TRIALS = 65_536
+REPLAY_AGREE = 2_048
+ADJOINT_TRIALS = 1_024
+REPLAY_SEED = 20263
+SMALL_SCHEDULE = dict(pool_slots=256, resident_tiles=128)
+#: MIF of the replay adjoint against the stream adjoint, both f64 over
+#: the same gate arithmetic (only the order of some sums differs),
+#: relative to the largest MIF and per event above 1e-6 of it.
+REPLAY_MIF_RTOL = 1e-12
 #: Probability against the frozen f64 JAX value (same f64 level order).
 PROB_RTOL = 1e-12
 #: MIF of the (f64) adjoint kernel against the frozen f64 JAX MIF, for
@@ -113,11 +145,18 @@ KERNELS = {
                     "canopy_tpu/ops/pallas_kernels.py:258"),
     "fused": ("canopy_tpu_torch/csrc/fused.cu",
               "canopy_tpu/ops/pallas_kernels.py:175"),
+    "replay": ("canopy_tpu_torch/csrc/replay.cu",
+               "canopy_tpu/ops/stream_kernel.py:381"),
+    "replay_tape": ("canopy_tpu_torch/csrc/replay_adjoint.cu",
+                    "canopy_tpu/ops/replay_adjoint_kernel.py:32"),
+    "replay_bwd": ("canopy_tpu_torch/csrc/replay_adjoint.cu",
+                   "canopy_tpu/ops/replay_adjoint_kernel.py:138"),
 }
 #: The path whose launch count each kernel's record reports.
 PATH_OF = {"stream": "bdd-slice", "stream_log": "pdag-slice",
-           "adjoint": "pdag-slice", "fused_tiled": "pdag-slice",
-           "fused": "dispatch"}
+           "adjoint": "pdag-slice", "fused_tiled": "dispatch",
+           "fused": "dispatch", "replay": "replay", "replay_tape": "replay",
+           "replay_bwd": "replay"}
 
 
 def log(msg: str) -> None:
@@ -529,8 +568,8 @@ def phase_fused(device, record: dict) -> None:
 
 
 def phase_dispatch(device, record: dict) -> None:
-    """(b) ``make_propagator(engine="auto")`` on three trees, each against
-    the f64 gather engine."""
+    """(b) ``make_propagator(engine="auto")`` on three trees and
+    ``engine="fused"`` on two, each against the f64 gather engine."""
     from canopy_tpu_torch.engine.propagate import make_propagator
     from canopy_tpu_torch.ops.stream_kernel import (stage_basic,
                                                     stream_forward,
@@ -549,15 +588,22 @@ def phase_dispatch(device, record: dict) -> None:
         f"(built and encoded in {time.perf_counter() - t0:.3f} s)")
     gen = torch.Generator(device=device)
     gen.manual_seed(20262)
-    cases = [("torch_slice_plant", load_tree("torch_slice_plant"),
-              "fused_tiled", AGREE_TRIALS, AGREE_TRIALS),
-             ("aralia_like_large", load_tree("aralia_like_large"), "fused",
+    slice_tree = load_tree("torch_slice_plant")
+    large = load_tree("aralia_like_large")
+    cases = [("torch_slice_plant", slice_tree, "auto", "stream",
               AGREE_TRIALS, AGREE_TRIALS),
-             ("hierarchical", hier, "stream", HIER_TRIALS, HIER_AGREE)]
+             ("aralia_like_large", large, "auto", "stream", AGREE_TRIALS,
+              AGREE_TRIALS),
+             ("hierarchical", hier, "auto", "stream", HIER_TRIALS,
+              HIER_AGREE),
+             ("torch_slice_plant", slice_tree, "fused", "fused_tiled",
+              AGREE_TRIALS, AGREE_TRIALS),
+             ("aralia_like_large", large, "fused", "fused", AGREE_TRIALS,
+              AGREE_TRIALS)]
     reset_counts()
-    for name, tree, engine, n, n_ref in cases:
-        fn = make_propagator(tree, device)
-        check(fn.engine == engine, f"{name}: auto picked {fn.engine}")
+    for name, tree, request, engine, n, n_ref in cases:
+        fn = make_propagator(tree, device, engine=request)
+        check(fn.engine == engine, f"{name}: {request} picked {fn.engine}")
         p = torch.rand((n, tree.n_basic), generator=gen, device=device,
                        dtype=torch.float64) * 0.02
         gather = make_propagator(tree, device, engine="gather")
@@ -566,7 +612,7 @@ def phase_dispatch(device, record: dict) -> None:
             ref = gather(p[:n_ref])
             err = (tops[:n_ref].double() - ref).abs()
         rel = float((err / ref.abs()).max())
-        if engine == "stream":
+        if name == "hierarchical":
             # This tree's smallest tops (about 1e-5) are ORs computed as
             # 1 - prod(1 - p), whose float32 rounding is absolute: per
             # trial only float32's own error is attainable.  The kernel
@@ -581,15 +627,14 @@ def phase_dispatch(device, record: dict) -> None:
                                     f"normwise {norm:.3e}")
             what = (f"bit-equal to the f32 gather; vs f64 gather normwise "
                     f"{norm:.3e} (limit {TOP_RTOL}), per trial {rel:.3e}")
+            hier_p = p
         else:
             check(rel <= TOP_RTOL,
                   f"{name}: {engine} tops vs gather {rel:.3e}")
             what = (f"vs f64 gather max rel err {rel:.3e} (limit "
                     f"{TOP_RTOL})")
-        log(f"[dispatch] {name}: auto -> {engine} at {n} trials; on "
+        log(f"[dispatch] {name}: {request} -> {engine} at {n} trials; on "
             f"{n_ref} of them {what}")
-        if engine == "stream":
-            hier_p = p
         del p, tops, ref, err
     launches = read_counts(record, "dispatch",
                            ("fused_tiled", "fused", "stream"))
@@ -628,7 +673,7 @@ def phase_pdag(device, record: dict) -> None:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_counts(record, "pdag-slice",
-                           ("fused_tiled", "stream_log", "adjoint"))
+                           ("stream", "stream_log", "adjoint"))
     log(f"[pdag] RiskAnalysis(pdag, approximation none, importance, "
         f"{SLICE_TRIALS} trials, seed {SLICE_SEED}, cuda): {seconds:.3f} s, "
         f"launches {launches}")
@@ -665,7 +710,7 @@ def phase_pdag(device, record: dict) -> None:
                                          SLICE_TRIALS,
                                          Settings().mission_time(), device)
     fn = make_propagator(tree, device, house_states=tree.house_state_vector())
-    check(fn.engine == "fused_tiled", f"slice dispatch {fn.engine}")
+    check(fn.engine == "stream", f"slice dispatch {fn.engine}")
     with torch.no_grad():
         tops = fn(samples)
         mean = float(tops.cpu().numpy().mean())
@@ -676,11 +721,237 @@ def phase_pdag(device, record: dict) -> None:
     rel = float(((tops[:AGREE_TRIALS].double() - ref).abs()
                  / ref.abs()).max())
     check(rel <= TOP_RTOL, f"per-trial tops rel err {rel:.3e}")
-    log(f"[pdag] {AGREE_TRIALS} sampled trials: fused tops vs f64 gather "
+    log(f"[pdag] {AGREE_TRIALS} sampled trials: stream tops vs f64 gather "
         f"max rel err {rel:.3e} (limit {TOP_RTOL}); redrawn batch "
         f"reproduces the reported mean exactly")
     record["pdag_seconds"] = seconds
     record["pdag_timings"] = report.timings
+
+
+def replay_inputs(n_trials: int, n_basic: int, seed: int, device):
+    """uniform(0, 0.05) float32 probabilities drawn by numpy in row blocks
+    (the same numbers as one draw of the whole array, so the CPU can
+    redraw any prefix of trials)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for lo in range(0, n_trials, 8192):
+        block = rng.uniform(0.0, 0.05, (min(8192, n_trials - lo), n_basic))
+        rows.append(torch.from_numpy(block.astype(np.float32)).to(device))
+    return torch.cat(rows)
+
+
+def replay_bound(enc, n_trials: int, itemsize: int, extra_rows: int,
+                 backward: bool = False) -> dict:
+    """Bound of a replay kernel: the basic-stream rows the program reads
+    and ``extra_rows`` more rows (the top, a value log, a cotangent, the
+    gradient rows), each moved once, against the op table's
+    operations."""
+    n_bytes = (len(enc.read_rows) + extra_rows) * n_trials * itemsize
+    return bound(n_bytes, op_flops(enc, backward) * n_trials, itemsize)
+
+
+def phase_replay(device, record: dict) -> None:
+    """(d) The replay path: forward, staged pair, adjoint, importance."""
+    from canopy_tpu_torch.engine.importance import (
+        _make_replay_importance_fn, importance_measures,
+        make_stream_importance_fn)
+    from canopy_tpu_torch.engine.propagate import (make_propagator,
+                                                   make_staged_propagator)
+    from canopy_tpu_torch.ops.replay_adjoint_kernel import (
+        compile_replay_adjoint, make_differentiable_replay,
+        replay_adjoint_backward, replay_backward_plain, replay_tape_forward)
+    from canopy_tpu_torch.ops.stream_kernel import (
+        compile_replay_stream, encode_replay, house_tensor, replay_forward,
+        replay_forward_plain, replay_grad_basic, stage_basic, stage_replay,
+        stream_forward, tree_stream_encoding)
+    from canopy_tpu_torch.utils.synthetic import synthetic_compiled_tree
+
+    t0 = time.perf_counter()
+    tree = synthetic_compiled_tree(**REPLAY_TREE)
+    tree16 = synthetic_compiled_tree(**ADJOINT_TREE)
+    p = replay_inputs(REPLAY_RUN_TRIALS, tree.n_basic, REPLAY_SEED, device)
+    p16 = replay_inputs(ADJOINT_TRIALS, tree16.n_basic, REPLAY_SEED + 1,
+                        device)
+    point = p16[0].double()
+    house = np.zeros(0, np.float32)
+    aprog = compile_replay_adjoint(tree16, max_ops_per_segment=2048)
+    enc16 = encode_replay(aprog.base)
+    log(f"[replay] trees ({tree.n_gates} and {tree16.n_gates} gates), "
+        f"inputs and the adjoint program in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    # The path, through the entry points a user calls.
+    reset_counts()
+    t0 = time.perf_counter()
+    fn = make_propagator(tree, device, engine="replay")
+    stage, run = make_staged_propagator(tree, device, engine="replay")
+    build_s = time.perf_counter() - t0
+    check(fn.engine == run.engine == "replay",
+          f"replay engine ran {fn.engine} / {run.engine}")
+    with torch.no_grad():
+        tops = fn(p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        staged = stage(p)
+        torch.cuda.synchronize()
+        stage_s = time.perf_counter() - t0
+        tops_staged = run(staged)
+    f = make_differentiable_replay(aprog, house)
+    q = p16.clone().requires_grad_(True)
+    value = f(stage_replay(enc16, q))
+    value.sum().backward()
+    imp = importance_measures(tree16, point, top_fn=_make_replay_importance_fn(
+        tree16, None, device))
+    launches = read_counts(record, "replay",
+                           ("replay", "replay_tape", "replay_bwd"))
+    log(f"[replay] make_propagator + make_staged_propagator(engine=replay) "
+        f"built in {build_s:.3f} s; stage_replay {stage_s:.3f} s; "
+        f"launches {launches}")
+
+    # (a) The forward against plain, the stream kernel and gather.
+    prog = compile_replay_stream(tree)
+    enc = encode_replay(prog)
+    T = REPLAY_RUN_TRIALS
+    check(torch.equal(stage_replay(enc, p[:8]), staged[:, :8]),
+          "the staged pair's stream differs from the program's")
+    check(torch.equal(tops, tops_staged), "replay staged and unstaged differ")
+    sizes = {"ops": enc.n_ops, "gates": enc.n_log, "pool": prog.pool_slots,
+             "resident": prog.res_tiles, "segments": len(prog.segments),
+             "stream_rows": prog.brs_len_pad,
+             "read_rows": len(enc.read_rows), "evictions": prog.n_evicted,
+             "inter": prog.n_inter, "intra": prog.n_intra,
+             "slab": prog.n_slab_reads, "resident_reads":
+             prog.n_resident_reads,
+             "stream_gb": prog.brs_len_pad * T * 4 / 1e9,
+             "log_gb": prog.n_evicted * T * 4 / 1e9}
+    log(f"[replay] 65k tree program: {json.dumps(sizes)}")
+    h32 = house_tensor(enc, house, device)
+    plain, _ = replay_forward_plain(enc, staged, h32)
+    err = float((tops_staged - plain).abs().max())
+    check(err == 0.0, f"replay forward differs from plain ({err})")
+    senc = tree_stream_encoding(tree)
+    sstaged = stage_basic(senc, p)
+    stops, _ = stream_forward(senc, sstaged, house)
+    check(torch.equal(stops, tops), "replay and stream tops differ")
+    gather = make_propagator(tree, device, engine="gather")
+    with torch.no_grad():
+        ref = gather(p[:REPLAY_AGREE].double())
+    rel = float(((tops[:REPLAY_AGREE].double() - ref).abs()
+                 / ref.abs()).max())
+    check(rel <= TOP_RTOL, f"replay tops vs f64 gather {rel:.3e}")
+    ms = cuda_ms(lambda: replay_forward(enc, staged, house), 3)
+    stream_ms = cuda_ms(lambda: stream_forward(senc, sstaged, house), 3)
+    plain_ms = cuda_ms(lambda: replay_forward_plain(enc, staged, h32), 1)
+    log(f"[replay] 65k tree, {T} trials: replay kernel bit-equal to plain "
+        f"and to the stream kernel ({senc.n_ops} ops, pool "
+        f"{senc.pool_slots}); {REPLAY_AGREE} trials vs f64 gather max rel "
+        f"err {rel:.3e} (limit {TOP_RTOL}); replay {ms:.3f} ms, stream "
+        f"{stream_ms:.3f} ms, plain {plain_ms:.3f} ms")
+    record["replay"].update(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        shape=f"65k tree, {enc.n_log} gates x {T} trials, f32",
+        **replay_bound(enc, T, 4, 1))
+    record["replay_65k"] = dict(sizes, stream_ms=stream_ms,
+                                stream_pool=senc.pool_slots,
+                                build_s=build_s, stage_s=stage_s)
+    del staged, sstaged, plain, stops, tops, tops_staged, p, ref
+    torch.cuda.empty_cache()
+
+    # (b) Every kind of read, under a forced small schedule.
+    small_prog = compile_replay_stream(tree16, **SMALL_SCHEDULE)
+    counts = {k: getattr(small_prog, k) for k in (
+        "n_evicted", "n_slab_reads", "n_intra", "n_inter",
+        "n_resident_reads")}
+    check(all(counts.values()), f"small schedule misses a read kind "
+                                f"{counts}")
+    small = encode_replay(small_prog)
+    s_staged = stage_replay(small, p16)
+    check(torch.equal(replay_forward(small, s_staged, house)[0],
+                      replay_forward_plain(small, s_staged,
+                                           house_tensor(small, house,
+                                                        device))[0]),
+          "small-schedule replay differs from plain")
+    asmall = encode_replay(compile_replay_adjoint(
+        tree16, pool_slots=SMALL_SCHEDULE["pool_slots"],
+        max_ops_per_segment=2048).base)
+    a_staged = stage_replay(asmall, p16)
+    ones = torch.ones(ADJOINT_TRIALS, device=device)
+    ha = house_tensor(asmall, house, device)
+    top_a, vlog_a = replay_tape_forward(asmall, a_staged, house)
+    ptop_a, plog_a = replay_forward_plain(asmall, a_staged, ha, True)
+    check(torch.equal(top_a, ptop_a) and torch.equal(vlog_a, plog_a),
+          "small-schedule taped forward differs from plain")
+    check(torch.equal(
+        replay_adjoint_backward(asmall, a_staged, house, vlog_a, ones),
+        replay_backward_plain(asmall, a_staged, ha, plog_a, ones)),
+          "small-schedule backward differs from plain")
+    log(f"[replay] 16k tree, small schedule {SMALL_SCHEDULE} "
+        f"({json.dumps(counts)}; adjoint program {asmall.n_evicted} "
+        f"evictions): forward, taped forward and backward bit-equal to "
+        f"plain at {ADJOINT_TRIALS} trials")
+    del s_staged, a_staged, vlog_a, plog_a
+
+    # (c) The adjoint at bench.py's size.
+    staged16 = stage_replay(enc16, p16)
+    h16 = house_tensor(enc16, house, device)
+    top, vlog = replay_tape_forward(enc16, staged16, house)
+    ptop, plog = replay_forward_plain(enc16, staged16, h16, True)
+    tape_err = float((vlog - plog).abs().max())
+    check(torch.equal(top, ptop) and tape_err == 0.0,
+          "taped forward differs from plain")
+    check(torch.equal(value.detach(), top), "the path's value differs")
+    grad = replay_adjoint_backward(enc16, staged16, house, vlog, ones)
+    pgrad = replay_backward_plain(enc16, staged16, h16, plog, ones)
+    grad_err = float((grad - pgrad).abs().max())
+    check(grad_err == 0.0, f"backward differs from plain ({grad_err})")
+    check(torch.equal(q.grad, replay_grad_basic(enc16, grad)),
+          "the path's gradient differs from the folded kernel stream")
+    s64 = staged16.double().requires_grad_(True)
+    (g64,) = torch.autograd.grad(
+        replay_forward_plain(enc16, s64, h16.double())[0], s64,
+        ones.double())
+    grel = _grad_error(grad, g64)
+    check(grel <= GRAD_RTOL["f32"], f"replay gradient vs f64 autograd "
+                                    f"{grel:.3e}")
+    ms_tape = cuda_ms(lambda: replay_tape_forward(enc16, staged16, house), 5)
+    ms_bwd = cuda_ms(lambda: replay_adjoint_backward(
+        enc16, staged16, house, vlog, ones), 5)
+    pms_tape = cuda_ms(lambda: replay_forward_plain(enc16, staged16, h16,
+                                                    True), 1)
+    pms_bwd = cuda_ms(lambda: replay_backward_plain(enc16, staged16, h16,
+                                                    plog, ones), 1)
+    log(f"[replay] 16k tree ({enc16.n_log} gates, {len(aprog.base.segments)} "
+        f"segments, pool {enc16.pool_slots}, {enc16.n_evicted} evictions), "
+        f"{ADJOINT_TRIALS} trials f32: taped forward and backward bit-equal "
+        f"to plain; gradient vs f64 autograd {grel:.3e} (limit "
+        f"{GRAD_RTOL['f32']}); tape {ms_tape:.3f} ms / plain "
+        f"{pms_tape:.3f} ms, backward {ms_bwd:.3f} ms / plain "
+        f"{pms_bwd:.3f} ms")
+    shape16 = f"16k tree, {enc16.n_log} gates x {ADJOINT_TRIALS} trials, f32"
+    record["replay_tape"].update(
+        max_abs_err=tape_err, ms=ms_tape, plain_ms=pms_tape, shape=shape16,
+        **replay_bound(enc16, ADJOINT_TRIALS, 4, 1 + enc16.n_log))
+    record["replay_bwd"].update(
+        max_abs_err=grad_err, ms=ms_bwd, plain_ms=pms_bwd, shape=shape16,
+        **replay_bound(enc16, ADJOINT_TRIALS, 4,
+                       enc16.n_log + 1 + len(enc16.read_rows), True))
+    del staged16, vlog, plog, grad, pgrad, s64, g64, q, value
+
+    # (d) Importance through the replay adjoint against the stream's.
+    want = importance_measures(tree16, point, top_fn=make_stream_importance_fn(
+        tree16, None, device))
+    big = float(np.abs(want.mif).max())
+    norm = float(np.abs(imp.mif - want.mif).max()) / big
+    sel = np.abs(want.mif) > 1e-6 * big
+    per = float((np.abs(imp.mif - want.mif)[sel]
+                 / np.abs(want.mif[sel])).max())
+    check(norm <= REPLAY_MIF_RTOL and per <= REPLAY_MIF_RTOL,
+          f"replay MIF vs stream: normwise {norm:.3e}, per event {per:.3e}")
+    log(f"[replay] importance (f64, one trial): P = {imp.top_probability!r} "
+        f"(stream {want.top_probability!r}); MIF vs the stream adjoint "
+        f"normwise {norm:.3e}, per event above 1e-6 of the largest "
+        f"({int(sel.sum())} events) {per:.3e} (limit {REPLAY_MIF_RTOL})")
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -705,6 +976,7 @@ def main() -> int:
     phase_dispatch(device, record)
     phase_slice(device, record)
     phase_pdag(device, record)
+    phase_replay(device, record)
     check("jax" not in sys.modules, "the port imported jax")
     for name in KERNELS:
         record[name]["launches"] = record["paths"][PATH_OF[name]][name]

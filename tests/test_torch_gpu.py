@@ -79,7 +79,8 @@ def test_launch_counts_and_wrapper_checks(cuda_device):  # noqa: F811
     tak.stream_backward(enc, staged, house, log, torch.ones_like(top))
     tsk.stream_forward(enc, staged, house)
     assert tsk.LAUNCHES == {"stream": 1, "stream_log": 1, "adjoint": 1,
-                            "fused_tiled": 0, "fused": 0}
+                            "fused_tiled": 0, "fused": 0, "replay": 0,
+                            "replay_tape": 0, "replay_bwd": 0}
     with pytest.raises(LogicError):
         tsk.stream_forward(enc, staged.half(), house)
 
@@ -143,16 +144,20 @@ def test_fused_kernels_match_plain(cuda_device, name,  # noqa: F811
 
 
 def test_propagator_dispatch_on_cuda(cuda_device):  # noqa: F811
+    """Auto runs the stream kernel on every tree; ``engine="fused"`` still
+    runs the tiled and lane-row kernels where the trees fit them."""
     from canopy_tpu_torch.utils.synthetic import synthetic_hierarchical_tree
     big = synthetic_hierarchical_tree(n_basic=16384, branching=8,
                                       share_fraction=0.1, n_shared=32,
                                       seed=0)
-    cases = [(load_tree("canopy_tpu_torch", "torch_slice_plant",
-                        tree_name="slice")[1], "fused_tiled"),
-             (load_tree("canopy_tpu_torch", "aralia_like_large")[1],
-              "fused"), (big, "stream")]
-    for tree, engine in cases:
-        fn = make_propagator(tree, cuda_device)
+    slice_tree = load_tree("canopy_tpu_torch", "torch_slice_plant",
+                           tree_name="slice")[1]
+    large = load_tree("canopy_tpu_torch", "aralia_like_large")[1]
+    cases = [(slice_tree, "auto", "stream"), (large, "auto", "stream"),
+             (big, "auto", "stream"), (slice_tree, "fused", "fused_tiled"),
+             (large, "fused", "fused")]
+    for tree, request, engine in cases:
+        fn = make_propagator(tree, cuda_device, engine=request)
         assert fn.engine == engine
         p = torch.rand((3000, tree.n_basic), device=cuda_device,
                        dtype=torch.float64) * 0.02
@@ -165,7 +170,7 @@ def test_propagator_dispatch_on_cuda(cuda_device):  # noqa: F811
 
 def test_pdag_analysis_on_cuda_matches_cpu(cuda_device):  # noqa: F811
     """Without a BDD: the f64 gather probability, importance through the
-    tree's f64 stream and adjoint kernels, uncertainty through the fused
+    tree's f64 stream and adjoint kernels, uncertainty through the stream
     kernel; against the CPU run (gather autodiff)."""
     settings = (Settings().algorithm("pdag").approximation("none")
                 .probability_analysis(True).importance_analysis(True)
@@ -178,7 +183,7 @@ def test_pdag_analysis_on_cuda_matches_cpu(cuda_device):  # noqa: F811
     tsk.reset_launches()
     (gpu,) = RiskAnalysis(model, settings, "cuda").run().fault_trees
     assert tsk.LAUNCHES["stream_log"] == 1 and tsk.LAUNCHES["adjoint"] == 1
-    assert tsk.LAUNCHES["fused_tiled"] == 1
+    assert tsk.LAUNCHES["stream"] == 1 and tsk.LAUNCHES["fused_tiled"] == 0
     (cpu,) = RiskAnalysis(model, settings, "cpu").run().fault_trees
     assert abs(gpu.probability - cpu.probability) <= \
         1e-12 * abs(cpu.probability)
@@ -187,3 +192,66 @@ def test_pdag_analysis_on_cuda_matches_cpu(cuda_device):  # noqa: F811
     np.testing.assert_allclose(mif, want, rtol=0,
                                atol=1e-12 * np.abs(want).max())
     assert "method" not in gpu.uncertainty
+
+
+#: The thrash-shaped replay schedule of the JAX package's tests: a tiny
+#: pool and short segments force evictions, slab reads, refills and
+#: gate-stream reads on a 900-gate tree.
+THRASH = dict(brs_chunk=16, brs_bufs=3, grs_chunk=8, grs_bufs=2,
+              slab_bufs=3, slab_tiles=8, max_ops_per_segment=150,
+              pool_slots=12, hoist_events=8, n_refill_sems=4,
+              n_flush_sems=2)
+ADJOINT = dict(tct=16, tape_bufs=3, tape_slab=8, gcot_bufs=2, icot_bufs=2,
+               inj_chunk=4, inj_bufs=2, side_cap=32, **THRASH)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_replay_kernels_match_plain(cuda_device, dtype):  # noqa: F811
+    """Replay forward (with a resident tier), taped forward and backward,
+    each bit-equal to its plain version at 1 and 1,000 trials."""
+    from canopy_tpu_torch.ops import replay_adjoint_kernel as trk
+    from canopy_tpu_torch.utils.synthetic import synthetic_compiled_tree
+    tree = synthetic_compiled_tree(n_basic=96, n_gates=900, fanin=4,
+                                   n_levels=10, seed=0)
+    fwd = tsk.encode_replay(tsk.compile_replay_stream(
+        tree, **dict(THRASH, resident_tiles=32)))
+    adj = tsk.encode_replay(trk.compile_replay_adjoint(tree,
+                                                       **ADJOINT).base)
+    assert fwd.res_rows and fwd.n_evicted and adj.n_evicted
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    h = torch.zeros(1, dtype=dtype, device=cuda_device)
+    for n in (1, 1000):
+        p = (torch.rand((n, tree.n_basic), generator=gen, device=cuda_device,
+                        dtype=torch.float64) * 0.6).to(dtype)
+        staged = tsk.stage_replay(fwd, p, dtype)
+        top, _ = tsk.replay_forward(fwd, staged, [])
+        assert torch.equal(top, tsk.replay_forward_plain(fwd, staged, h)[0])
+        staged = tsk.stage_replay(adj, p, dtype)
+        ct = torch.rand(n, generator=gen, device=cuda_device,
+                        dtype=torch.float64).to(dtype) + 0.5
+        top, vlog = trk.replay_tape_forward(adj, staged, [])
+        ptop, plog = tsk.replay_forward_plain(adj, staged, h, True)
+        assert torch.equal(top, ptop) and torch.equal(vlog, plog), n
+        grad = trk.replay_adjoint_backward(adj, staged, [], vlog, ct)
+        want = trk.replay_backward_plain(adj, staged, h, plog, ct)
+        assert torch.equal(grad, want), n
+
+
+def test_replay_engine_on_cuda(cuda_device):  # noqa: F811
+    """``engine="replay"`` and its staged pair launch the replay kernel
+    (never another engine) and agree with the f64 gather engine."""
+    from canopy_tpu_torch.engine.propagate import make_staged_propagator
+    from canopy_tpu_torch.utils.synthetic import synthetic_compiled_tree
+    tree = synthetic_compiled_tree(n_basic=512, n_gates=4096, fanin=4,
+                                   n_levels=12, seed=1)
+    p = torch.rand((3000, tree.n_basic), device=cuda_device,
+                   dtype=torch.float64) * 0.05
+    fn = make_propagator(tree, cuda_device, engine="replay")
+    stage, run = make_staged_propagator(tree, cuda_device, engine="replay")
+    tsk.reset_launches()
+    got = fn(p)
+    assert torch.equal(run(stage(p)), got)
+    assert fn.engine == run.engine == "replay"
+    assert tsk.LAUNCHES["replay"] == 2 and tsk.LAUNCHES["stream"] == 0
+    want = make_propagator(tree, cuda_device, engine="gather")(p)
+    assert float(((got.double() - want).abs() / want).max()) <= 1e-5

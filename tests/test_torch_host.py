@@ -30,8 +30,9 @@ PORT_PKG = os.path.join(ROOT, "canopy_tpu_torch")
 VENDORED = ["errors.py", "settings.py", "engine/event_tree_walk.py",
             "compiler/graph.py", "compiler/bdd.py", "compiler/zbdd.py",
             "compiler/cutsets.py", "compiler/prime_implicants.py",
-            "compiler/schedule.py", "native/__init__.py", "native/build.py",
-            "utils/synthetic.py"] + sorted(
+            "compiler/schedule.py", "compiler/replay.py",
+            "compiler/replay_adjoint.py", "native/__init__.py",
+            "native/build.py", "utils/synthetic.py"] + sorted(
     os.path.relpath(os.path.join(d, f), JAX_PKG)
     for d, _dirs, files in os.walk(os.path.join(JAX_PKG, "mef"))
     for f in files if f.endswith(".py"))
@@ -42,6 +43,8 @@ def test_import_leaves_jax_out():
             "canopy_tpu_torch.engine.analysis, "
             "canopy_tpu_torch.ops.adjoint_kernel, "
             "canopy_tpu_torch.ops.fused_kernel, "
+            "canopy_tpu_torch.ops.replay_adjoint_kernel, "
+            "canopy_tpu_torch.compiler.replay_adjoint, "
             "canopy_tpu_torch.utils.synthetic, canopy_tpu_torch.report; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'canopy_tpu.'))))")
@@ -87,6 +90,24 @@ def test_modules_builder_is_the_original():
         return lines[:next(i for i, line in enumerate(lines)
                            if line.startswith("def modular_probability"))]
     assert head(PORT_PKG) == head(JAX_PKG)
+
+
+def test_scalar_reference_is_the_original():
+    """``compiler/_scalar_reference.py`` holds the JAX package's
+    ``compiler/adjoint.py`` helpers that the vendored replay simulator
+    imports, function for function."""
+    def functions(path):
+        with open(path) as fh:
+            text = fh.read()
+        return {node.name: ast.get_source_segment(text, node)
+                for node in ast.parse(text).body
+                if isinstance(node, ast.FunctionDef)}
+    ours = functions(os.path.join(PORT_PKG, "compiler",
+                                  "_scalar_reference.py"))
+    theirs = functions(os.path.join(JAX_PKG, "compiler", "adjoint.py"))
+    assert set(ours) == {"_f32", "_gate_scalar", "_bgate_partials"}
+    for name, source in ours.items():
+        assert source == theirs[name], name
 
 
 def _assert_arrays_equal(a, b, what):

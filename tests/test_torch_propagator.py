@@ -8,14 +8,16 @@
   ``1 - prod(1 - p)``, and float32 rounds each ``1 - p`` to an absolute
   half ulp of 1.0, which is more than 1e-6 of a top near 1e-4).
 * Auto dispatch on CUDA (decided without a card: building a kernel
-  engine touches no device) picks the tiled fused kernel, then the
-  lane-row one, then the stream; gather only for ``output="all"``.
+  engine touches no device) picks the stream on every tree with an
+  anchored top; ``engine="fused"`` still picks the tiled kernel, then
+  the lane-row one; gather only for ``output="all"``.
 * ``compile_tree_stream`` gives the shared scheduler's tables wherever
   that scheduler spills nothing, and schedules a tree it rejects (a gate
   reading 800 staged basics, beyond 3 x 256), matching gather there.
 * The top cone is a fixed point of ``prune_to_top_cone``; a per-call
   house override raises on the kernel engines; staged results equal
-  unstaged ones; the engines without a port raise.
+  unstaged ones; the engines without a port raise, and the replay
+  engine, ported, builds.
 """
 
 import numpy as np
@@ -101,9 +103,11 @@ def test_auto_dispatch_on_cuda():
                                       share_fraction=0.1, n_shared=32,
                                       seed=0)
     assert big.n_gates > 1816
-    assert make_propagator(slice_tree, cuda).engine == "fused_tiled"
-    assert make_propagator(large, cuda).engine == "fused"
+    assert make_propagator(slice_tree, cuda).engine == "stream"
+    assert make_propagator(large, cuda).engine == "stream"
     assert make_propagator(big, cuda).engine == "stream"
+    assert make_propagator(slice_tree, cuda,
+                           engine="fused").engine == "fused_tiled"
     assert make_propagator(large, cuda, engine="fused").engine == "fused"
     assert make_propagator(slice_tree, "cpu").engine == "gather"
     with pytest.raises(ValueError):
@@ -308,5 +312,14 @@ def test_staged_equals_unstaged():
 @pytest.mark.parametrize("engine", ["replay", "spill", "block"])
 def test_unported_engines_raise(engine):
     _m, tree = load_tree("canopy_tpu_torch", "aralia_like_ccf")
+    if engine == "replay":
+        # Ported (tests/test_torch_replay.py): it builds, and like every
+        # kernel engine refuses a per-call house override.
+        fn = make_propagator(tree, "cpu", engine=engine)
+        assert fn.engine == "replay"
+        p = torch.from_numpy(inputs(tree.n_basic, 4, 27))
+        with pytest.raises(ValueError):
+            fn(p, torch.ones(max(tree.n_house, 1)))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make_propagator(tree, "cpu", engine=engine)
