@@ -12,14 +12,17 @@
   one, the tree's);
 * **uncertainty** — batched epistemic sampling through the expression
   tape (on CUDA through the stream kernel over the BDD, or without one
-  through ``make_propagator``'s stream kernel).
+  through ``make_propagator``'s stream kernel);
+* **Monte Carlo approximation** — the bit-packed engine
+  (``ops/bitpack.packed_top_probability``), its states drawn by the
+  Philox kernel on CUDA (``ops/bernoulli_kernel.py``), with the normal
+  standard error of the estimate.
 
 The device is named by the caller.  Where the JAX package asks whether
 its backend is a TPU, this module asks whether the device is CUDA.
 
 Not ported yet, each raising ``NotImplementedError`` with its
-``ROADMAP.md`` item: event trees, alignment phases, SIL and time curves,
-and the Monte Carlo approximation.
+``ROADMAP.md`` item: event trees, alignment phases, SIL and time curves.
 """
 
 from __future__ import annotations
@@ -287,9 +290,18 @@ class RiskAnalysis:
                 value = rare_event(q) if approx == Approximation.RARE_EVENT \
                     else mcub(q)
                 result.probability = float(value)
-            else:
-                raise _not_ported("the Monte Carlo approximation",
-                                  "Queue 1 item 10")
+            else:  # Monte Carlo state simulation (bit-packed engine).
+                from ..ops.bitpack import packed_top_probability
+                from .sampler import monte_carlo_ci
+
+                n = settings.num_trials() * settings.sample_size()
+                n = -(-n // 32) * 32  # Round up to whole 32-trial words.
+                # On CUDA the Philox kernel samples (csrc/bernoulli.cu) and
+                # raises if it cannot build or launch: no fallback.
+                estimate = packed_top_probability(
+                    tree, settings.seed(), mean_p, n, house, device)
+                result.probability = float(estimate)
+                result.mc_std_error = float(monte_carlo_ci(estimate, n))
             self._timings[f"probability:{top.id}"] = time.perf_counter() - t0
 
         if products is not None:

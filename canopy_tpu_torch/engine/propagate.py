@@ -24,8 +24,8 @@ path for shared-event models.
 
 :func:`make_propagator` picks an engine for a tree once and returns the
 evaluator: on CUDA the uncapped tree stream's hand-written kernel (the
-fused whole-tree and replay kernels on request), elsewhere this gather
-engine.
+fused whole-tree, replay and spill kernels on request), elsewhere this
+gather engine.
 :func:`make_staged_propagator` splits the stream engine's staging from
 its kernel for hot loops.  ``make_param_propagator`` is not ported: it
 existed to keep index arrays out of remote-compile requests, and torch
@@ -43,7 +43,8 @@ from ..compiler.graph import CompiledTree, CountBlock, PairBlock, ProdBlock
 
 __all__ = ["propagate_probability", "top_event_probability",
            "propagate_node_major", "make_propagator",
-           "make_staged_propagator", "mean_basic_probabilities"]
+           "make_staged_propagator", "mean_basic_probabilities",
+           "spill_auto_ok"]
 
 
 def _compute_dtype(vals: torch.Tensor) -> torch.dtype:
@@ -175,7 +176,20 @@ def top_event_probability(tree: CompiledTree, basic_p: torch.Tensor,
 
 
 #: Engines of the JAX package that wait for their kernels (ROADMAP.md).
-_NOT_PORTED = {"spill": "Queue 2 item 10", "block": "Queue 2 item 12"}
+_NOT_PORTED = {"block": "Queue 2 item 12"}
+
+#: The JAX package's thrashing guard for the spill tier under its TPU auto
+#: dispatch: a schedule refilling more than this share of its ops trails
+#: gather there.  Kept as the same logic; the port's auto dispatch never
+#: picks spill (the uncapped stream refuses no anchored tree).
+_SPILL_MAX_REFILL_DENSITY = 0.15
+
+
+def spill_auto_ok(spill_program) -> bool:
+    """Whether the JAX package's auto dispatch would use this spill
+    schedule (callers may still force it with ``engine="spill"``)."""
+    return (spill_program.n_refills
+            <= _SPILL_MAX_REFILL_DENSITY * spill_program.n_ops)
 
 
 def _build_house(tree: CompiledTree,
@@ -229,27 +243,34 @@ def make_propagator(tree: CompiledTree, device, output: str = "top",
       (``ops/stream_kernel.compile_replay_stream``: a shared-memory pool,
       an eviction log in device memory); float32,
       ``(n_trials, n_basic)`` input;
+    * ``"spill"`` — the spill kernel on the tree's Belady spill program
+      (``ops/stream_kernel.compile_spill_stream``: a shared-memory pool,
+      evictions to scratch rows in device memory, single refills);
+      float32, ``(n_trials, n_basic)`` input;
     * ``"auto"`` — on CUDA the stream kernel; the gather engine on the
       CPU, for ``output="all"`` or without an anchored top.  No CUDA path
-      falls back to gather, and auto never picks the fused or replay
-      kernels (explicit engines).
+      falls back to gather, and auto never picks the fused, replay or
+      spill kernels (explicit engines).
 
-    On the CPU ``"fused"``, ``"stream"`` and ``"replay"`` run the
-    kernels' plain versions (the rehearsal the tests use).  ``"spill"``
-    and ``"block"`` raise ``NotImplementedError``: their kernels are not
-    ported yet.
+    On the CPU ``"fused"``, ``"stream"``, ``"replay"`` and ``"spill"`` run
+    the kernels' plain versions (the rehearsal the tests use).
+    ``"block"`` raises ``NotImplementedError``: its kernels are not ported
+    yet.
     """
     from ..ops.fused_kernel import (fused_propagate, fused_propagate_tiled,
                                     fused_supported, fused_tiled_supported)
-    from ..ops.stream_kernel import (compile_replay_stream, encode_replay,
-                                     replay_propagate, stream_propagate,
+    from ..ops.stream_kernel import (compile_replay_stream,
+                                     compile_spill_stream, encode_replay,
+                                     encode_spill, replay_propagate,
+                                     spill_propagate, stream_propagate,
                                      tree_stream_encoding)
     device = torch.device(device)
     if engine in _NOT_PORTED:
         raise NotImplementedError(
             f"the {engine} engine is not ported to canopy_tpu_torch yet "
             f"(ROADMAP.md, {_NOT_PORTED[engine]})")
-    if engine not in ("auto", "gather", "fused", "stream", "replay"):
+    if engine not in ("auto", "gather", "fused", "stream", "replay",
+                      "spill"):
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "auto":
         engine = _auto_engine(tree, device, output)
@@ -271,6 +292,11 @@ def make_propagator(tree: CompiledTree, device, output: str = "top",
 
             def run(basic_p):
                 return replay_propagate(renc, basic_p, house)
+        elif engine == "spill":
+            senc = encode_spill(compile_spill_stream(tree))
+
+            def run(basic_p):
+                return spill_propagate(senc, basic_p, house)
         elif engine == "fused_tiled":
             def run(basic_p):
                 return fused_propagate_tiled(tree, basic_p, house)

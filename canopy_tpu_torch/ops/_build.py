@@ -26,7 +26,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(_PKG, "_build")
 _SOURCES = ("stream.cu", "adjoint.cu", "fused.cu", "replay.cu",
-            "replay_adjoint.cu")
+            "replay_adjoint.cu", "spill.cu", "bernoulli.cu")
 _HEADERS = ("stream_ops.cuh", "adjoint_ops.cuh", "replay_ops.cuh")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -125,10 +125,16 @@ def load_library() -> ctypes.CDLL:
         bwd.argtypes = [vp, vp, i32, vp, vp, vp, vp, vp, vp, i64, i32, i32,
                         i32, vp]
         bwd.restype = i32
+        fwd = getattr(lib, f"canopy_spill_forward_{suffix}")
+        fwd.argtypes = [vp, vp, i32, vp, vp, vp, vp, i64, i32, i32, i32, vp]
+        fwd.restype = i32
     lib.canopy_fused_forward_f32.argtypes = [vp, vp, i32, vp, vp, vp, i64,
                                              i32, i32, i32, vp]
     lib.canopy_fused_forward_f32.restype = i32
     lib.canopy_fused_max_smem_bytes.restype = i32
+    lib.canopy_packed_bernoulli.argtypes = [vp, i64, i64, i64, ctypes.c_uint,
+                                            ctypes.c_uint, vp, vp]
+    lib.canopy_packed_bernoulli.restype = i32
     lib.canopy_cuda_error_string.argtypes = [i32]
     lib.canopy_cuda_error_string.restype = ctypes.c_char_p
     lib.canopy_max_count_states.restype = i32

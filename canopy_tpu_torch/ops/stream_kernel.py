@@ -34,6 +34,13 @@ through ``csrc/replay.cu`` or :func:`replay_forward_plain`.  The staged
 basic replay stream is ``(brs_len_pad, n_trials)``, one row per basic
 read, trials contiguous.
 
+Spill programs.  :func:`compile_spill_stream` sizes
+``compiler/spill.py``'s Belady schedule for shared memory,
+:func:`encode_spill` flattens it into the same op-table format, and
+:func:`spill_forward` runs it through ``csrc/spill.cu`` or
+:func:`spill_forward_plain`.  Their staged input is ``(n_basic, n_trials)``
+in the program's staging order, as for stream programs.
+
 Dispatch.  A wrapper runs the plain version for a CPU tensor and the
 kernel for a CUDA tensor; it never catches a build or launch failure and
 never moves data between devices.  ``LAUNCHES`` counts kernel launches.
@@ -59,7 +66,10 @@ __all__ = ["compile_stream", "compile_bdd_stream", "compile_tree_stream",
            "compile_replay_stream", "EncodedReplay", "encode_replay",
            "stage_replay", "unstage_replay", "replay_grad_basic",
            "replay_forward", "replay_forward_plain", "replay_propagate",
-           "replay_propagate_staged", "LAUNCHES", "reset_launches"]
+           "replay_propagate_staged", "compile_spill_stream", "EncodedSpill",
+           "encode_spill", "spill_forward", "spill_forward_plain",
+           "spill_propagate", "spill_propagate_staged", "LAUNCHES",
+           "reset_launches"]
 
 # Op kinds and argument sources (csrc/stream_ops.cuh); EVICT and REFILL
 # occur in replay programs only.
@@ -75,10 +85,13 @@ MAX_COUNT_STATES = 128
 #: Kernel launches by kernel name: ``stream`` (forward), ``stream_log``
 #: (forward with the value log), ``adjoint`` (backward), the fused
 #: whole-tree kernels ``fused_tiled`` and ``fused`` (``fused_kernel.py``),
-#: and the replay kernels ``replay`` (forward), ``replay_tape`` (forward
-#: with the value log) and ``replay_bwd`` (``replay_adjoint_kernel.py``).
+#: the replay kernels ``replay`` (forward), ``replay_tape`` (forward
+#: with the value log) and ``replay_bwd`` (``replay_adjoint_kernel.py``),
+#: the spill kernel ``spill``, and the Philox sampler ``bernoulli``
+#: (``bernoulli_kernel.py``).
 LAUNCHES = {"stream": 0, "stream_log": 0, "adjoint": 0, "fused_tiled": 0,
-            "fused": 0, "replay": 0, "replay_tape": 0, "replay_bwd": 0}
+            "fused": 0, "replay": 0, "replay_tape": 0, "replay_bwd": 0,
+            "spill": 0, "bernoulli": 0}
 
 #: Shared memory one block may use on an H100 (227 KB, opt-in above 48 KB).
 SMEM_BYTES = 232_448
@@ -929,3 +942,262 @@ def replay_propagate(enc: EncodedReplay, basic_p: torch.Tensor,
     :func:`replay_propagate_staged`)."""
     return replay_propagate_staged(enc, stage_replay(enc, basic_p),
                                    house_states)
+
+
+# ---------------------------------------------------------------------------
+# Spill programs (compiler/spill.py): schedule, encoder, kernel.
+# ---------------------------------------------------------------------------
+
+def _check_spill_fits(pool_slots: int) -> None:
+    """A spill block holds its pool in shared memory: at most
+    ``REPLAY_SLOTS`` slots (one warp of float32 trials)."""
+    if pool_slots > REPLAY_SLOTS:
+        raise LogicError(
+            f"spill program needs {pool_slots} pool slots; one block holds "
+            f"{REPLAY_SLOTS} at 32 trials ({SMEM_BYTES} B of shared memory)")
+
+
+def compile_spill_stream(tree: CompiledTree, **kwargs):
+    """Schedule ``tree`` as a spill program (``compiler/spill.py``, the
+    shared Belady builder) sized for the card.
+
+    The JAX package sizes the pool from the TPU's 13 MiB of VMEM (minus a
+    staging ring of chunks and two slab buffers).  Here the pool is what
+    one block keeps in shared memory: by default 113 slots (blocks of
+    ``REPLAY_TRIALS`` = 512 float32 trials), or the widest gate's working
+    set if that is more; every basic event sits in one staging chunk
+    (the card reads any staged row straight from device memory, so no
+    basic needs a pool slot); and no TPU VMEM budget.  Any builder keyword
+    may be given.  The built program's pool is checked: beyond
+    ``REPLAY_SLOTS`` (1,816) it raises ``LogicError``, as does a gate
+    wider than an explicitly given pool (the builder's own check).
+    """
+    from ..compiler.schedule import _emit_gate_ops
+    from ..compiler.spill import build_spill_schedule
+    kwargs = dict(kwargs)
+    if "pool_slots" not in kwargs:
+        widest = max((len(row[2]) for row in _emit_gate_ops(tree)),
+                     default=0)
+        kwargs["pool_slots"] = max(SMEM_BYTES // (4 * REPLAY_TRIALS),
+                                   widest + 2)
+    kwargs.setdefault("chunk_tiles", max(tree.n_basic, 1))
+    kwargs.setdefault("vmem_budget", _NO_VMEM_BUDGET)
+    program = build_spill_schedule(tree, **kwargs)
+    _check_spill_fits(program.pool_slots)
+    return program
+
+
+@dataclasses.dataclass(kw_only=True)
+class EncodedSpill(EncodedStream):
+    """A spill program as one flat op table (``csrc/spill.cu``).
+
+    Pool arguments index the shared-memory pool; EVICT and REFILL ops
+    move a slot to or from a scratch row in device memory (``aux0``);
+    SPILL ops copy a staged row into a slot (the TPU's staging-buffer
+    spills and its refills from the staged array).  ``n_log`` counts
+    gates; ``counts`` the ops of each kind the TPU schedule had.
+    """
+
+    n_scratch: int         # scratch rows (evicted values)
+    counts: dict
+
+
+def _spill_staged_row(buf_chunk: dict, buf: int, off: int, ct: int,
+                      n_basic: int) -> int:
+    if buf not in buf_chunk:
+        raise LogicError(f"spill program reads staging buffer {buf} before "
+                         f"a chunk lands in it")
+    row = buf_chunk[buf] * ct + off
+    if row >= n_basic:
+        raise LogicError(f"spill program reads staging pad row {row}")
+    return row
+
+
+def encode_spill(program) -> EncodedSpill:
+    """Flatten a ``SpillProgram``'s segments into one op table (cached on
+    the program; either package's program).
+
+    The encoder replays the TPU schedule's DMA bookkeeping once on the
+    host: a chunk ``wait`` names the chunk a staging buffer holds, so a
+    ``stage[buf, off]`` read becomes a staged-row read and a ``spill`` a
+    SPILL op; an ``evict`` into slab position ``(buf, off)`` becomes one
+    EVICT op storing the slot to the scratch row that the later flush
+    (``efstart``) of that position names; an ``rwait`` becomes a REFILL
+    from that scratch row, or a SPILL from the staged row.  Chunk starts,
+    refill starts, flush waits and the segment boundaries' dump and load
+    (``dstart`` ... ``lwait``) have no counterpart: the pool stays in
+    shared memory through every segment, and a refill of the boundary
+    dump region (scratch rows below ``pool_slots``) raises.
+    """
+    enc = getattr(program, "_encoded", None)
+    if enc is not None:
+        return enc
+    P, ct, n_b = program.pool_slots, program.chunk_tiles, program.n_basic
+    ops: list = []
+    args: list = []
+    slab: dict[tuple[int, int], int] = {}   # slab position -> EVICT op
+    counts = dict(spills=0, evictions=0, staged_refills=0,
+                  scratch_refills=0, segments=len(program.segments))
+    n_scratch = n_log = max_states = 0
+
+    def copy_staged(slot: int, row: int) -> None:
+        ops.append([SPILL, slot, len(args), len(args) + 1, 0, 0, -1])
+        args.append([STAGED, row, 0, STAGED, row])
+
+    for seg in program.segments:
+        buf_chunk: dict[int, int] = {}
+        for op in seg:
+            tag = op[0]
+            if tag == "wait":
+                buf_chunk[op[2]] = op[1]
+            elif tag == "spill":
+                _t, buf, off, slot = op
+                copy_staged(slot, _spill_staged_row(buf_chunk, buf, off, ct,
+                                                    n_b))
+                counts["spills"] += 1
+            elif tag == "evict":
+                _t, slot, sbuf, soff = op
+                slab[(sbuf, soff)] = len(ops)
+                ops.append([EVICT, slot, 0, 0, -1, 0, -1])
+                counts["evictions"] += 1
+            elif tag == "efstart":
+                _t, sbuf, off0, n, row0, _sem = op
+                for i in range(n):
+                    row = row0 + i - P
+                    if (sbuf, off0 + i) not in slab or row < 0:
+                        raise LogicError(f"spill flush of slab ({sbuf}, "
+                                         f"{off0 + i}) names no eviction")
+                    ops[slab.pop((sbuf, off0 + i))][4] = row
+                    n_scratch = max(n_scratch, row + 1)
+            elif tag == "rwait":
+                _t, src, row, slot, _sem = op
+                if src == 0:
+                    if row >= n_b:
+                        raise LogicError(f"spill refill of staging pad row "
+                                         f"{row}")
+                    copy_staged(slot, row)
+                    counts["staged_refills"] += 1
+                else:
+                    if row < P:
+                        raise LogicError(f"spill refill reads scratch row "
+                                         f"{row} of the boundary dump region")
+                    ops.append([REFILL, slot, 0, 0, row - P, 0, -1])
+                    counts["scratch_refills"] += 1
+            elif tag == "gate":
+                _t, kind, out_slot, locs, aux = op
+                begin = len(args)
+                for loc, flag in locs:
+                    if loc[0] == "stage":
+                        row = _spill_staged_row(buf_chunk, loc[1], loc[2], ct,
+                                                n_b)
+                        entry = [STAGED, row, STAGED, row]
+                    elif loc[0] == "house":
+                        entry = [HOUSE, loc[1], HOUSE, loc[1]]
+                    else:
+                        entry = [POOL, loc[1], POOL, loc[1]]
+                    args.append(entry[:2] + [int(bool(flag))] + entry[2:])
+                if kind == "count":
+                    aux0, aux1 = int(aux[0]), int(aux[1])
+                    max_states = max(max_states, aux1 + 2)
+                elif kind in ("prod", "pair"):
+                    aux0, aux1 = int(bool(aux)), 0
+                else:
+                    raise LogicError(f"spill programs hold no {kind} op")
+                ops.append([_KIND[kind], out_slot, begin, len(args), aux0,
+                            aux1, n_log])
+                n_log += 1
+            # start, rstart, efwait, dstart, dwait, lstart, lwait: the
+            # TPU's DMA issue and completion, nothing to do on the card.
+    if slab:
+        raise LogicError(f"{len(slab)} spill evictions are never flushed")
+    if counts["evictions"] != program.n_evicted:
+        raise LogicError(f"spill program evicts {program.n_evicted} values, "
+                         f"its ops {counts['evictions']}")
+    enc = EncodedSpill(
+        ops=np.asarray(ops, dtype=np.int32).reshape(-1, 7),
+        args=np.asarray(args, dtype=np.int32).reshape(-1, 5),
+        fill=np.zeros(len(ops), dtype=np.float32), n_log=n_log,
+        n_basic=n_b, n_house=program.n_house, pool_slots=max(P, 1),
+        top_slot=program.top_slot, max_count_states=max_states,
+        staged_cols=np.asarray(program.basic_perm, dtype=np.int64),
+        n_scratch=n_scratch, counts=counts)
+    program._encoded = enc
+    return enc
+
+
+def spill_forward_plain(enc: EncodedSpill, staged: torch.Tensor,
+                        house: torch.Tensor) -> torch.Tensor:
+    """The spill kernel's arithmetic in plain torch (any dtype, any
+    device), in the kernel's op order; returns the top ``(n_trials,)``."""
+    ops, args, _fill = enc.plain_ops()
+    T = staged.shape[1]
+    pool: list = [None] * enc.pool_slots
+    scratch: list = [None] * enc.n_scratch
+
+    def load(a):
+        src, idx, flag = a[0], a[1], a[2]
+        if src == POOL:
+            v = pool[idx]
+        elif src == STAGED:
+            v = staged[idx]
+        else:
+            v = house[idx].expand(T)
+        return 1.0 - v if flag else v
+
+    for op in ops:
+        kind, slot = op[0], op[1]
+        if kind == EVICT:
+            scratch[op[4]] = pool[slot]
+        elif kind == REFILL:
+            pool[slot] = scratch[op[4]]
+        else:
+            pool[slot] = _plain_value(op, 0.0, args, load, staged)
+    return pool[enc.top_slot]
+
+
+def spill_forward(enc: EncodedSpill, staged: torch.Tensor,
+                  house) -> torch.Tensor:
+    """Run a spill program on staged ``(n_basic, n_trials)`` input;
+    returns the top ``(n_trials,)``.  CPU tensors run
+    :func:`spill_forward_plain`; CUDA tensors launch ``csrc/spill.cu`` or
+    raise (a pool beyond one block's shared memory raises before any
+    launch)."""
+    _check_staged(enc, staged)
+    device, dtype = staged.device, staged.dtype
+    house_t = house_tensor(enc, house, device, dtype)
+    if device.type != "cuda":
+        return spill_forward_plain(enc, staged, house_t)
+    _check_spill_fits(enc.pool_slots)
+    from ._build import load_library
+    lib = load_library()
+    staged = staged.contiguous()
+    _check_cuda(enc, dtype, staged)
+    width = _replay_block_trials(enc.pool_slots, dtype)
+    T = staged.shape[1]
+    ops, args, _fill = enc.tables(device)
+    scratch = torch.empty((max(enc.n_scratch, 1), T), dtype=dtype,
+                          device=device)
+    top = torch.empty(T, dtype=dtype, device=device)
+    LAUNCHES["spill"] += 1
+    code = getattr(lib, f"canopy_spill_forward_{_SUFFIX[dtype]}")(
+        ops.data_ptr(), args.data_ptr(), enc.n_ops, staged.data_ptr(),
+        house_t.data_ptr(), scratch.data_ptr(), top.data_ptr(), T,
+        enc.pool_slots, enc.top_slot, width,
+        torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(lib, code, "spill forward")
+    return top
+
+
+def spill_propagate_staged(enc: EncodedSpill, staged: torch.Tensor,
+                           house_states) -> torch.Tensor:
+    """Top values ``(n_trials,)`` of an already-staged input."""
+    return spill_forward(enc, staged, house_states)
+
+
+def spill_propagate(enc: EncodedSpill, basic_p: torch.Tensor,
+                    house_states) -> torch.Tensor:
+    """``(n_trials, n_basic)`` -> ``(n_trials,)`` top values (stages,
+    then runs; hot loops stage once with :func:`stage_basic` and call
+    :func:`spill_propagate_staged`)."""
+    return spill_propagate_staged(enc, stage_basic(enc, basic_p),
+                                  house_states)

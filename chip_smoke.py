@@ -58,11 +58,26 @@ false or the package is missing).  Phases, each raising on failure:
    plain forward; (d) ``_make_replay_importance_fn`` (f64, one trial),
    its MIF within ``REPLAY_MIF_RTOL`` of the stream adjoint's.  Inputs
    come from numpy (seed ``REPLAY_SEED``), so the CPU can reproduce any
-   trial.  CUDA-event times of replay, stream and plain.
+   trial.  CUDA-event times of replay, stream and plain;
+9. Monte Carlo and the spill engine (``csrc/bernoulli.cu``,
+   ``csrc/spill.cu``): (a) the Philox kernel bit-equal to its plain
+   version on the slice's 263 events x 312,500 words (10^7 trials) and
+   on the plant tree's 65,536 events x one 32,768-word chunk; the path
+   ``mc``: (b) the slice through the CLI in-process with
+   ``--monte-carlo --num-trials 10000000`` (the estimate within 6 sigma +
+   1e-4 of the slice's exact probability, its standard error the
+   formula's), (c) ``RiskAnalysis`` Monte Carlo at each golden anchor's
+   ``mc_trials`` (within ``mc_4sigma`` of its exact probability), (d)
+   ``plant_hier_9363`` through ``packed_top_probability`` at 10,002,432
+   trials, chunked (within its ``mc_4sigma``); the path ``spill``: (e)
+   ``make_propagator(engine="spill")`` on the 65k replay tree at 65,536
+   trials, bit-equal to plain and to the stream kernel, 2,048 trials
+   within ``TOP_RTOL`` of the f64 gather engine; (f) a forced small
+   schedule on the 16k tree with every spill op kind, bit-equal to plain.
 
-Each path (5, 6, 7, 8) runs with the launch counts set to 0 just before it
-and read just after; a kernel of the path that never launched fails the
-run.  Long output goes to ``chiprun_out/``.  The last lines are the
+Each path (5, 6, 7, 8, and 9's two) runs with the launch counts set to 0
+just before it and read just after; a kernel of the path that never
+launched fails the run.  Long output goes to ``chiprun_out/``.  The last lines are the
 kernels' JSON record (with each kernel's bound: the larger of its bytes
 over the card's memory rate and its operations over its peak rate), the
 card's ``nvidia-smi`` line, and the contract line
@@ -129,10 +144,28 @@ PDAG_MIF_RTOL = 1e-10
 #: Per-trial f32 kernel tops against the f64 level evaluation.
 TOP_RTOL = 1e-5
 
+#: Phase 9: the Monte Carlo seed, the Bernoulli shapes (words of 32
+#: trials: the slice's 10^7 trials, one chunk of the plant tree), the
+#: slice CLI's trial count, the plant anchor's trial count, and the forced
+#: small spill schedule on the 16k tree (a pool near the widest gate's
+#: working set, a staging ring of 256-row chunks, short segments).
+MC_SEED = 7
+MC_SLICE_TRIALS = 10_000_000
+BERN_SLICE_WORDS = 312_500
+BERN_PLANT_WORDS = 32_768
+SPILL_SMALL = dict(pool_slots=16, chunk_tiles=256, slab_tiles=8,
+                   max_ops_per_segment=2048, hoist_events=16)
+
 #: One H100 SXM at its full 700 W (NVIDIA's data sheet): HBM3 rate, and
 #: peak rates outside the tensor cores by value size (float32, float64).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {4: 67e12, 8: 34e12}
+#: int32 lanes of the card (132 SMs x 64), at the SM clock nvidia-smi
+#: reports, for the Philox kernel's integer work.
+INT32_LANES = 132 * 64
+#: Integer operations of one packed word: 8 Philox calls x 10 rounds x 2
+#: wide multiplies, and 32 compares.
+BERN_OPS_PER_WORD = 8 * 10 * 2 + 32
 
 KERNELS = {
     "stream": ("canopy_tpu_torch/csrc/stream.cu",
@@ -151,12 +184,16 @@ KERNELS = {
                     "canopy_tpu/ops/replay_adjoint_kernel.py:32"),
     "replay_bwd": ("canopy_tpu_torch/csrc/replay_adjoint.cu",
                    "canopy_tpu/ops/replay_adjoint_kernel.py:138"),
+    "bernoulli": ("canopy_tpu_torch/csrc/bernoulli.cu",
+                  "canopy_tpu/ops/pallas_kernels.py:45"),
+    "spill": ("canopy_tpu_torch/csrc/spill.cu",
+              "canopy_tpu/ops/stream_kernel.py:221"),
 }
 #: The path whose launch count each kernel's record reports.
 PATH_OF = {"stream": "bdd-slice", "stream_log": "pdag-slice",
            "adjoint": "pdag-slice", "fused_tiled": "dispatch",
            "fused": "dispatch", "replay": "replay", "replay_tape": "replay",
-           "replay_bwd": "replay"}
+           "replay_bwd": "replay", "bernoulli": "mc", "spill": "spill"}
 
 
 def log(msg: str) -> None:
@@ -954,6 +991,292 @@ def phase_replay(device, record: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as ``nvidia-smi`` reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def timed_ms(fn):
+    """``(fn(), its milliseconds)`` by CUDA events around one call."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def bernoulli_bound(n_events: int, n_words: int, clock_hz: float) -> dict:
+    """The Philox kernel's bound: its integer operations over the card's
+    int32 lanes at the SM clock, against the words written (and the
+    thresholds read) over the memory rate."""
+    t_bytes = (n_events * n_words + n_events) * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = n_events * n_words * BERN_OPS_PER_WORD \
+        / (INT32_LANES * clock_hz) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def mean_probabilities(tree, device) -> torch.Tensor:
+    """The tree's clamped mean basic-event probabilities, as the analysis
+    evaluates them."""
+    from canopy_tpu_torch.compiler.expr_tape import ExpressionTape
+    from canopy_tpu_torch.settings import Settings
+    tape = ExpressionTape.build([e.expression for e in tree.basic_events])
+    return torch.clamp(tape.evaluate_mean(Settings().mission_time(), device),
+                       0.0, 1.0)
+
+
+def phase_mc(device, record: dict) -> None:
+    """(9a-d) The Philox kernel, then the Monte Carlo path: the slice
+    through the CLI, the golden anchors through ``RiskAnalysis``, the
+    plant tree through ``packed_top_probability``."""
+    from canopy_tpu_torch.cli import main as cli_main
+    from canopy_tpu_torch.engine.analysis import RiskAnalysis
+    from canopy_tpu_torch.engine.sampler import monte_carlo_ci
+    from canopy_tpu_torch.mef import Initializer
+    from canopy_tpu_torch.ops.bernoulli_kernel import (packed_bernoulli,
+                                                       packed_bernoulli_plain)
+    from canopy_tpu_torch.ops.bitpack import packed_top_probability
+    from canopy_tpu_torch.settings import Settings
+    from canopy_tpu_torch.utils.synthetic import synthetic_hierarchical_tree
+
+    with open(os.path.join(FIXTURES, "golden.json")) as fh:
+        golden = json.load(fh)
+    with open(SLICE_GOLDEN) as fh:
+        slice_exact = json.load(fh)["exact_probability"]
+    clock = sm_clock_hz()
+    t0 = time.perf_counter()
+    plant_gold = golden["plant_hier_9363"]
+    plant = synthetic_hierarchical_tree(**plant_gold["generator"])
+    check((plant.n_gates, plant.nnz) == (plant_gold["n_gates"],
+                                         plant_gold["nnz"]),
+          f"plant tree {plant.n_gates} gates, {plant.nnz} edges")
+    plant_p = torch.from_numpy(np.random.default_rng(42).uniform(
+        1e-4, 5e-3, plant.n_basic)).to(device)
+    slice_p = mean_probabilities(load_tree("torch_slice_plant"), device)
+    log(f"[mc] plant tree ({plant.n_gates} gates, {plant.n_basic} basics) "
+        f"in {time.perf_counter() - t0:.3f} s; SM clock {clock / 1e6:.0f} "
+        f"MHz")
+
+    # (a) The kernel against its plain version, outside the counted path.
+    for label, p, n_words in (("slice", slice_p, BERN_SLICE_WORDS),
+                              ("plant", plant_p, BERN_PLANT_WORDS)):
+        n = 32 * n_words
+        got = packed_bernoulli(MC_SEED, p, n)
+        want, plain_ms = timed_ms(
+            lambda: packed_bernoulli_plain(MC_SEED, p, n))
+        # Words compared as 64-bit integers (the plant shape's 2^31 words
+        # only for equality: their difference would take 17 GB).
+        err = float((got.to(torch.int64) - want.to(torch.int64)).abs()
+                    .max()) if label == "slice" else \
+            (0.0 if torch.equal(got, want) else float("inf"))
+        check(err == 0.0, f"{label}: Bernoulli kernel differs from plain")
+        ms = cuda_ms(lambda: packed_bernoulli(MC_SEED, p, n), 5)
+        b = bernoulli_bound(len(p), n_words, clock)
+        log(f"[mc] Bernoulli {label}: {len(p)} events x {n_words} words "
+            f"bit-equal to plain; kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+            f"ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
+        record.setdefault("timings", {})[f"bernoulli {label}"] = {
+            "ms": ms, "plain_ms": plain_ms, **b}
+        if label == "slice":
+            record["bernoulli"].update(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                shape=f"slice, {len(p)} events x {n_words} words "
+                      f"({n} trials)", **b)
+        del got, want
+    torch.cuda.empty_cache()
+
+    # The path: (b) the CLI, (c) the golden anchors, (d) the plant tree.
+    reset_counts()
+    report_path = os.path.join(OUT_DIR, "torch_slice_mc_report.json")
+    argv = [SLICE_MODEL, "--device", device.type, "--monte-carlo",
+            "--probability", "--num-trials", str(MC_SLICE_TRIALS), "--seed",
+            str(MC_SEED), "-o", report_path]
+    t0 = time.perf_counter()
+    rc = cli_main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    check(rc == 0, f"Monte Carlo CLI exited {rc}")
+    with open(report_path) as fh:
+        report = json.load(fh)
+    (ft,) = report["fault_trees"]
+    n = MC_SLICE_TRIALS
+    band = 6 * (slice_exact * (1 - slice_exact) / n) ** 0.5 + 1e-4
+    err = abs(ft["probability"] - slice_exact)
+    check(ft["method"] == "bdd/monte_carlo", f"method {ft['method']}")
+    check(err <= band, f"slice Monte Carlo {ft['probability']!r} vs exact "
+                       f"{slice_exact!r}: {err:.3e} > {band:.3e}")
+    check(ft["mc_std_error"] == monte_carlo_ci(ft["probability"], n),
+          "the reported standard error is not the formula's")
+    log(f"[mc] python -m canopy_tpu_torch {' '.join(argv)}: {cli_s:.3f} s; "
+        f"P = {ft['probability']!r} (exact {slice_exact!r}, |err| "
+        f"{err:.3e} <= {band:.3e}), standard error "
+        f"{ft['mc_std_error']!r}; timings {json.dumps(report['timings'])}")
+    anchors = {}
+    for name in sorted(golden):
+        gold = golden[name]
+        if "mc_4sigma" not in gold or gold.get("kind", "fault_tree") \
+                != "fault_tree":
+            continue
+        # Products are skipped: MOCUS on the nested-count anchor's 753
+        # count gates runs for minutes on the host; this checks the
+        # estimate.
+        settings = (Settings().probability_analysis(True)
+                    .approximation("monte-carlo")
+                    .num_trials(gold["mc_trials"]).seed(MC_SEED)
+                    .skip_products(True).ccf_analysis(True))
+        model = Initializer([os.path.join(FIXTURES, f"{name}.xml")],
+                            settings).model
+        t0 = time.perf_counter()
+        (res,) = RiskAnalysis(model, settings, device).run().fault_trees
+        seconds = time.perf_counter() - t0
+        err = abs(res.probability - gold["exact_probability"])
+        check(err <= gold["mc_4sigma"],
+              f"{name}: Monte Carlo {res.probability!r} vs exact "
+              f"{gold['exact_probability']!r}: {err:.3e} > "
+              f"{gold['mc_4sigma']:.3e}")
+        anchors[name] = {"estimate": res.probability, "err": err,
+                         "band": gold["mc_4sigma"], "seconds": seconds}
+        log(f"[mc] {name}: {gold['mc_trials']} trials, P = "
+            f"{res.probability!r} (exact {gold['exact_probability']!r}, "
+            f"|err| {err:.3e} <= {gold['mc_4sigma']:.3e}), {seconds:.3f} s")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stats: dict = {}
+    t0 = time.perf_counter()
+    estimate = packed_top_probability(plant, MC_SEED, plant_p,
+                                      plant_gold["mc_trials"], None, device,
+                                      stats=stats)
+    torch.cuda.synchronize()
+    plant_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_counts(record, "mc", ("bernoulli",))
+    err = abs(estimate - plant_gold["exact_probability"])
+    check(err <= plant_gold["mc_4sigma"],
+          f"plant_hier_9363: Monte Carlo {estimate!r} vs exact "
+          f"{plant_gold['exact_probability']!r}: {err:.3e}")
+    log(f"[mc] plant_hier_9363: {plant_gold['mc_trials']} trials in "
+        f"{stats['chunks']} chunks of {stats['chunk_words']} words, "
+        f"{plant_s:.3f} s, peak {peak / 2**30:.2f} GiB; P = {estimate!r} "
+        f"(exact {plant_gold['exact_probability']!r}, |err| {err:.3e} <= "
+        f"{plant_gold['mc_4sigma']:.3e}); launches {launches}")
+    # The plant's sampling alone, chunk by chunk as the path ran it.
+    sample_ms = 0.0
+    for w0 in range(0, stats["n_words"], stats["chunk_words"]):
+        words = min(stats["chunk_words"], stats["n_words"] - w0)
+        out, ms = timed_ms(lambda: packed_bernoulli(MC_SEED, plant_p,
+                                                    32 * words, w0))
+        del out
+        sample_ms += ms
+    log(f"[mc] plant_hier_9363: the Bernoulli kernel alone over its chunks "
+        f"{sample_ms:.3f} ms of {plant_s * 1e3:.1f} ms")
+    record["mc"] = {"cli_s": cli_s, "cli_timings": report["timings"],
+                    "slice_estimate": ft["probability"], "anchors": anchors,
+                    "plant": dict(stats, estimate=estimate, seconds=plant_s,
+                                  peak_bytes=peak, sample_ms=sample_ms)}
+    torch.cuda.empty_cache()
+
+
+def spill_bound(enc, n_trials: int) -> dict:
+    """The spill kernel's bound: the staged rows it reads, its scratch
+    stores and reloads and the top, each moved once, against the op
+    table's operations."""
+    from canopy_tpu_torch.ops.stream_kernel import STAGED
+    staged_rows = len(np.unique(enc.args[enc.args[:, 0] == STAGED, 1]))
+    rows = staged_rows + enc.counts["evictions"] \
+        + enc.counts["scratch_refills"] + 1
+    return bound(rows * n_trials * 4, op_flops(enc) * n_trials, 4)
+
+
+def phase_spill(device, record: dict) -> None:
+    """(9e-f) The spill engine on the 65k replay tree, and a forced small
+    schedule with every op kind."""
+    from canopy_tpu_torch.engine.propagate import make_propagator
+    from canopy_tpu_torch.ops.stream_kernel import (
+        compile_spill_stream, encode_spill, house_tensor, spill_forward,
+        spill_forward_plain, stage_basic, stream_forward,
+        tree_stream_encoding)
+    from canopy_tpu_torch.utils.synthetic import synthetic_compiled_tree
+
+    tree = synthetic_compiled_tree(**REPLAY_TREE)
+    p = replay_inputs(REPLAY_RUN_TRIALS, tree.n_basic, REPLAY_SEED, device)
+    house = np.zeros(0, np.float32)
+    reset_counts()
+    t0 = time.perf_counter()
+    fn = make_propagator(tree, device, engine="spill")
+    build_s = time.perf_counter() - t0
+    with torch.no_grad():
+        tops = fn(p)
+    launches = read_counts(record, "spill", ("spill",))
+    check(fn.engine == "spill", f"spill engine ran {fn.engine}")
+    log(f"[spill] make_propagator(engine=spill) built in {build_s:.3f} s; "
+        f"launches {launches}")
+
+    prog = compile_spill_stream(tree)
+    enc = encode_spill(prog)
+    T = REPLAY_RUN_TRIALS
+    sizes = {"ops": enc.n_ops, "gates": enc.n_log, "pool": prog.pool_slots,
+             "segments": len(prog.segments), "staged_rows": enc.n_basic,
+             "scratch_rows": enc.n_scratch, **enc.counts,
+             "scratch_gb": enc.n_scratch * T * 4 / 1e9}
+    log(f"[spill] 65k tree program: {json.dumps(sizes)}")
+    staged = stage_basic(enc, p)
+    h32 = house_tensor(enc, house, device)
+    plain = spill_forward_plain(enc, staged, h32)
+    err = float((tops - plain).abs().max())
+    check(err == 0.0, f"spill forward differs from plain ({err})")
+    senc = tree_stream_encoding(tree)
+    sstaged = stage_basic(senc, p)
+    stops, _ = stream_forward(senc, sstaged, house)
+    check(torch.equal(stops, tops), "spill and stream tops differ")
+    gather = make_propagator(tree, device, engine="gather")
+    with torch.no_grad():
+        ref = gather(p[:REPLAY_AGREE].double())
+    rel = float(((tops[:REPLAY_AGREE].double() - ref).abs()
+                 / ref.abs()).max())
+    check(rel <= TOP_RTOL, f"spill tops vs f64 gather {rel:.3e}")
+    ms = cuda_ms(lambda: spill_forward(enc, staged, house), 3)
+    stream_ms = cuda_ms(lambda: stream_forward(senc, sstaged, house), 3)
+    plain_ms = cuda_ms(lambda: spill_forward_plain(enc, staged, h32), 1)
+    b = spill_bound(enc, T)
+    log(f"[spill] 65k tree, {T} trials: spill kernel bit-equal to plain and "
+        f"to the stream kernel; {REPLAY_AGREE} trials vs f64 gather max rel "
+        f"err {rel:.3e} (limit {TOP_RTOL}); spill {ms:.3f} ms, stream "
+        f"{stream_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{b['bound_ms']:.3f} ms ({b['bound_by']})")
+    record["spill"].update(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        shape=f"65k tree, {enc.n_log} gates x {T} trials, f32", **b)
+    record["spill_65k"] = dict(sizes, stream_ms=stream_ms, build_s=build_s)
+    del staged, sstaged, plain, stops, tops, p, ref
+    torch.cuda.empty_cache()
+
+    # (f) Every op kind, under a forced small schedule.
+    tree16 = synthetic_compiled_tree(**ADJOINT_TREE)
+    small = encode_spill(compile_spill_stream(tree16, **SPILL_SMALL))
+    check(all(small.counts.values()) and small.counts["segments"] > 1,
+          f"small spill schedule misses an op kind {small.counts}")
+    p16 = replay_inputs(ADJOINT_TRIALS, tree16.n_basic, REPLAY_SEED + 1,
+                        device)
+    s16 = stage_basic(small, p16)
+    check(torch.equal(spill_forward(small, s16, house), spill_forward_plain(
+        small, s16, house_tensor(small, house, device))),
+          "small-schedule spill differs from plain")
+    log(f"[spill] 16k tree, small schedule {SPILL_SMALL} ({small.n_ops} "
+        f"ops, {json.dumps(small.counts)}, {small.n_scratch} scratch rows): "
+        f"kernel bit-equal to plain at {ADJOINT_TRIALS} trials")
+    record["spill_small"] = dict(small.counts, ops=small.n_ops,
+                                 scratch_rows=small.n_scratch)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -977,6 +1300,8 @@ def main() -> int:
     phase_slice(device, record)
     phase_pdag(device, record)
     phase_replay(device, record)
+    phase_mc(device, record)
+    phase_spill(device, record)
     check("jax" not in sys.modules, "the port imported jax")
     for name in KERNELS:
         record[name]["launches"] = record["paths"][PATH_OF[name]][name]

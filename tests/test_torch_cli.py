@@ -95,7 +95,8 @@ def test_profile_writes_a_torch_profiler_trace(tmp_path):
 @pytest.mark.parametrize("argv,needle", [
     (["--device", "cuda"], "cuda"),
     (["--device", "cpu", "--validate"], "RELAX NG"),
-    (["--device", "cpu", "--monte-carlo", "--probability"], "ROADMAP.md"),
+    (["--device", "cpu", "--sil", "--time-step", "100", "--probability"],
+     "ROADMAP.md"),
 ])
 def test_errors_exit_nonzero_with_a_message(capsys, argv, needle):
     import torch

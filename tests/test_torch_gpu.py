@@ -12,7 +12,8 @@ operation on its own, the kernels being built with ``--fmad=false``);
 the f64 importance path against the f64 level evaluation (or gather
 autodiff, without a BDD) within 1e-12 relative to the largest value;
 float32 propagator tops against the f64 gather engine within 1e-5
-relative.
+relative; the Monte Carlo estimate on the card equal to the CPU's to the
+bit (the same Philox words, exact bitwise propagation).
 """
 
 import numpy as np
@@ -80,7 +81,8 @@ def test_launch_counts_and_wrapper_checks(cuda_device):  # noqa: F811
     tsk.stream_forward(enc, staged, house)
     assert tsk.LAUNCHES == {"stream": 1, "stream_log": 1, "adjoint": 1,
                             "fused_tiled": 0, "fused": 0, "replay": 0,
-                            "replay_tape": 0, "replay_bwd": 0}
+                            "replay_tape": 0, "replay_bwd": 0, "spill": 0,
+                            "bernoulli": 0}
     with pytest.raises(LogicError):
         tsk.stream_forward(enc, staged.half(), house)
 
@@ -255,3 +257,107 @@ def test_replay_engine_on_cuda(cuda_device):  # noqa: F811
     assert tsk.LAUNCHES["replay"] == 2 and tsk.LAUNCHES["stream"] == 0
     want = make_propagator(tree, cuda_device, engine="gather")(p)
     assert float(((got.double() - want).abs() / want).max()) <= 1e-5
+
+
+def test_bernoulli_kernel_matches_plain(cuda_device):  # noqa: F811
+    """The Philox kernel bit-equal to its plain version, at p of 0 and 1,
+    in a chunk that starts at a later word, and under a seed beyond 32
+    bits."""
+    from canopy_tpu_torch.ops.bernoulli_kernel import (packed_bernoulli,
+                                                       packed_bernoulli_plain)
+    p = torch.tensor([0.0, 1.0, 0.3, 1e-7, 0.999, 0.5], dtype=torch.float64,
+                     device=cuda_device)
+    for seed, n_trials, word0 in ((7, 32 * 1000, 0), (7, 32 * 333, 4097),
+                                  ((5 << 32) + 9, 32 * 64, 0)):
+        tsk.reset_launches()
+        got = packed_bernoulli(seed, p, n_trials, word0)
+        assert tsk.LAUNCHES["bernoulli"] == 1
+        want = packed_bernoulli_plain(seed, p, n_trials, word0)
+        assert torch.equal(got, want)
+        assert torch.equal(got.cpu(), packed_bernoulli(seed, p.cpu(),
+                                                       n_trials, word0))
+    assert (got[0] == 0).all() and (got[1] == -1).all()
+
+
+def test_monte_carlo_on_cuda_equals_the_cpu(cuda_device):  # noqa: F811
+    """The Monte Carlo branch on the card gives the CPU's estimate to the
+    bit (same Philox words, exact bitwise propagation and popcount), and
+    launched the Bernoulli kernel."""
+    settings = (Settings().probability_analysis(True)
+                .approximation("monte-carlo").num_trials(65_536).seed(3)
+                .skip_products(True))
+    out = {}
+    for device in ("cpu", cuda_device):
+        model = Initializer([fixture_path("aralia_like_large")],
+                            settings).model
+        tsk.reset_launches()
+        (ft,) = RiskAnalysis(model, settings, device).run().fault_trees
+        out[str(device)] = (ft.probability, ft.mc_std_error,
+                            tsk.LAUNCHES["bernoulli"])
+    (p_cpu, se_cpu, n_cpu), (p_gpu, se_gpu, n_gpu) = out.values()
+    assert (p_cpu, se_cpu) == (p_gpu, se_gpu)
+    assert n_cpu == 0 and n_gpu >= 1
+
+
+def test_spill_kernel_matches_plain(cuda_device):  # noqa: F811
+    """The spill kernel bit-equal to its plain version under a forced
+    small schedule (staging spills, evictions, refills from the staged
+    input and from scratch, segment boundaries), in float32 and float64,
+    and its tops bit-equal to the stream kernel's on the default one."""
+    from canopy_tpu_torch.compiler.spill import build_spill_schedule
+    from canopy_tpu_torch.utils.synthetic import synthetic_compiled_tree
+    tree = synthetic_compiled_tree(n_basic=96, n_gates=900, fanin=4,
+                                   n_levels=10, seed=0)
+    small = tsk.encode_spill(build_spill_schedule(
+        tree, chunk_tiles=8, pool_slots=12, slab_tiles=4,
+        max_ops_per_segment=150, hoist_events=6))
+    assert all(small.counts.values()), small.counts
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    for dtype in (torch.float32, torch.float64):
+        p = (torch.rand((1000, tree.n_basic), generator=gen,
+                        device=cuda_device, dtype=torch.float64)
+             * 0.6).to(dtype)
+        staged = tsk.stage_basic(small, p, dtype)
+        h = tsk.house_tensor(small, [], cuda_device, dtype)
+        assert torch.equal(tsk.spill_forward(small, staged, []),
+                           tsk.spill_forward_plain(small, staged, h))
+    enc = tsk.encode_spill(tsk.compile_spill_stream(tree))
+    senc = tsk.tree_stream_encoding(tree)
+    p = p.float()
+    assert torch.equal(tsk.spill_propagate(enc, p, []),
+                       tsk.stream_propagate(senc, p, []))
+
+
+def test_spill_engine_on_cuda(cuda_device):  # noqa: F811
+    """``engine="spill"`` launches the spill kernel (never another engine)
+    and agrees with the f64 gather engine."""
+    from canopy_tpu_torch.utils.synthetic import synthetic_compiled_tree
+    tree = synthetic_compiled_tree(n_basic=512, n_gates=4096, fanin=4,
+                                   n_levels=12, seed=1)
+    p = torch.rand((3000, tree.n_basic), device=cuda_device,
+                   dtype=torch.float64) * 0.05
+    fn = make_propagator(tree, cuda_device, engine="spill")
+    tsk.reset_launches()
+    got = fn(p)
+    assert fn.engine == "spill"
+    assert tsk.LAUNCHES["spill"] == 1 and tsk.LAUNCHES["stream"] == 0
+    want = make_propagator(tree, cuda_device, engine="gather")(p)
+    assert float(((got.double() - want).abs() / want).max()) <= 1e-5
+
+
+def test_spill_program_beyond_shared_memory_raises(cuda_device):  # noqa: F811
+    """A pool wider than one block's shared memory is refused before any
+    launch, by the sizing and by the wrapper."""
+    from canopy_tpu_torch.compiler.spill import build_spill_schedule
+    from canopy_tpu_torch.utils.synthetic import synthetic_compiled_tree
+    tree = synthetic_compiled_tree(n_basic=64, n_gates=256, fanin=4,
+                                   n_levels=5, seed=1)
+    with pytest.raises(LogicError, match="shared memory"):
+        tsk.compile_spill_stream(tree, pool_slots=tsk.REPLAY_SLOTS + 1)
+    enc = tsk.encode_spill(build_spill_schedule(
+        tree, pool_slots=tsk.REPLAY_SLOTS + 1))
+    tsk.reset_launches()
+    with pytest.raises(LogicError, match="shared memory"):
+        tsk.spill_forward(enc, torch.zeros((enc.n_basic, 64),
+                                           device=cuda_device), [])
+    assert tsk.LAUNCHES["spill"] == 0

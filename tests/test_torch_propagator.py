@@ -312,11 +312,12 @@ def test_staged_equals_unstaged():
 @pytest.mark.parametrize("engine", ["replay", "spill", "block"])
 def test_unported_engines_raise(engine):
     _m, tree = load_tree("canopy_tpu_torch", "aralia_like_ccf")
-    if engine == "replay":
-        # Ported (tests/test_torch_replay.py): it builds, and like every
-        # kernel engine refuses a per-call house override.
+    if engine in ("replay", "spill"):
+        # Ported (tests/test_torch_replay.py, tests/test_torch_spill.py):
+        # it builds, and like every kernel engine refuses a per-call house
+        # override.
         fn = make_propagator(tree, "cpu", engine=engine)
-        assert fn.engine == "replay"
+        assert fn.engine == engine
         p = torch.from_numpy(inputs(tree.n_basic, 4, 27))
         with pytest.raises(ValueError):
             fn(p, torch.ones(max(tree.n_house, 1)))

@@ -1,0 +1,273 @@
+"""Torch port, the spill engine on the CPU: schedule, encoder, plain
+forward, ``make_propagator(engine="spill")``.
+
+Both packages build spill programs with the same (vendored) builder, so
+the programs are compared op for op first.  Tolerances:
+
+* the port's plain forward against the JAX spill kernel in interpret mode
+  (``tests/test_spill.py``'s runs): within 1e-6 relative plus 1e-7
+  absolute, the JAX tests' own band (interpret-mode contraction may round
+  differently); against the port's float32 gather engine and the
+  vendored host simulator: bit-equal (same float32 operations in the same
+  order);
+* ``make_propagator(engine="spill")`` against the f64 gather engine:
+  within 1e-5 relative plus 2^-24 absolute (float32 rounds each ``1 - p``
+  of an OR to an absolute half ulp of 1.0).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from canopy_tpu.compiler.graph import compile_gates
+from canopy_tpu.compiler.spill import build_spill_schedule as jax_build
+from canopy_tpu.engine.propagate import spill_auto_ok as jax_spill_auto_ok
+from canopy_tpu.ops import stream_kernel as jsk
+from canopy_tpu.utils.synthetic import \
+    synthetic_compiled_tree as jax_synthetic
+from canopy_tpu.utils.synthetic import (synthetic_hierarchical_tree,
+                                        synthetic_mef_tree)
+from canopy_tpu_torch.compiler.spill import (build_spill_schedule,
+                                             simulate_spill_program)
+from canopy_tpu_torch.engine.propagate import make_propagator, spill_auto_ok
+from canopy_tpu_torch.errors import LogicError
+from canopy_tpu_torch.ops import stream_kernel as tsk
+
+from test_stream_kernel import mixed_tree
+from torch_parity import load_tree
+
+F32_ATOL = 2.0 ** -24
+TOP_RTOL = 1e-5
+
+
+def mef_tree(**kwargs):
+    top, _events = synthetic_mef_tree(**kwargs)
+    tree = compile_gates([top])
+    tree.top_index = tree.gate_index[top.id]
+    return tree
+
+
+def uniform(shape, seed, hi=1.0):
+    return np.random.default_rng(seed).uniform(0.0, hi, shape) \
+        .astype(np.float32)
+
+
+def plain_tops(program, p: np.ndarray, house) -> np.ndarray:
+    enc = tsk.encode_spill(program)
+    return tsk.spill_propagate(enc, torch.from_numpy(p), house).numpy()
+
+
+def gather_f32(tree, p: np.ndarray) -> np.ndarray:
+    return make_propagator(tree, "cpu", engine="gather")(
+        torch.from_numpy(p)).numpy()
+
+
+#: ``tests/test_spill.py``'s trees and builder parameters.
+SCHEDULES = [
+    ("uniform-64", dict(n_basic=64, n_gates=256, fanin=4, n_levels=5, seed=1),
+     dict(chunk_tiles=8, pool_slots=10, slab_tiles=4)),
+    ("uniform-64-segments",
+     dict(n_basic=64, n_gates=256, fanin=4, n_levels=5, seed=1),
+     dict(chunk_tiles=8, pool_slots=12, slab_tiles=4,
+          max_ops_per_segment=16)),
+    ("uniform-96-a", dict(n_basic=96, n_gates=300, fanin=4, n_levels=6,
+                          seed=2),
+     dict(chunk_tiles=8, pool_slots=8, slab_tiles=2, hoist_events=0,
+          n_refill_sems=3, n_flush_sems=2)),
+    ("uniform-96-b", dict(n_basic=96, n_gates=300, fanin=4, n_levels=6,
+                          seed=2),
+     dict(chunk_tiles=8, pool_slots=12, slab_tiles=8, hoist_events=16,
+          n_refill_sems=3, n_flush_sems=2)),
+    ("uniform-96-c", dict(n_basic=96, n_gates=300, fanin=4, n_levels=6,
+                          seed=2),
+     dict(chunk_tiles=8, pool_slots=20, slab_tiles=8,
+          max_ops_per_segment=25, hoist_events=6, n_refill_sems=3,
+          n_flush_sems=2)),
+    ("mef-counts", dict(n_basic=80, n_gates=60, fanin=4, seed=5,
+                        atleast_fraction=0.25, complement_fraction=0.2),
+     dict(chunk_tiles=4, pool_slots=32, slab_tiles=3, hoist_events=8)),
+    ("mef-shared", dict(n_basic=50, n_gates=80, fanin=5, seed=11,
+                        atleast_fraction=0.0, complement_fraction=0.0),
+     dict(chunk_tiles=4, pool_slots=30, slab_tiles=2, hoist_events=4)),
+    ("mixed", None, dict(chunk_tiles=2, pool_slots=8, slab_tiles=2,
+                         hoist_events=6, n_refill_sems=3, n_flush_sems=2)),
+]
+
+
+def schedule_tree(config):
+    if config is None:
+        return mixed_tree()
+    if "atleast_fraction" in config:
+        return mef_tree(**config)
+    return jax_synthetic(**config)
+
+
+@pytest.mark.parametrize("label,config,params", SCHEDULES,
+                         ids=[s[0] for s in SCHEDULES])
+def test_schedule_equals_the_jax_builder(label, config, params):
+    """Op for op, and the plain forward bit-equal to the float32 gather
+    engine and to the vendored host simulator."""
+    tree = schedule_tree(config)
+    jprog = jax_build(tree, **params)
+    prog = build_spill_schedule(tree, **params)
+    assert prog.segments == jprog.segments
+    np.testing.assert_array_equal(prog.basic_perm, jprog.basic_perm)
+    for field in ("pool_slots", "scratch_rows", "top_slot", "n_ops",
+                  "n_evicted", "n_refills", "n_chunks", "n_basic_pad"):
+        assert getattr(prog, field) == getattr(jprog, field), field
+    # Either package's program encodes to the same tables.
+    enc, jenc = tsk.encode_spill(prog), tsk.encode_spill(jprog)
+    np.testing.assert_array_equal(enc.ops, jenc.ops)
+    np.testing.assert_array_equal(enc.args, jenc.args)
+    assert enc.counts["evictions"] == prog.n_evicted
+    assert enc.n_scratch == prog.scratch_rows - prog.pool_slots
+    p = uniform((32, tree.n_basic), 3)
+    house = tree.house_state_vector()
+    got = plain_tops(prog, p, house)
+    np.testing.assert_array_equal(got, gather_f32(tree, p))
+    for i in range(2):
+        assert got[i] == np.float32(simulate_spill_program(prog, p[i],
+                                                           house))
+
+
+@pytest.mark.parametrize("label,tree_fn,params", [
+    ("mixed-house", lambda: mixed_tree(n_house=2),
+     dict(chunk_tiles=2, pool_slots=8, slab_tiles=2, hoist_events=6,
+          n_refill_sems=3, n_flush_sems=2)),
+    ("counts-segments", lambda: mef_tree(n_basic=60, n_gates=45, fanin=4,
+                                         seed=7, atleast_fraction=0.3,
+                                         complement_fraction=0.1),
+     dict(chunk_tiles=4, pool_slots=24, slab_tiles=4, hoist_events=12,
+          max_ops_per_segment=20)),
+])
+def test_plain_matches_jax_interpret_kernel(label, tree_fn, params):
+    """The JAX spill kernel (Pallas, interpret mode) as
+    ``tests/test_spill.py`` runs it: a mixed tree with house events and
+    every gate family, and a tree with count gates across segment
+    boundaries with evictions and refills."""
+    tree = tree_fn()
+    prog = build_spill_schedule(tree, **params)
+    enc = tsk.encode_spill(prog)
+    if label == "counts-segments":
+        assert len(prog.segments) > 1 and prog.n_evicted > 0
+        assert enc.counts["scratch_refills"] > 0
+    p = uniform((1024, tree.n_basic), 0, hi=0.9)
+    house = tree.house_state_vector()
+    want = np.asarray(jsk.spill_propagate(jax_build(tree, **params),
+                                          jnp.asarray(p), house,
+                                          interpret=True))
+    got = plain_tops(prog, p, house)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
+def test_every_op_kind_encodes():
+    """A forced small schedule with staging spills, evictions, refills
+    from the staged input and from scratch, and segment boundaries."""
+    tree = jax_synthetic(n_basic=96, n_gates=300, fanin=4, n_levels=6,
+                         seed=2)
+    prog = build_spill_schedule(tree, chunk_tiles=8, pool_slots=12,
+                                slab_tiles=4, max_ops_per_segment=40,
+                                hoist_events=6, n_refill_sems=3,
+                                n_flush_sems=2)
+    enc = tsk.encode_spill(prog)
+    assert all(enc.counts.values()), enc.counts
+    assert enc.counts["segments"] == len(prog.segments) > 1
+    kinds = set(enc.ops[:, 0].tolist())
+    assert {tsk.SPILL, tsk.EVICT, tsk.REFILL, tsk.PROD} <= kinds
+    assert tsk.encode_spill(prog) is enc   # cached on the program
+    # Every eviction stores to a row its flush named, each row once.
+    rows = enc.ops[enc.ops[:, 0] == tsk.EVICT, 4]
+    np.testing.assert_array_equal(np.sort(rows), np.arange(enc.n_scratch))
+
+
+def test_refill_of_the_dump_region_is_refused():
+    tree = jax_synthetic(n_basic=64, n_gates=256, fanin=4, n_levels=5,
+                         seed=1)
+    prog = build_spill_schedule(tree, chunk_tiles=8, pool_slots=10,
+                                slab_tiles=4)
+    for seg in prog.segments:
+        for i, op in enumerate(seg):
+            if op[0] == "rwait" and op[1] == 1:
+                seg[i] = ("rwait", 1, prog.pool_slots - 1, op[3], op[4])
+                with pytest.raises(LogicError, match="dump region"):
+                    tsk.encode_spill(prog)
+                return
+    pytest.fail("no scratch refill in the schedule")
+
+
+def test_card_sizing():
+    tree = jax_synthetic(n_basic=256, n_gates=2048, fanin=4, n_levels=8,
+                         seed=3)
+    prog = tsk.compile_spill_stream(tree)
+    assert prog.pool_slots == tsk.SMEM_BYTES // (4 * tsk.REPLAY_TRIALS)
+    assert prog.n_chunks == 1     # every basic a staged row
+    with pytest.raises(LogicError, match="shared memory"):
+        tsk.compile_spill_stream(tree, pool_slots=tsk.REPLAY_SLOTS + 1)
+    with pytest.raises(LogicError, match="fan-in"):
+        tsk.compile_spill_stream(mixed_tree(), pool_slots=3)
+
+
+@pytest.mark.parametrize("fixture", ["demo_plant", "aralia_like_ccf",
+                                     "aralia_like_nested_count"])
+def test_spill_engine_matches_gather(fixture):
+    """``make_propagator(engine="spill")`` on the CPU (the kernel's plain
+    version) against the f64 gather engine, on trees with house events,
+    CCF groups and deep count nesting."""
+    tree_name = "Cooling" if fixture == "demo_plant" else fixture
+    _m, tree = load_tree("canopy_tpu_torch", fixture, tree_name=tree_name)
+    fn = make_propagator(tree, "cpu", engine="spill")
+    assert fn.engine == "spill"
+    p = torch.from_numpy(np.random.default_rng(4).uniform(
+        0.0, 0.3, (64, tree.n_basic)))
+    got = fn(p.float()).double()
+    want = make_propagator(tree, "cpu", engine="gather")(p)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=TOP_RTOL,
+                               atol=F32_ATOL)
+    with pytest.raises(ValueError, match="bakes house states"):
+        fn(p.float(), house_states=tree.house_state_vector())
+
+
+def test_spill_engine_on_the_65k_shape():
+    """A uniform tree whose live set overflows the 113-slot pool: the
+    default sizing evicts and refills, and the tops stay bit-equal to the
+    stream program's plain version (same gates, same order)."""
+    tree = jax_synthetic(n_basic=512, n_gates=4096, fanin=4, n_levels=10,
+                         seed=0)
+    enc = tsk.encode_spill(tsk.compile_spill_stream(tree))
+    assert enc.counts["evictions"] and enc.counts["scratch_refills"]
+    p = torch.from_numpy(uniform((16, tree.n_basic), 5, hi=0.05))
+    senc = tsk.tree_stream_encoding(tree)
+    assert torch.equal(tsk.spill_propagate(enc, p, []),
+                       tsk.stream_propagate(senc, p, []))
+
+
+def test_spill_auto_ok_matches_jax():
+    """The thrashing guard on ``tests/test_spill.py``'s two trees."""
+    heavy = jax_synthetic(n_basic=2048, n_gates=16384, fanin=4, n_levels=12,
+                          seed=0)
+    mild = synthetic_hierarchical_tree(n_basic=4096, branching=8,
+                                       share_fraction=0.1, n_shared=64,
+                                       seed=0)
+    for tree, params, verdict in (
+            (heavy, dict(pool_slots=96, chunk_tiles=32, slab_tiles=16),
+             False),
+            (mild, dict(chunk_tiles=32), True)):
+        prog = build_spill_schedule(tree, **params)
+        jprog = jax_build(tree, **params)
+        assert (prog.n_refills, prog.n_ops) == (jprog.n_refills, jprog.n_ops)
+        assert spill_auto_ok(prog) == jax_spill_auto_ok(jprog) == verdict
+
+
+def test_block_engine_still_raises():
+    tree = mixed_tree()
+    with pytest.raises(NotImplementedError, match="Queue 2 item 12"):
+        make_propagator(tree, "cpu", engine="block")
+
+
+def test_building_for_cuda_touches_no_card():
+    tree = jax_synthetic(n_basic=64, n_gates=256, fanin=4, n_levels=5,
+                         seed=1)
+    fn = make_propagator(tree, torch.device("cuda"), engine="spill")
+    assert fn.engine == "spill"
+    assert not torch.cuda.is_initialized()
