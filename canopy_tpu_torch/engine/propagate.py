@@ -24,8 +24,8 @@ path for shared-event models.
 
 :func:`make_propagator` picks an engine for a tree once and returns the
 evaluator: on CUDA the uncapped tree stream's hand-written kernel (the
-fused whole-tree, replay and spill kernels on request), elsewhere this
-gather engine.
+fused whole-tree, replay, spill and block-gather kernels on request),
+elsewhere this gather engine.
 :func:`make_staged_propagator` splits the stream engine's staging from
 its kernel for hot loops.  ``make_param_propagator`` is not ported: it
 existed to keep index arrays out of remote-compile requests, and torch
@@ -175,9 +175,6 @@ def top_event_probability(tree: CompiledTree, basic_p: torch.Tensor,
     return torch.reshape(vals[tree.top_index], batch_shape)
 
 
-#: Engines of the JAX package that wait for their kernels (ROADMAP.md).
-_NOT_PORTED = {"block": "Queue 2 item 12"}
-
 #: The JAX package's thrashing guard for the spill tier under its TPU auto
 #: dispatch: a schedule refilling more than this share of its ops trails
 #: gather there.  Kept as the same logic; the port's auto dispatch never
@@ -247,16 +244,24 @@ def make_propagator(tree: CompiledTree, device, output: str = "top",
       (``ops/stream_kernel.compile_spill_stream``: a shared-memory pool,
       evictions to scratch rows in device memory, single refills);
       float32, ``(n_trials, n_basic)`` input;
+    * ``"block"`` — the block-gather log kernel on the tree's
+      block-gather program (``ops/block_gather.compile_block_gather``,
+      built here: it raises ``LogicError`` for a tree with pair or count
+      gates, house events, or argument spans over ``r_max`` rows, as an
+      unreordered big tree has; run ``compiler/reorder.locality_reorder``
+      with ``hot_first=True`` first); float32, ``(n_trials, n_basic)``
+      input with ``n_trials % 128 == 0``;
     * ``"auto"`` — on CUDA the stream kernel; the gather engine on the
       CPU, for ``output="all"`` or without an anchored top.  No CUDA path
-      falls back to gather, and auto never picks the fused, replay or
-      spill kernels (explicit engines).
+      falls back to gather, and auto never picks the fused, replay, spill
+      or block kernels (explicit engines, as in the JAX package).
 
-    On the CPU ``"fused"``, ``"stream"``, ``"replay"`` and ``"spill"`` run
-    the kernels' plain versions (the rehearsal the tests use).
-    ``"block"`` raises ``NotImplementedError``: its kernels are not ported
-    yet.
+    On the CPU ``"fused"``, ``"stream"``, ``"replay"``, ``"spill"`` and
+    ``"block"`` run the kernels' plain versions (the rehearsal the tests
+    use).
     """
+    from ..ops.block_gather import (block_gather_propagate,
+                                    compile_block_gather)
     from ..ops.fused_kernel import (fused_propagate, fused_propagate_tiled,
                                     fused_supported, fused_tiled_supported)
     from ..ops.stream_kernel import (compile_replay_stream,
@@ -265,12 +270,8 @@ def make_propagator(tree: CompiledTree, device, output: str = "top",
                                      spill_propagate, stream_propagate,
                                      tree_stream_encoding)
     device = torch.device(device)
-    if engine in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {engine} engine is not ported to canopy_tpu_torch yet "
-            f"(ROADMAP.md, {_NOT_PORTED[engine]})")
     if engine not in ("auto", "gather", "fused", "stream", "replay",
-                      "spill"):
+                      "spill", "block"):
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "auto":
         engine = _auto_engine(tree, device, output)
@@ -297,6 +298,11 @@ def make_propagator(tree: CompiledTree, device, output: str = "top",
 
             def run(basic_p):
                 return spill_propagate(senc, basic_p, house)
+        elif engine == "block":
+            program = compile_block_gather(tree)
+
+            def run(basic_p):
+                return block_gather_propagate(program, basic_p)
         elif engine == "fused_tiled":
             def run(basic_p):
                 return fused_propagate_tiled(tree, basic_p, house)

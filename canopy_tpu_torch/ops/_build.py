@@ -26,7 +26,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(_PKG, "_build")
 _SOURCES = ("stream.cu", "adjoint.cu", "fused.cu", "replay.cu",
-            "replay_adjoint.cu", "spill.cu", "bernoulli.cu")
+            "replay_adjoint.cu", "spill.cu", "bernoulli.cu", "gather.cu",
+            "block_gather.cu")
 _HEADERS = ("stream_ops.cuh", "adjoint_ops.cuh", "replay_ops.cuh")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -135,6 +136,12 @@ def load_library() -> ctypes.CDLL:
     lib.canopy_packed_bernoulli.argtypes = [vp, i64, i64, i64, ctypes.c_uint,
                                             ctypes.c_uint, vp, vp]
     lib.canopy_packed_bernoulli.restype = i32
+    lib.canopy_gather_level.argtypes = [vp, i64, vp, vp, vp, vp, vp, i32,
+                                        i32, vp]
+    lib.canopy_gather_level.restype = i32
+    lib.canopy_block_gather_level.argtypes = [vp, i64, vp, vp, vp, vp, vp,
+                                              *[i32] * 9, vp]
+    lib.canopy_block_gather_level.restype = i32
     lib.canopy_cuda_error_string.argtypes = [i32]
     lib.canopy_cuda_error_string.restype = ctypes.c_char_p
     lib.canopy_max_count_states.restype = i32

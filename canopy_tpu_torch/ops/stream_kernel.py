@@ -87,11 +87,14 @@ MAX_COUNT_STATES = 128
 #: whole-tree kernels ``fused_tiled`` and ``fused`` (``fused_kernel.py``),
 #: the replay kernels ``replay`` (forward), ``replay_tape`` (forward
 #: with the value log) and ``replay_bwd`` (``replay_adjoint_kernel.py``),
-#: the spill kernel ``spill``, and the Philox sampler ``bernoulli``
-#: (``bernoulli_kernel.py``).
+#: the spill kernel ``spill``, the Philox sampler ``bernoulli``
+#: (``bernoulli_kernel.py``), the gather level kernel ``gather``
+#: (``gather_kernel.py``) and the block-gather level kernels ``block_log``
+#: and ``block_direct`` (``block_gather.py``).
 LAUNCHES = {"stream": 0, "stream_log": 0, "adjoint": 0, "fused_tiled": 0,
             "fused": 0, "replay": 0, "replay_tape": 0, "replay_bwd": 0,
-            "spill": 0, "bernoulli": 0}
+            "spill": 0, "bernoulli": 0, "gather": 0, "block_log": 0,
+            "block_direct": 0}
 
 #: Shared memory one block may use on an H100 (227 KB, opt-in above 48 KB).
 SMEM_BYTES = 232_448

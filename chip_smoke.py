@@ -73,10 +73,24 @@ false or the package is missing).  Phases, each raising on failure:
    ``make_propagator(engine="spill")`` on the 65k replay tree at 65,536
    trials, bit-equal to plain and to the stream kernel, 2,048 trials
    within ``TOP_RTOL`` of the f64 gather engine; (f) a forced small
-   schedule on the 16k tree with every spill op kind, bit-equal to plain.
+   schedule on the 16k tree with every spill op kind, bit-equal to plain;
+10. the locality-reordered big tree (``csrc/block_gather.cu``,
+   ``csrc/gather.cu``): ``plant_hier_9363``'s tree through
+   ``random_shuffle(seed=1)`` and ``locality_reorder(hot_first=True)``
+   (the shuffled tree alone is refused by ``engine="block"``), 65,536
+   trials of uniform(1e-4, 5e-3) float32 drawn on the card; the path
+   ``block``: ``make_propagator(engine="block")`` (the log kernel, within
+   ``BLOCK_LOG_RTOL`` of its plain version, ``BLOCK_AGREE`` trials within
+   ``TOP_RTOL`` of the f64 gather engine) and ``block_gather_propagate(
+   mode="direct")`` (bit-equal to plain and to the float32 gather engine);
+   then ``bsr_top_probability`` on the shuffled tree reordered with
+   ``method="auto"`` (within ``BSR_RTOL`` of the float32 gather engine)
+   and, for context, the stream kernel on the same inputs; the path
+   ``gather``: ``gather_propagate`` on that tree and on a ragged product
+   tree, each bit-equal to plain and to the float32 gather engine.
 
-Each path (5, 6, 7, 8, and 9's two) runs with the launch counts set to 0
-just before it and read just after; a kernel of the path that never
+Each path (5, 6, 7, 8, 9's two and 10's two) runs with the launch counts
+set to 0 just before it and read just after; a kernel of the path that never
 launched fails the run.  Long output goes to ``chiprun_out/``.  The last lines are the
 kernels' JSON record (with each kernel's bound: the larger of its bytes
 over the card's memory rate and its operations over its peak rate), the
@@ -156,6 +170,23 @@ BERN_PLANT_WORDS = 32_768
 SPILL_SMALL = dict(pool_slots=16, chunk_tiles=256, slab_tiles=8,
                    max_ops_per_segment=2048, hoist_events=16)
 
+#: Phase 10: the plant tree's trials, their seed (drawn on the card), how
+#: many the f64 gather engine re-evaluates, the trial slab of the plain
+#: versions, the float32 gather engine and BSR, and BSR's ``t_chunk``.
+BLOCK_TRIALS = 65_536
+BLOCK_SEED = 20265
+BLOCK_AGREE = 2_048
+BLOCK_SLAB = 8_192
+BSR_T_CHUNK = 2_048
+#: The log kernel against its plain version, per trial: the card's
+#: ``logf``/``expf`` against torch's (bit-equal where they agree).
+BLOCK_LOG_RTOL = 1e-6
+#: BSR (a float32 log-space product) against the float32 gather engine,
+#: per trial.
+BSR_RTOL = 1e-5
+#: The ragged product tree (padded fan-in positions, ``arg_mask`` False).
+RAGGED_TREE = dict(n_basic=32, n_gates=40, fanin=4, seed=3)
+
 #: One H100 SXM at its full 700 W (NVIDIA's data sheet): HBM3 rate, and
 #: peak rates outside the tensor cores by value size (float32, float64).
 HBM_BYTES_PER_S = 3.35e12
@@ -163,6 +194,9 @@ PEAK_FLOPS = {4: 67e12, 8: 34e12}
 #: int32 lanes of the card (132 SMs x 64), at the SM clock nvidia-smi
 #: reports, for the Philox kernel's integer work.
 INT32_LANES = 132 * 64
+#: Special-function units of the card (132 SMs x 16 per clock), for the
+#: block-gather log kernel's logs and exps.
+SFU_LANES = 132 * 16
 #: Integer operations of one packed word: 8 Philox calls x 10 rounds x 2
 #: wide multiplies, and 32 compares.
 BERN_OPS_PER_WORD = 8 * 10 * 2 + 32
@@ -188,12 +222,19 @@ KERNELS = {
                   "canopy_tpu/ops/pallas_kernels.py:45"),
     "spill": ("canopy_tpu_torch/csrc/spill.cu",
               "canopy_tpu/ops/stream_kernel.py:221"),
+    "gather": ("canopy_tpu_torch/csrc/gather.cu",
+               "canopy_tpu/ops/gather_kernel.py:40"),
+    "block_log": ("canopy_tpu_torch/csrc/block_gather.cu",
+                  "canopy_tpu/ops/block_gather.py:269"),
+    "block_direct": ("canopy_tpu_torch/csrc/block_gather.cu",
+                     "canopy_tpu/ops/block_gather.py:331"),
 }
 #: The path whose launch count each kernel's record reports.
 PATH_OF = {"stream": "bdd-slice", "stream_log": "pdag-slice",
            "adjoint": "pdag-slice", "fused_tiled": "dispatch",
            "fused": "dispatch", "replay": "replay", "replay_tape": "replay",
-           "replay_bwd": "replay", "bernoulli": "mc", "spill": "spill"}
+           "replay_bwd": "replay", "bernoulli": "mc", "spill": "spill",
+           "gather": "gather", "block_log": "block", "block_direct": "block"}
 
 
 def log(msg: str) -> None:
@@ -1277,6 +1318,233 @@ def phase_spill(device, record: dict) -> None:
                                  scratch_rows=small.n_scratch)
 
 
+def gather_f32(tree, p: torch.Tensor) -> torch.Tensor:
+    """The float32 gather engine's tops, in trial slabs (its arithmetic is
+    per trial, so the bits are one call's)."""
+    from canopy_tpu_torch.engine.propagate import make_propagator
+    fn = make_propagator(tree, p.device, engine="gather")
+    with torch.no_grad():
+        return torch.cat([fn(s) for s in p.split(BLOCK_SLAB)])
+
+
+def level_bound(rows: int, n_trials: int, transcendentals: int,
+                flops: int, clock_hz: float) -> dict:
+    """A level kernel's bound: ``rows`` float32 rows of ``n_trials`` over
+    the memory rate, against its logs and exps over the special-function
+    units at the SM clock and its other operations over the float32
+    peak."""
+    t_bytes = rows * n_trials * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = (transcendentals * n_trials / (SFU_LANES * clock_hz)
+             + flops * n_trials / PEAK_FLOPS[4]) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def phase_block(device, record: dict) -> None:
+    """(10) The locality-reordered plant tree: the path ``block`` (the
+    block engine and the direct mode), BSR and the stream for context,
+    then the path ``gather``."""
+    from canopy_tpu_torch.compiler.graph import compile_gates
+    from canopy_tpu_torch.compiler.reorder import (locality_reorder,
+                                                   random_shuffle)
+    from canopy_tpu_torch.engine.propagate import (make_propagator,
+                                                   top_event_probability)
+    from canopy_tpu_torch.errors import LogicError
+    from canopy_tpu_torch.ops.block_gather import (
+        auto_t_tile, block_gather_forward_plain, block_gather_levels,
+        block_gather_propagate, compile_block_gather, stage_block_gather)
+    from canopy_tpu_torch.ops.bsr_propagate import (bsr_arrays,
+                                                    bsr_top_probability,
+                                                    compile_bsr)
+    from canopy_tpu_torch.ops.gather_kernel import (gather_forward_plain,
+                                                    gather_levels,
+                                                    gather_propagate,
+                                                    stage_gather)
+    from canopy_tpu_torch.ops.stream_kernel import (stage_basic,
+                                                    stream_forward,
+                                                    tree_stream_encoding)
+    from canopy_tpu_torch.utils.synthetic import (synthetic_hierarchical_tree,
+                                                  synthetic_mef_tree)
+
+    with open(os.path.join(FIXTURES, "golden.json")) as fh:
+        gold = json.load(fh)["plant_hier_9363"]
+    clock = sm_clock_hz()
+    plant = synthetic_hierarchical_tree(**gold["generator"])
+    check((plant.n_gates, plant.nnz) == (gold["n_gates"], gold["nnz"]),
+          f"plant tree {plant.n_gates} gates, {plant.nnz} edges")
+    shuffled = random_shuffle(plant, seed=1)
+    t0 = time.perf_counter()
+    ordered = locality_reorder(shuffled.tree, hot_first=True)
+    reorder_s = time.perf_counter() - t0
+    tree = ordered.tree
+    try:
+        make_propagator(shuffled.tree, device, engine="block")
+    except LogicError as err:
+        refused = str(err)
+    else:
+        raise AssertionError("engine='block' took the unreordered tree")
+    T = BLOCK_TRIALS
+    gen = torch.Generator(device=device).manual_seed(BLOCK_SEED)
+    p = torch.rand((T, tree.n_basic), generator=gen, device=device) \
+        .mul_(5e-3 - 1e-4).add_(1e-4)
+    log(f"[block] plant tree {plant.n_gates} gates, {plant.nnz} edges; "
+        f"reorder {reorder_s:.3f} s; the shuffled tree refused: {refused}")
+
+    # The path: the block engine (log kernel) and the direct mode.
+    reset_counts()
+    t0 = time.perf_counter()
+    fn = make_propagator(tree, device, engine="block")
+    build_s = time.perf_counter() - t0
+    program = compile_block_gather(tree)
+    with torch.no_grad():
+        tops, path_ms = timed_ms(lambda: fn(p))
+        direct = block_gather_propagate(program, p, mode="direct")
+    launches = read_counts(record, "block", ("block_log", "block_direct"))
+    check(fn.engine == "block", f"block engine ran {fn.engine}")
+    levels = [{"gates": lv.n_gates, "r_rows": lv.r_rows,
+               "resident_slabs": len(lv.resident_rows), "c_rows": lv.c_rows}
+              for lv in program.levels]
+    width = auto_t_tile(program)
+    log(f"[block] make_propagator(engine=block) built in {build_s:.3f} s, "
+        f"ran {path_ms:.3f} ms (staging included); levels {levels}; "
+        f"{width} trials per block; launches {launches}")
+
+    plain_log, plain_log_ms = timed_ms(
+        lambda: block_gather_forward_plain(program, p, "log"))
+    log_err = float((tops - plain_log).abs().max())
+    rel = float(((tops - plain_log).abs() / plain_log).max())
+    n_same = int((tops == plain_log).sum())
+    check(rel <= BLOCK_LOG_RTOL, f"log kernel vs plain {rel:.3e}")
+    plain_direct, plain_direct_ms = timed_ms(
+        lambda: block_gather_forward_plain(program, p, "direct"))
+    direct_err = float((direct - plain_direct).abs().max())
+    check(torch.equal(direct, plain_direct), "direct kernel differs from "
+                                             "plain")
+    g32 = gather_f32(tree, p)
+    check(torch.equal(direct, g32), "direct kernel differs from the "
+                                    "float32 gather engine")
+    gather64 = make_propagator(tree, device, engine="gather")
+    with torch.no_grad():
+        ref = gather64(p[:BLOCK_AGREE].double())
+    rel64 = float(((tops[:BLOCK_AGREE].double() - ref).abs()
+                   / ref.abs()).max())
+    check(rel64 <= TOP_RTOL, f"block tops vs f64 gather {rel64:.3e}")
+    del plain_log, plain_direct, ref, direct
+    vals = stage_block_gather(program, p)
+    log_ms = cuda_ms(lambda: block_gather_levels(program, vals, width,
+                                                 "log"), 5)
+    direct_ms = cuda_ms(lambda: block_gather_levels(program, vals, width,
+                                                    "direct"), 5)
+    del vals
+    torch.cuda.empty_cache()
+    rows = sum(program.hbm_rows_per_level())
+    b_log = level_bound(rows, T, tree.nnz + tree.n_gates,
+                        2 * tree.nnz + 3 * tree.n_gates, clock)
+    b_direct = level_bound(rows, T, 0, 4 * tree.nnz + 3 * tree.n_gates,
+                           clock)
+    log(f"[block] log kernel within {rel:.3e} of plain ({n_same} of {T} "
+        f"trials bit-equal), {BLOCK_AGREE} trials vs f64 gather {rel64:.3e}"
+        f" (limit {TOP_RTOL}); direct bit-equal to plain and to the f32 "
+        f"gather engine; levels alone: log {log_ms:.3f} ms, direct "
+        f"{direct_ms:.3f} ms; plain {plain_log_ms:.3f} and "
+        f"{plain_direct_ms:.3f} ms; bound {b_log['bound_ms']:.3f} ms "
+        f"({b_log['bound_by']}, {rows} rows), direct "
+        f"{b_direct['bound_ms']:.3f} ms ({b_direct['bound_by']})")
+    shape = f"reordered plant tree, {tree.n_gates} gates x {T} trials, f32"
+    record["block_log"].update(max_abs_err=log_err, ms=log_ms,
+                               plain_ms=plain_log_ms, shape=shape, **b_log)
+    record["block_direct"].update(max_abs_err=direct_err, ms=direct_ms,
+                                  plain_ms=plain_direct_ms, shape=shape,
+                                  **b_direct)
+
+    # BSR on the shuffled tree reordered by estimated fill; its inputs are
+    # the same trials with the basic events in that tree's order.
+    t0 = time.perf_counter()
+    auto = locality_reorder(shuffled.tree, method="auto")
+    bprog = compile_bsr(auto.tree)
+    auto_s = time.perf_counter() - t0
+    src = np.empty(tree.n_basic, dtype=np.int64)
+    src[auto.perm[:tree.n_basic]] = ordered.perm[:tree.n_basic]
+    src_t = torch.from_numpy(src).to(device)
+    params = bsr_arrays(bprog, device)
+
+    def run_bsr():
+        return torch.cat([bsr_top_probability(
+            bprog, s.index_select(1, src_t), t_chunk=BSR_T_CHUNK,
+            params=params) for s in p.split(BLOCK_SLAB)])
+    with torch.no_grad():
+        run_bsr()
+        bsr_tops, bsr_ms = timed_ms(run_bsr)
+    bsr_rel = float(((bsr_tops - g32).abs() / g32).max())
+    check(bsr_rel <= BSR_RTOL, f"BSR vs the f32 gather engine {bsr_rel:.3e}")
+    del bsr_tops, params
+    torch.cuda.empty_cache()
+    # For context: the stream kernel on the same inputs.
+    enc = tree_stream_encoding(tree)
+    staged = stage_basic(enc, p)
+    stream_tops, _ = stream_forward(enc, staged, [])
+    stream_same = bool(torch.equal(stream_tops, g32))
+    stream_ms = cuda_ms(lambda: stream_forward(enc, staged, [])[0], 3)
+    del staged, stream_tops
+    torch.cuda.empty_cache()
+    log(f"[block] BSR (method=auto, reorder and compile {auto_s:.3f} s, "
+        f"{bprog.fill_blocks} tiles, fill {bprog.fill_ratio:.1f}): "
+        f"{bsr_ms:.3f} ms, within {bsr_rel:.3e} of the f32 gather engine "
+        f"(limit {BSR_RTOL}); stream kernel {stream_ms:.3f} ms "
+        f"({enc.n_ops} ops, {enc.pool_slots} slots; tops equal to the "
+        f"f32 gather engine: {stream_same})")
+
+    # The path: the gather level kernel on the plant tree and a ragged one.
+    top, _ = synthetic_mef_tree(**RAGGED_TREE)
+    ragged = compile_gates([top])
+    ragged.top_index = ragged.gate_index[top.id]
+    check(any(not b.arg_mask.all() for lv in ragged.levels
+              for b in lv.prods), "the ragged tree has no padded position")
+    pr = torch.rand((T, ragged.n_basic), generator=gen, device=device) \
+        .mul_(0.45).add_(0.05)
+    reset_counts()
+    with torch.no_grad():
+        g_tops, g_path_ms = timed_ms(lambda: gather_propagate(tree, p))
+        r_tops = gather_propagate(ragged, pr)
+    g_launches = read_counts(record, "gather", ("gather",))
+    check(torch.equal(g_tops, g32), "gather kernel differs from the f32 "
+                                    "gather engine")
+    g_plain, g_plain_ms = timed_ms(lambda: gather_forward_plain(tree, p))
+    g_err = float((g_tops - g_plain).abs().max())
+    check(torch.equal(g_tops, g_plain), "gather kernel differs from plain")
+    del g_plain
+    check(torch.equal(r_tops, gather_forward_plain(ragged, pr)),
+          "ragged tree: gather kernel differs from plain")
+    with torch.no_grad():
+        check(torch.equal(r_tops, top_event_probability(ragged, pr)),
+              "ragged tree: gather kernel differs from the f32 gather "
+              "engine")
+    vals = stage_gather(tree, p)
+    g_ms = cuda_ms(lambda: gather_levels(tree, vals), 5)
+    del vals
+    b_g = level_bound(tree.nnz + tree.n_gates, T, 0,
+                      2 * tree.nnz + tree.n_gates, clock)
+    log(f"[gather] plant tree at {T} trials: {g_path_ms:.3f} ms with "
+        f"staging, levels alone {g_ms:.3f} ms, plain {g_plain_ms:.3f} ms, "
+        f"bound {b_g['bound_ms']:.3f} ms ({b_g['bound_by']}); bit-equal to "
+        f"plain and to the f32 gather engine; the ragged tree "
+        f"({ragged.n_gates} gates) bit-equal to both at {T} trials; "
+        f"launches {g_launches}")
+    record["gather"].update(max_abs_err=g_err, ms=g_ms, plain_ms=g_plain_ms,
+                            shape=shape, **b_g)
+    record["block_plant"] = {
+        "levels": levels, "hbm_rows": rows, "trials_per_block": width,
+        "reorder_s": reorder_s, "build_s": build_s, "path_ms": path_ms,
+        "log_rel_plain": rel, "log_bit_equal_trials": n_same,
+        "log_rel_f64": rel64, "bsr_ms": bsr_ms, "bsr_rel": bsr_rel,
+        "bsr_tiles": bprog.fill_blocks, "auto_reorder_s": auto_s,
+        "stream_ms": stream_ms, "stream_equal_f32_gather": stream_same,
+        "gather_path_ms": g_path_ms}
+    del p, pr, g_tops, r_tops, g32, tops
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -1302,6 +1570,7 @@ def main() -> int:
     phase_replay(device, record)
     phase_mc(device, record)
     phase_spill(device, record)
+    phase_block(device, record)
     check("jax" not in sys.modules, "the port imported jax")
     for name in KERNELS:
         record[name]["launches"] = record["paths"][PATH_OF[name]][name]

@@ -32,7 +32,7 @@ VENDORED = ["errors.py", "settings.py", "engine/event_tree_walk.py",
             "compiler/cutsets.py", "compiler/prime_implicants.py",
             "compiler/schedule.py", "compiler/replay.py",
             "compiler/replay_adjoint.py", "compiler/spill.py",
-            "native/__init__.py",
+            "compiler/reorder.py", "native/__init__.py",
             "native/build.py", "utils/synthetic.py"] + sorted(
     os.path.relpath(os.path.join(d, f), JAX_PKG)
     for d, _dirs, files in os.walk(os.path.join(JAX_PKG, "mef"))
@@ -49,6 +49,10 @@ def test_import_leaves_jax_out():
             "canopy_tpu_torch.ops.bitpack, canopy_tpu_torch.engine.sampler, "
             "canopy_tpu_torch.compiler.spill, "
             "canopy_tpu_torch.compiler.replay_adjoint, "
+            "canopy_tpu_torch.compiler.reorder, "
+            "canopy_tpu_torch.ops.block_gather, "
+            "canopy_tpu_torch.ops.gather_kernel, "
+            "canopy_tpu_torch.ops.bsr_propagate, "
             "canopy_tpu_torch.utils.synthetic, canopy_tpu_torch.report; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'canopy_tpu.'))))")

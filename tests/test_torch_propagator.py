@@ -16,8 +16,8 @@
   reading 800 staged basics, beyond 3 x 256), matching gather there.
 * The top cone is a fixed point of ``prune_to_top_cone``; a per-call
   house override raises on the kernel engines; staged results equal
-  unstaged ones; the engines without a port raise, and the replay
-  engine, ported, builds.
+  unstaged ones; the replay and spill engines build, and the block
+  engine refuses a tree with non-product gates.
 """
 
 import numpy as np
@@ -322,5 +322,7 @@ def test_unported_engines_raise(engine):
         with pytest.raises(ValueError):
             fn(p, torch.ones(max(tree.n_house, 1)))
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # Ported (tests/test_torch_block_gather.py): its program, built here,
+    # refuses this tree's non-product gates, as the JAX package's does.
+    with pytest.raises(LogicError, match="block-gather"):
         make_propagator(tree, "cpu", engine=engine)

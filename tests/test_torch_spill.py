@@ -260,8 +260,10 @@ def test_spill_auto_ok_matches_jax():
 
 
 def test_block_engine_still_raises():
+    """The block engine is ported (tests/test_torch_block_gather.py); its
+    program refuses this tree's pair and count gates."""
     tree = mixed_tree()
-    with pytest.raises(NotImplementedError, match="Queue 2 item 12"):
+    with pytest.raises(LogicError, match="block-gather"):
         make_propagator(tree, "cpu", engine="block")
 
 
