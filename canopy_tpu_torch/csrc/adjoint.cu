@@ -3,101 +3,130 @@
 // Replaces canopy_tpu/ops/adjoint_kernel.py:_adjoint_kernel (with its
 // per-gate partials _bgate_accumulate).  The TPU kernel replays an HBM
 // argument tape (about three rows per gate) through a VMEM ring and
-// schedules its adjoint pool and gradient-staging flushes to fit VMEM;
-// here each thread owns one trial and walks the encoded ops in reverse,
-// reading argument values from the forward's value log (one row per gate
-// output) or from the staged input, with the adjoint pool a
-// (pool_slots, n_trials) scratch in device memory.
+// schedules its adjoint pool and gradient-staging flushes to fit VMEM.
+// Here argument values come from the forward's value log (one row per
+// gate output) or from the staged input.
 //
-// What bounds it on an H100: device-memory traffic of log, adjoint-pool
-// and gradient rows, about (2 * args + 2) values per op per trial, all
-// coalesced.  Templated on the value type like the forward (f32 or
-// f64).  The gradient (n_basic, n_trials) and the adjoint pool are zeroed
-// by the wrapper; the kernel only accumulates.
-//
-// At each gate the output's adjoint is read and zeroed BEFORE the
-// arguments accumulate: the linear-scan allocator may give an op an out
-// slot that one of its own arguments was read from.
+// Level-parallel, gather form (importance: one f64 trial).  One thread
+// walking 10,483 ops in series is a chain of dependent loads; here a
+// block's threads share the (op, trial) items of one level
+// (ops/stream_kernel.level_schedule), in reverse level order with a
+// barrier between levels, and nothing is accumulated by two threads:
+//   * an op's adjoint is the left fold, from 0 (from the cotangent for
+//     the top op), of its consumers' edge partials in the consumer-list
+//     order (consumer op descending, argument position ascending);
+//   * the op writes each argument's partial to that argument's own edge
+//     slot (one per row of the argument table, (n_args, n_trials));
+//   * a staged row's gradient folds its consumers' edge slots at the end.
+// That is the order in which the sequential reverse walk
+// (stream_backward_plain) accumulates each pool slot and gradient row, so
+// the kernel is bit-equal to it.  The log sits in shared memory when the
+// tile's log fits.  Any trial count runs; the edge buffer (n_args x
+// n_trials) is what bounds it.
 #include "adjoint_ops.cuh"
 
 using namespace canopy;
 
 namespace {
 
+// Edge-slot context of the gather form: x(j) as in the forward, accum
+// writes argument j's partial to its edge slot.
 template <typename V>
-struct Ctx {
+struct EdgeCtx {
+  BackReads<V> x;
   const int* __restrict__ args;
-  const V* __restrict__ staged;
-  const V* __restrict__ house;
-  const V* __restrict__ log;
-  V* adj;
-  V* grad;
+  V* edge;
   long long T, t;
-
-  // The value argument j read in the forward (complement applied).
-  __device__ __forceinline__ V x(int j) const {
-    const int* a = args + j * ARG_COLS;
-    const int src = a[3], idx = a[4];
-    V v;
-    if (src == LOG) {
-      v = log[at(idx, T, t)];
-    } else if (src == STAGED) {
-      v = staged[at(idx, T, t)];
-    } else {
-      v = house[idx];
-    }
-    return a[2] ? V(1) - v : v;
-  }
-
-  // Accumulate a partial into argument j's adjoint (its complement flag
-  // flips the sign, except for MUX whose flags are never set).
   __device__ __forceinline__ void accum(int j, V g, bool flip) const {
-    const int* a = args + j * ARG_COLS;
-    if (flip && a[2]) g = -g;
-    if (a[0] == POOL) {
-      adj[at(a[1], T, t)] = adj[at(a[1], T, t)] + g;
-    } else if (a[0] == STAGED) {
-      grad[at(a[1], T, t)] = grad[at(a[1], T, t)] + g;
-    }
+    if (flip && args[j * ARG_COLS + 2]) g = -g;
+    edge[at(j, T, t)] = g;
   }
 };
 
-template <typename V>
-__global__ void stream_backward_kernel(const int* __restrict__ ops,
-                                       const int* __restrict__ args, int n_ops,
-                                       const V* __restrict__ staged,
-                                       const V* __restrict__ house,
-                                       const V* __restrict__ log,
-                                       const V* __restrict__ ct, V* adj,
-                                       V* grad, long long T, int top_slot) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T) return;
-  const Ctx<V> c{args, staged, house, log, adj, grad, T, t};
-  adj[at(top_slot, T, t)] = ct[t];
-  for (int o = n_ops - 1; o >= 0; --o) {
-    const int* op = ops + (long long)o * OP_COLS;
-    const int kind = op[0], out = op[1], b = op[2];
-    const V a = adj[at(out, T, t)];
-    adj[at(out, T, t)] = V(0);
-    if (kind == SPILL) {
-      const long long row = at(args[b * ARG_COLS + 1], T, t);
-      grad[row] = grad[row] + a;
-    } else {
-      backward_gate(op, a, c);
+template <typename V, bool SMEM_LOG>
+__global__ void stream_level_backward_kernel(
+    const int* __restrict__ ops, const int* __restrict__ args,
+    const int* __restrict__ order, const int* __restrict__ level_ptr,
+    int n_levels, const int* __restrict__ cons_ptr,
+    const int* __restrict__ cons, const int* __restrict__ stage_ptr,
+    const int* __restrict__ stage_cons, int n_basic,
+    const V* __restrict__ staged, const V* __restrict__ house,
+    const V* __restrict__ log, const V* __restrict__ ct, V* edge,
+    V* __restrict__ grad, long long T, int tile, int n_log, int top_op) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  V* slog = reinterpret_cast<V*>(smem);
+  const long long t0 = (long long)blockIdx.x * tile;
+  const int nt = (int)(T - t0 < tile ? T - t0 : tile);
+  if (SMEM_LOG) {
+    for (int item = threadIdx.x; item < n_log * nt; item += blockDim.x) {
+      const int row = item / nt, tl = item % nt;
+      slog[(long long)row * tile + tl] = log[at(row, T, t0 + tl)];
     }
-    // FILL: a constant; its adjoint is dropped.
+    __syncthreads();
+  }
+  const V* rows = SMEM_LOG ? slog : log;
+  const long long stride = SMEM_LOG ? tile : T;
+  for (int L = n_levels - 1; L >= 0; --L) {
+    const int first = level_ptr[L], m = level_ptr[L + 1] - first;
+    for (int item = threadIdx.x; item < m * nt; item += blockDim.x) {
+      const int o = order[first + item / nt], tl = item % nt;
+      const long long t = t0 + tl;
+      const int* op = ops + (long long)o * OP_COLS;
+      V a = o == top_op ? ct[t] : V(0);
+      for (int c = cons_ptr[o]; c < cons_ptr[o + 1]; ++c)
+        a = a + edge[at(cons[c], T, t)];
+      const int kind = op[0];
+      if (kind == SPILL) {
+        edge[at(op[2], T, t)] = a;
+      } else if (kind != FILL) {  // FILL: a constant; its adjoint drops
+        const BackReads<V> x{args, staged, house, rows, stride,
+                             SMEM_LOG ? tl : t, T, t};
+        const EdgeCtx<V> ctx{x, args, edge, T, t};
+        backward_gate(op, a, ctx);
+      }
+    }
+    __syncthreads();
+  }
+  for (int item = threadIdx.x; item < n_basic * nt; item += blockDim.x) {
+    const int r = item / nt;
+    const long long t = t0 + item % nt;
+    V g = V(0);
+    for (int c = stage_ptr[r]; c < stage_ptr[r + 1]; ++c)
+      g = g + edge[at(stage_cons[c], T, t)];
+    grad[at(r, T, t)] = g;
   }
 }
 
+constexpr int LEVEL_THREADS = 256;
+
 template <typename V>
-int launch_backward(const int* ops, const int* args, int n_ops,
-                    const V* staged, const V* house, const V* log, const V* ct,
-                    V* adj, V* grad, long long T, int top_slot, void* stream) {
-  const int threads = 128;
-  const long long blocks = (T + threads - 1) / threads;
-  stream_backward_kernel<V><<<(unsigned)blocks, threads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      ops, args, n_ops, staged, house, log, ct, adj, grad, T, top_slot);
+int launch_level_backward(const int* ops, const int* args, const int* order,
+                          const int* level_ptr, int n_levels,
+                          const int* cons_ptr, const int* cons,
+                          const int* stage_ptr, const int* stage_cons,
+                          int n_basic, const V* staged, const V* house,
+                          const V* log, const V* ct, V* edge, V* grad,
+                          long long T, int tile, int n_log, int top_op,
+                          int smem_log, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long blocks = (T + tile - 1) / tile;
+  if (smem_log) {
+    const size_t smem = (size_t)n_log * tile * sizeof(V);
+    auto kernel = stream_level_backward_kernel<V, true>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(unsigned)blocks, LEVEL_THREADS, smem, s>>>(
+        ops, args, order, level_ptr, n_levels, cons_ptr, cons, stage_ptr,
+        stage_cons, n_basic, staged, house, log, ct, edge, grad, T, tile,
+        n_log, top_op);
+  } else {
+    stream_level_backward_kernel<V, false>
+        <<<(unsigned)blocks, LEVEL_THREADS, 0, s>>>(
+            ops, args, order, level_ptr, n_levels, cons_ptr, cons,
+            stage_ptr, stage_cons, n_basic, staged, house, log, ct, edge,
+            grad, T, tile, n_log, top_op);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -105,23 +134,32 @@ int launch_backward(const int* ops, const int* args, int n_ops,
 
 extern "C" {
 
-// grad (n_basic, T) and adj (pool_slots, T) must arrive zeroed.
-int canopy_stream_backward_f32(const int* ops, const int* args, int n_ops,
-                               const float* staged, const float* house,
-                               const float* log, const float* ct, float* adj,
-                               float* grad, long long T, int top_slot,
-                               void* stream) {
-  return launch_backward<float>(ops, args, n_ops, staged, house, log, ct, adj,
-                                grad, T, top_slot, stream);
+// grad (n_basic, T), edge (n_args, T) scratch (need not be zeroed);
+// order/level_ptr/cons_ptr/cons/stage_ptr/stage_cons from level_schedule.
+int canopy_stream_level_backward_f32(
+    const int* ops, const int* args, const int* order, const int* level_ptr,
+    int n_levels, const int* cons_ptr, const int* cons, const int* stage_ptr,
+    const int* stage_cons, int n_basic, const float* staged,
+    const float* house, const float* log, const float* ct, float* edge,
+    float* grad, long long T, int tile, int n_log, int top_op, int smem_log,
+    void* stream) {
+  return launch_level_backward<float>(
+      ops, args, order, level_ptr, n_levels, cons_ptr, cons, stage_ptr,
+      stage_cons, n_basic, staged, house, log, ct, edge, grad, T, tile,
+      n_log, top_op, smem_log, stream);
 }
 
-int canopy_stream_backward_f64(const int* ops, const int* args, int n_ops,
-                               const double* staged, const double* house,
-                               const double* log, const double* ct,
-                               double* adj, double* grad, long long T,
-                               int top_slot, void* stream) {
-  return launch_backward<double>(ops, args, n_ops, staged, house, log, ct,
-                                 adj, grad, T, top_slot, stream);
+int canopy_stream_level_backward_f64(
+    const int* ops, const int* args, const int* order, const int* level_ptr,
+    int n_levels, const int* cons_ptr, const int* cons, const int* stage_ptr,
+    const int* stage_cons, int n_basic, const double* staged,
+    const double* house, const double* log, const double* ct, double* edge,
+    double* grad, long long T, int tile, int n_log, int top_op, int smem_log,
+    void* stream) {
+  return launch_level_backward<double>(
+      ops, args, order, level_ptr, n_levels, cons_ptr, cons, stage_ptr,
+      stage_cons, n_basic, staged, house, log, ct, edge, grad, T, tile,
+      n_log, top_op, smem_log, stream);
 }
 
 }  // extern "C"

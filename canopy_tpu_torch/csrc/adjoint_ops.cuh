@@ -69,8 +69,13 @@ __device__ __forceinline__ void backward_gate(const int* op, V a, const C& c) {
     c.accum(b, (V(1) - V(2) * x1) * ae, true);
     c.accum(b + 1, (V(1) - V(2) * x0) * ae, true);
   } else if (kind == COUNT) {
-    // Leave-one-out Poisson-binomial DP, states growing up to cap + 1.
-    const int lo_n = op[4], hi_n = op[5], cap = hi_n + 1;
+    // Leave-one-out Poisson-binomial DP over the other n - 1 arguments,
+    // states growing up to cap + 1.  The partial is P(c in [lo - 1,
+    // hi - 1]) - P(c in [lo, hi]); for an upper-open window (hi >= n) it
+    // is P(c = lo - 1), which the DP absorbing at lo holds exactly.
+    const int lo_n = op[4], hi_n = op[5], n = e - b;
+    const bool open = hi_n >= n;
+    const int cap = count_cap(lo_n, hi_n, n);
     for (int s = b; s < e; ++s) {
       V dp[MAX_COUNT_STATES];
       int len = 1;
@@ -92,8 +97,9 @@ __device__ __forceinline__ void backward_gate(const int* op, V a, const C& c) {
           dp[len - 1] = dp[len - 1] + last * v;
         }
       }
-      const V part = dp_mass(dp, len, lo_n - 1, hi_n - 1) -
-                     dp_mass(dp, len, lo_n, hi_n);
+      const V part = open ? dp_mass(dp, len, lo_n - 1, lo_n - 1)
+                          : dp_mass(dp, len, lo_n - 1, hi_n - 1) -
+                                dp_mass(dp, len, lo_n, hi_n);
       c.accum(s, part * a, true);
     }
   }

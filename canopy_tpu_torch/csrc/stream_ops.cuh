@@ -10,9 +10,14 @@
 //   fill (n_ops,):          the constant of a FILL op
 //
 // aux0 is the inv/iff flag of PROD/PAIR, aux0/aux1 the count window
-// [lo, hi] of COUNT.  A SPILL op copies its one staged argument into its
-// out_slot.  Values are f32 tiles of one trial per thread; every buffer is
-// (rows, n_trials) with trials contiguous so each row read is coalesced.
+// [lo, hi] of COUNT over its n = arg_end - arg_begin arguments, as the
+// encoders' count_window leaves it: hi >= n marks an upper-open window
+// (count >= lo: lo + 1 DP states, absorbing at lo), hi < n a bounded one
+// (hi + 2 states, absorbing at hi + 1); a window cheaper to count over the
+// complemented arguments arrives with their complement flags flipped.  A
+// SPILL op copies its one staged argument into its out_slot.  Every
+// buffer is (rows, n_trials) with trials contiguous so each row read is
+// coalesced.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,8 +33,13 @@ enum Src { POOL = 0, STAGED = 1, HOUSE = 2, LOG = 3 };
 
 constexpr int OP_COLS = 7;
 constexpr int ARG_COLS = 5;
-// Per-thread count-DP states: a COUNT gate needs hi + 2 of them.
+// Per-thread count-DP states (lo + 1 or hi + 2 of them, see above).
 constexpr int MAX_COUNT_STATES = 128;
+
+// The absorbing state of a count window [lo, hi] over n arguments.
+__device__ __forceinline__ int count_cap(int lo, int hi, int n) {
+  return hi >= n ? lo : hi + 1;
+}
 
 // Row `row` of a (rows, T) buffer, element of trial t.
 __device__ __forceinline__ long long at(int row, long long T, long long t) {
@@ -75,10 +85,100 @@ __device__ __forceinline__ V load_arg(const int* __restrict__ arg,
   return arg[2] ? V(1) - v : v;
 }
 
-// The value of op `o` for trial t: the one body of the op arithmetic that
-// the stream and fused kernels share (fused programs hold no FILL or
-// SPILL op and pass no fill column).  With --fmad=false it rounds as the
-// plain PyTorch versions do.
+// Forward reads of a stream, fused, replay or spill kernel: argument j
+// of the op table from the pool, the staged input or a house constant.
+template <typename V, typename Pool>
+struct ArgLoader {
+  const int* __restrict__ args;
+  const V* __restrict__ staged;
+  const V* __restrict__ house;
+  const Pool& pool;
+  long long T, t;
+  __device__ __forceinline__ V operator()(int j) const {
+    return load_arg(args + j * ARG_COLS, staged, house, pool, T, t);
+  }
+};
+
+// Reads of the level-parallel kernels: argument j by its backward source
+// (columns 3-4: the log row of the op that wrote it, its staged row or
+// its house constant), complement applied.  Log row r of the trial sits
+// at log[r * stride + col].
+template <typename V>
+struct BackReads {
+  const int* __restrict__ args;
+  const V* __restrict__ staged;
+  const V* __restrict__ house;
+  const V* log;
+  long long stride, col;
+  long long T, t;
+  __device__ __forceinline__ V operator()(int j) const {
+    const int* a = args + j * ARG_COLS;
+    const int src = a[3], idx = a[4];
+    V v;
+    if (src == LOG) {
+      v = log[(long long)idx * stride + col];
+    } else if (src == STAGED) {
+      v = staged[at(idx, T, t)];
+    } else {
+      v = house[idx];
+    }
+    return a[2] ? V(1) - v : v;
+  }
+};
+
+// The value of one op, its arguments read through x(j) (the argument
+// table row j, complement applied): the one body of the op arithmetic
+// that every forward kernel shares.  With --fmad=false it rounds as the
+// plain PyTorch versions do.  A SPILL op's one argument is its staged
+// row, so x(b) is the value it copies.
+template <typename V, typename X>
+__device__ __forceinline__ V eval_op_with(const int* __restrict__ op,
+                                          V fill_value, const X& x) {
+  const int kind = op[0], b = op[2], e = op[3];
+  V v;
+  if (kind == MUX) {
+    const V p = x(b), hi = x(b + 1), lo = x(b + 2);
+    v = p * hi + (V(1) - p) * lo;
+  } else if (kind == PROD) {
+    v = x(b);
+    for (int j = b + 1; j < e; ++j) v = v * x(j);
+    if (op[4]) v = V(1) - v;
+  } else if (kind == PAIR) {
+    const V a = x(b), c = x(b + 1);
+    v = a + c - V(2) * a * c;
+    if (op[4]) v = V(1) - v;
+  } else if (kind == COUNT) {
+    // Poisson-binomial DP with the absorbing state `cap` (">= cap").
+    const int lo = op[4], hi = op[5], n = e - b;
+    const int cap = count_cap(lo, hi, n);
+    V dp[MAX_COUNT_STATES];
+    dp[0] = V(1);
+    for (int k = 1; k <= cap; ++k) dp[k] = V(0);
+    for (int j = b; j < e && cap >= 1; ++j) {
+      const V xj = x(j);
+      dp[cap] = dp[cap] + dp[cap - 1] * xj;
+      for (int k = cap - 1; k >= 1; --k)
+        dp[k] = dp[k] * (V(1) - xj) + dp[k - 1] * xj;
+      dp[0] = dp[0] * (V(1) - xj);
+    }
+    if (hi >= n) {
+      v = dp[lo];
+    } else {
+      v = V(0);
+      if (lo <= hi) {
+        v = dp[lo];
+        for (int k = lo + 1; k <= hi; ++k) v = v + dp[k];
+      }
+    }
+  } else if (kind == FILL) {
+    v = V(fill_value);
+  } else {  // SPILL: a long-lived staged basic moves into the pool.
+    v = x(b);
+  }
+  return v;
+}
+
+// eval_op_with reading the op table's forward sources for trial t.
 template <typename V, typename Pool>
 __device__ __forceinline__ V eval_op(const int* __restrict__ op, int o,
                                      const float* __restrict__ fill,
@@ -87,45 +187,8 @@ __device__ __forceinline__ V eval_op(const int* __restrict__ op, int o,
                                      const V* __restrict__ house,
                                      const Pool& pool, long long T,
                                      long long t) {
-#define ARG(j) load_arg(args + (j) * ARG_COLS, staged, house, pool, T, t)
-  const int kind = op[0], b = op[2], e = op[3];
-  V v;
-  if (kind == MUX) {
-    const V p = ARG(b), hi = ARG(b + 1), lo = ARG(b + 2);
-    v = p * hi + (V(1) - p) * lo;
-  } else if (kind == PROD) {
-    v = ARG(b);
-    for (int j = b + 1; j < e; ++j) v = v * ARG(j);
-    if (op[4]) v = V(1) - v;
-  } else if (kind == PAIR) {
-    const V a = ARG(b), c = ARG(b + 1);
-    v = a + c - V(2) * a * c;
-    if (op[4]) v = V(1) - v;
-  } else if (kind == COUNT) {
-    // Poisson-binomial DP with the absorbing state `cap` (">= cap").
-    const int lo = op[4], hi = op[5], cap = hi + 1;
-    V dp[MAX_COUNT_STATES];
-    dp[0] = V(1);
-    for (int k = 1; k <= cap; ++k) dp[k] = V(0);
-    for (int j = b; j < e; ++j) {
-      const V x = ARG(j);
-      dp[cap] = dp[cap] + dp[cap - 1] * x;
-      for (int k = cap - 1; k >= 1; --k)
-        dp[k] = dp[k] * (V(1) - x) + dp[k - 1] * x;
-      dp[0] = dp[0] * (V(1) - x);
-    }
-    v = V(0);
-    if (lo <= hi) {
-      v = dp[lo];
-      for (int k = lo + 1; k <= hi; ++k) v = v + dp[k];
-    }
-  } else if (kind == FILL) {
-    v = V(fill[o]);
-  } else {  // SPILL: a long-lived staged basic moves into the pool.
-    v = staged[at(args[b * ARG_COLS + 1], T, t)];
-  }
-  return v;
-#undef ARG
+  const ArgLoader<V, Pool> x{args, staged, house, pool, T, t};
+  return eval_op_with(op, fill != nullptr ? V(fill[o]) : V(0), x);
 }
 
 }  // namespace canopy

@@ -84,11 +84,9 @@ def _stream_call(bdd: CompiledBdd, differentiable: bool,
     The encoded program is cached on the BDD, so importance (f64,
     differentiable) and uncertainty (f32) schedule and encode it once."""
     from ..ops.adjoint_kernel import make_differentiable_stream
-    from ..ops.stream_kernel import (compile_bdd_stream, encode_stream,
-                                     stage_basic, stream_bdd_probability)
-    enc = getattr(bdd, "_stream_encoding", None)
-    if enc is None:
-        enc = bdd._stream_encoding = encode_stream(compile_bdd_stream(bdd))
+    from ..ops.stream_kernel import (bdd_stream_encoding, stage_basic,
+                                     stream_bdd_probability)
+    enc = bdd_stream_encoding(bdd)
     if not differentiable:
         return lambda values: stream_bdd_probability(enc, values, dtype)
     f = make_differentiable_stream(enc, np.zeros(0, np.float32))

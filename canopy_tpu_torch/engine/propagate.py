@@ -178,7 +178,8 @@ def top_event_probability(tree: CompiledTree, basic_p: torch.Tensor,
 #: The JAX package's thrashing guard for the spill tier under its TPU auto
 #: dispatch: a schedule refilling more than this share of its ops trails
 #: gather there.  Kept as the same logic; the port's auto dispatch never
-#: picks spill (the uncapped stream refuses no anchored tree).
+#: picks spill (the uncapped stream runs every anchored tree whose count
+#: windows fit, ``_auto_engine``).
 _SPILL_MAX_REFILL_DENSITY = 0.15
 
 
@@ -199,17 +200,25 @@ def _build_house(tree: CompiledTree,
 def _auto_engine(tree: CompiledTree, device: torch.device,
                  output: str) -> str:
     """The engine ``engine="auto"`` runs: on CUDA with an anchored top the
-    uncapped tree stream, which refuses no such tree and measured 7-10x
-    faster on the card than the fused kernels on the trees they fit
-    (``PERF.md``); gather on the CPU, for ``output="all"`` and for a tree
-    without an anchored top."""
+    uncapped tree stream, which measured 7-10x faster on the card than
+    the fused kernels on the trees they fit (``PERF.md``); gather on the
+    CPU, for ``output="all"`` and for a tree without an anchored top.
+    The stream refuses one anchored tree: a count gate whose window no
+    kernel DP form fits (``ops/stream_kernel.count_window``: a bounded
+    window whose ``hi`` and ``n - lo`` both exceed 126), with
+    ``LogicError`` when the propagator is built."""
     if device.type != "cuda" or output != "top" or tree.top_index is None:
         return "gather"
     return "stream"
 
 
-def _named(fn, engine: str):
+def _named(fn, engine: str, variant: str | None = None):
+    """Tag ``fn`` with the engine that runs; a stream engine also carries
+    ``stream_variant``, the forward kernel it launches
+    (``ops/stream_kernel.stream_variant``)."""
     fn.engine = engine
+    if variant is not None:
+        fn.stream_variant = variant
     return fn
 
 
@@ -268,7 +277,7 @@ def make_propagator(tree: CompiledTree, device, output: str = "top",
                                      compile_spill_stream, encode_replay,
                                      encode_spill, replay_propagate,
                                      spill_propagate, stream_propagate,
-                                     tree_stream_encoding)
+                                     stream_variant, tree_stream_encoding)
     device = torch.device(device)
     if engine not in ("auto", "gather", "fused", "stream", "replay",
                       "spill", "block"):
@@ -283,8 +292,10 @@ def make_propagator(tree: CompiledTree, device, output: str = "top",
         if output != "top":
             raise ValueError(f"the {engine} engine only produces the top "
                              f"value")
+        variant = None
         if engine == "stream":
             enc = tree_stream_encoding(tree)
+            variant = stream_variant(enc)
 
             def run(basic_p):
                 return stream_propagate(enc, basic_p, house)
@@ -319,7 +330,7 @@ def make_propagator(tree: CompiledTree, device, output: str = "top",
                     f"the {engine} engine bakes house states at build "
                     f"time; pass them to make_propagator(house_states=...)")
             return run(basic_p)
-        return _named(fn, engine)
+        return _named(fn, engine, variant)
 
     baked = torch.as_tensor(house, device=device)
     if output == "top":
@@ -359,7 +370,7 @@ def make_staged_propagator(tree: CompiledTree, device,
     from ..ops.stream_kernel import (compile_replay_stream, encode_replay,
                                      replay_propagate_staged, stage_basic,
                                      stage_replay, stream_propagate_staged,
-                                     tree_stream_encoding)
+                                     stream_variant, tree_stream_encoding)
     device = torch.device(device)
     house = _build_house(tree, house_states)
     if engine == "replay":
@@ -381,7 +392,7 @@ def make_staged_propagator(tree: CompiledTree, device,
 
         def run(staged):
             return stream_propagate_staged(enc, staged, house)
-        return stage, _named(run, "stream")
+        return stage, _named(run, "stream", stream_variant(enc))
     gather = make_propagator(tree, device, "top", "gather", house)
 
     def run_gather(basic_p):

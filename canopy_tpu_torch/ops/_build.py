@@ -109,11 +109,20 @@ def load_library() -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for suffix in ("f32", "f64"):
         fwd = getattr(lib, f"canopy_stream_forward_{suffix}")
-        fwd.argtypes = [vp, vp, vp, i32, vp, vp, vp, vp, vp, i64, i32, vp]
+        fwd.argtypes = [vp, vp, i32, vp, vp, vp, vp, vp, vp, i64, vp, i64,
+                        i32, vp]
         fwd.restype = i32
-        bwd = getattr(lib, f"canopy_stream_backward_{suffix}")
-        bwd.argtypes = [vp, vp, i32, vp, vp, vp, vp, vp, vp, i64, i32, vp]
-        bwd.restype = i32
+        fwd = getattr(lib, f"canopy_stream_ops_forward_{suffix}")
+        fwd.argtypes = [vp, vp, vp, i32, vp, vp, vp, vp, i64, i32, vp]
+        fwd.restype = i32
+        lvl = getattr(lib, f"canopy_stream_level_forward_{suffix}")
+        lvl.argtypes = [vp, vp, vp, vp, vp, i32, vp, vp, vp, vp, i64, i32,
+                        i32, i32, i32, i32, vp]
+        lvl.restype = i32
+        lvl = getattr(lib, f"canopy_stream_level_backward_{suffix}")
+        lvl.argtypes = [vp, vp, vp, vp, i32, vp, vp, vp, vp, i32, vp, vp,
+                        vp, vp, vp, vp, i64, i32, i32, i32, i32, vp]
+        lvl.restype = i32
         fwd = getattr(lib, f"canopy_replay_forward_{suffix}")
         fwd.argtypes = [vp, vp, i32, vp, vp, vp, vp, i64, i32, i32, i32, i32,
                         vp]
@@ -145,6 +154,7 @@ def load_library() -> ctypes.CDLL:
     lib.canopy_cuda_error_string.argtypes = [i32]
     lib.canopy_cuda_error_string.restype = ctypes.c_char_p
     lib.canopy_max_count_states.restype = i32
+    lib.canopy_stream_rec_chunk.restype = i32
     _lib = lib
     return _lib
 

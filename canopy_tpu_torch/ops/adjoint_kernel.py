@@ -1,19 +1,21 @@
-"""Reverse mode of a stream program: CUDA adjoint kernel and plain version.
+"""Reverse mode of a stream program: CUDA adjoint kernels and plain version.
 
 Replaces ``canopy_tpu/ops/adjoint_kernel.py``: ``_tape_kernel`` becomes
 the forward kernel with its value log on (``csrc/stream.cu``, one row per
 gate output instead of the TPU's argument tape of about three rows per
-gate), and ``_adjoint_kernel`` becomes ``csrc/adjoint.cu``, which walks
-the encoded ops in reverse with an adjoint pool in device memory and
-accumulates staged arguments straight into the gradient.  The TPU's tape
-ring, slab flushes and adjoint schedule (``compiler/adjoint.py``) existed
-to fit VMEM and DMA; the value-log design needs none of them.
+gate), and ``_adjoint_kernel`` becomes ``csrc/adjoint.cu``.  The TPU's
+tape ring, slab flushes and adjoint schedule (``compiler/adjoint.py``)
+existed to fit VMEM and DMA; the value-log design needs none of them.
 
-What bounds the backward on the card: device-memory traffic of log,
-adjoint-pool and gradient rows (see ``csrc/adjoint.cu``).  The per-gate
-partials are those of ``_bgate_accumulate``: mux ``(hi - lo) a, p a,
-(1 - p) a``; pair; the zero-safe leave-one-out product; the leave-one-out
-count DP.
+The adjoint kernel is level-parallel, in gather form: a block's threads
+share each level's ops (``stream_kernel.level_schedule``), like the
+logged forward's.  It is bit-equal to :func:`stream_backward_plain`, the
+sequential reverse walk: each value's consumer partials are folded in
+the order in which that walk accumulates them
+(:func:`stream_backward_levels_plain` shows it in plain torch).
+The per-gate partials are those of ``_bgate_accumulate``: mux ``(hi -
+lo) a, p a, (1 - p) a``; pair; the zero-safe leave-one-out product; the
+leave-one-out count DP.
 
 :func:`make_differentiable_stream` wraps both kernels as a
 ``torch.autograd.Function``: the forward runs the logging kernel only
@@ -25,13 +27,14 @@ from __future__ import annotations
 import torch
 
 from ..errors import LogicError
-from .stream_kernel import (COUNT, LAUNCHES, LOG, MUX, PAIR, POOL,
-                            PROD, SPILL, STAGED, _SUFFIX, EncodedStream,
-                            _check_cuda, _check_staged, _raise_on,
-                            house_tensor, stream_forward)
+from .stream_kernel import (COUNT, FILL, LAUNCHES, LOG, MUX, PAIR, POOL,
+                            PROD, SMEM_BYTES, SPILL, STAGED, _SUFFIX,
+                            EncodedStream, _check_cuda, _check_staged,
+                            _raise_on, house_tensor, level_schedule,
+                            level_tile, stream_forward)
 
 __all__ = ["stream_backward", "stream_backward_plain",
-           "make_differentiable_stream"]
+           "stream_backward_levels_plain", "make_differentiable_stream"]
 
 
 def _plain_backward_gate(op, a, args, x, accum, zeros) -> None:
@@ -78,7 +81,8 @@ def _plain_backward_gate(op, a, args, x, accum, zeros) -> None:
         accum(args[b], (1.0 - 2.0 * x1) * ae)
         accum(args[b + 1], (1.0 - 2.0 * x0) * ae)
     elif kind == COUNT:
-        cap = aux1 + 1
+        is_open = aux1 >= e - b      # upper-open: absorb at lo
+        cap = aux0 if is_open else aux1 + 1
         xs = [x(args[j]) for j in range(b, e)]
         for s in range(e - b):
             dp = [torch.ones_like(zeros)]
@@ -102,7 +106,8 @@ def _plain_backward_gate(op, a, args, x, accum, zeros) -> None:
                 for k in range(lo + 1, hi + 1):
                     acc = acc + dp[k]
                 return acc
-            part = mass(aux0 - 1, aux1 - 1) - mass(aux0, aux1)
+            part = mass(aux0 - 1, aux0 - 1) if is_open else \
+                mass(aux0 - 1, aux1 - 1) - mass(aux0, aux1)
             accum(args[b + s], part * a)
     # FILL: a constant; its adjoint is dropped.
 
@@ -148,11 +153,62 @@ def stream_backward_plain(enc: EncodedStream, staged: torch.Tensor,
     return torch.stack(grad) if grad else staged.new_zeros((0, T))
 
 
+def stream_backward_levels_plain(enc: EncodedStream, staged: torch.Tensor,
+                                 house: torch.Tensor, log: torch.Tensor,
+                                 ct: torch.Tensor) -> torch.Tensor:
+    """The level-parallel adjoint in plain torch (gather form): levels in
+    reverse; each op's adjoint the left fold, from 0 (the top op: from
+    ``ct``), of its consumers' edge partials in the schedule's order; its
+    own partials written to one edge slot per argument row; each staged
+    row's gradient the fold of its readers' slots.  Bit-equal to
+    :func:`stream_backward_plain`; returns ``(n_basic, n_trials)``."""
+    sched = level_schedule(enc)
+    ops, args, _fill = enc.plain_ops()
+    rows = [[*row, j] for j, row in enumerate(args)]   # row[5]: its edge
+    T = staged.shape[1]
+    zeros = torch.zeros(T, dtype=staged.dtype, device=staged.device)
+    edge: list = [None] * len(rows)
+
+    def x(a):
+        src, idx = a[3], a[4]
+        if src == LOG:
+            v = log[idx]
+        elif src == STAGED:
+            v = staged[idx]
+        else:
+            v = house[idx].expand(T)
+        return 1.0 - v if a[2] else v
+
+    def accum(a, g, flip=True):
+        edge[a[5]] = -g if flip and a[2] else g
+
+    cons, ptr = sched.cons.tolist(), sched.cons_ptr.tolist()
+    order, level_ptr = sched.order.tolist(), sched.level_ptr.tolist()
+    for lv in reversed(range(sched.n_levels)):
+        for o in order[level_ptr[lv]:level_ptr[lv + 1]]:
+            op = ops[o]
+            a = ct if o == sched.top_op else zeros
+            for c in cons[ptr[o]:ptr[o + 1]]:
+                a = a + edge[c]
+            if op[0] == SPILL:
+                edge[op[2]] = a
+            elif op[0] != FILL:
+                _plain_backward_gate(op, a, rows, x, accum, zeros)
+    scons, sptr = sched.stage_cons.tolist(), sched.stage_ptr.tolist()
+    grad = []
+    for r in range(enc.n_basic):
+        g = zeros
+        for c in scons[sptr[r]:sptr[r + 1]]:
+            g = g + edge[c]
+        grad.append(g)
+    return torch.stack(grad) if grad else staged.new_zeros((0, T))
+
+
 def stream_backward(enc: EncodedStream, staged: torch.Tensor, house,
                     log: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
     """Gradient ``(n_basic, n_trials)`` of the top values with cotangent
-    ``ct``.  CPU tensors run the plain version; CUDA tensors launch
-    ``csrc/adjoint.cu`` or raise."""
+    ``ct``.  CPU tensors run the plain version; CUDA tensors launch the
+    level-parallel gather form of ``csrc/adjoint.cu`` or raise."""
     _check_staged(enc, staged)
     device, dtype = staged.device, staged.dtype
     house_t = house_tensor(enc, house, device, dtype)
@@ -165,17 +221,25 @@ def stream_backward(enc: EncodedStream, staged: torch.Tensor, house,
     from ._build import load_library
     lib = load_library()
     staged, log, ct = staged.contiguous(), log.contiguous(), ct.contiguous()
-    _check_cuda(enc, dtype, staged, log, ct)
+    _check_cuda(dtype, staged, log, ct)
     ops, args, _fill = enc.tables(device)
-    adj = torch.zeros((enc.pool_slots, T), dtype=dtype, device=device)
-    grad = torch.zeros((enc.n_basic, T), dtype=dtype, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    sched = level_schedule(enc)
+    tables = sched.tables(device)
+    tile = level_tile(T)
+    smem_log = enc.n_log * tile * staged.element_size() <= SMEM_BYTES
+    edge = torch.empty((max(len(enc.args), 1), T), dtype=dtype,
+                       device=device)
+    grad = torch.empty((enc.n_basic, T), dtype=dtype, device=device)
     LAUNCHES["adjoint"] += 1
-    code = getattr(lib, f"canopy_stream_backward_{_SUFFIX[dtype]}")(
-        ops.data_ptr(), args.data_ptr(), enc.n_ops, staged.data_ptr(),
-        house_t.data_ptr(), log.data_ptr(), ct.data_ptr(), adj.data_ptr(),
-        grad.data_ptr(), T, enc.top_slot,
-        torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(lib, code, "stream backward")
+    code = getattr(lib, f"canopy_stream_level_backward_{_SUFFIX[dtype]}")(
+        ops.data_ptr(), args.data_ptr(),
+        *(t.data_ptr() for t in tables[:2]), sched.n_levels,
+        *(t.data_ptr() for t in tables[2:]), enc.n_basic,
+        staged.data_ptr(), house_t.data_ptr(), log.data_ptr(),
+        ct.data_ptr(), edge.data_ptr(), grad.data_ptr(), T, tile,
+        enc.n_log, sched.top_op, int(smem_log), stream)
+    _raise_on(lib, code, "stream level backward")
     return grad
 
 

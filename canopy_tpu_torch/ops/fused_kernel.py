@@ -48,7 +48,8 @@ from ..compiler.graph import CompiledTree
 from ..compiler.schedule import _emit_gate_ops
 from ..errors import LogicError
 from .stream_kernel import (HOUSE, LAUNCHES, POOL, SMEM_BYTES, STAGED,
-                            EncodedStream, _KIND, _check_cuda, _raise_on,
+                            EncodedStream, _KIND, _check_cuda, _count_row,
+                            _raise_on,
                             house_tensor, stream_forward_plain)
 
 __all__ = ["SMEM_BYTES", "TILED_TRIALS", "LANE_TRIALS", "fused_supported",
@@ -106,8 +107,10 @@ def encode_fused(tree: CompiledTree) -> EncodedStream:
             args.append([src, index, int(bool(flag)), src, index])
         aux0 = aux1 = 0
         if kind == "count":
-            aux0, aux1 = int(aux[0]), int(aux[1])
-            max_states = max(max_states, aux1 + 2)
+            aux0, aux1, states = _count_row(
+                aux, len(gate_args), repr(tree.gates[out - base].name), args,
+                begin)
+            max_states = max(max_states, states)
         else:
             aux0 = int(bool(aux))
         ops.append([_KIND[kind], out - base, begin, len(args), aux0, aux1,
@@ -161,7 +164,7 @@ def fused_forward(enc: EncodedStream, staged: torch.Tensor, house,
     from ._build import load_library
     lib = load_library()
     staged = staged.contiguous()
-    _check_cuda(enc, torch.float32, staged)
+    _check_cuda(torch.float32, staged)
     T = staged.shape[1]
     ops, args, _fill = enc.tables(device)
     top = torch.empty(T, dtype=torch.float32, device=device)

@@ -138,7 +138,7 @@ def replay_adjoint_backward(enc: EncodedReplay, staged: torch.Tensor, house,
     from ._build import load_library
     lib = load_library()
     staged, vlog, ct = staged.contiguous(), vlog.contiguous(), ct.contiguous()
-    _check_cuda(enc, dtype, staged, vlog, ct)
+    _check_cuda(dtype, staged, vlog, ct)
     width = _replay_block_trials(enc.pool_slots, dtype)
     ops, args, _fill = enc.tables(device)
     adjlog = torch.zeros((max(enc.n_evicted, 1), T), dtype=dtype,

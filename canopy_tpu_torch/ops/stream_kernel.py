@@ -11,11 +11,16 @@ plain PyTorch version of the same arithmetic in the same op order.
 
 Replaces ``canopy_tpu/ops/stream_kernel.py:_stream_kernel`` (and, with the
 value log, ``canopy_tpu/ops/adjoint_kernel.py:_tape_kernel``).  The TPU
-kernel streamed (8, 128) trial tiles through VMEM with staging-chunk DMAs;
-on the H100 one thread runs one trial, the pool is a (pool_slots,
-n_trials) scratch in device memory with trials contiguous (coalesced
-rows), and any trial count works.  What bounds the kernel there is the
-pool's device-memory traffic (see the note in ``csrc/stream.cu``).
+kernel streamed (8, 128) trial tiles through VMEM with staging-chunk DMAs.
+On the H100 (``csrc/stream.cu``) the forward runs trial-parallel, the
+pool in device memory: programs of muxes (BDD programs) run the step
+kernel, ops as packed records (:func:`pack_records`) in steps of
+independent muxes, two float32 trials per thread; other programs the
+one-trial-per-thread kernel (:func:`stream_variant` picks;
+``make_propagator``'s ``stream_variant`` attribute names it).  With the
+value log (importance) it runs level-parallel instead: the ops of each
+level of :func:`level_schedule` in parallel within a trial.  Any trial
+count works.
 
 Layouts.  The staged input is ``(n_basic, n_trials)`` in the program's
 staging order (row = staging position), the transpose of the JAX
@@ -58,7 +63,8 @@ from ..compiler.schedule import StreamProgram, build_stream_schedule
 from ..errors import LogicError
 
 __all__ = ["compile_stream", "compile_bdd_stream", "compile_tree_stream",
-           "tree_stream_encoding", "EncodedStream",
+           "tree_stream_encoding", "bdd_stream_encoding", "BDD_BATCH",
+           "EncodedStream",
            "encode_stream", "stage_basic", "unstage_basic",
            "stream_forward", "stream_forward_plain", "stream_propagate",
            "stream_propagate_staged", "stream_bdd_probability", "house_tensor",
@@ -69,7 +75,9 @@ __all__ = ["compile_stream", "compile_bdd_stream", "compile_tree_stream",
            "replay_propagate_staged", "compile_spill_stream", "EncodedSpill",
            "encode_spill", "spill_forward", "spill_forward_plain",
            "spill_propagate", "spill_propagate_staged", "LAUNCHES",
-           "reset_launches"]
+           "VARIANTS", "reset_launches", "count_window", "check_count_gates",
+           "REC_CHUNK", "pack_records", "stream_variant", "LevelSchedule",
+           "level_schedule", "level_tile", "stream_forward_levels_plain"]
 
 # Op kinds and argument sources (csrc/stream_ops.cuh); EVICT and REFILL
 # occur in replay programs only.
@@ -78,9 +86,14 @@ POOL, STAGED, HOUSE, LOG = range(4)
 _KIND = {"prod": PROD, "pair": PAIR, "count": COUNT, "mux": MUX,
          "fill": FILL}
 _SRC = {"pool": POOL, "stage": STAGED, "house": HOUSE}
-#: Per-thread count-DP states in the kernels (a count gate needs hi + 2;
-#: the top of ``aralia_like_nested_count``, at least 32 of 86, needs 88).
+#: Per-thread count-DP states in the kernels: :func:`count_window`'s form
+#: of a gate's window must fit (the top of ``aralia_like_nested_count``,
+#: at least 32 of 86, needs 33).
 MAX_COUNT_STATES = 128
+
+#: Launches of the stream forward by variant (``stream:steps``,
+#: ``stream:ops``; :func:`stream_variant`), so the choice is not silent.
+VARIANTS: dict = {}
 
 #: Kernel launches by kernel name: ``stream`` (forward), ``stream_log``
 #: (forward with the value log), ``adjoint`` (backward), the fused
@@ -98,6 +111,21 @@ LAUNCHES = {"stream": 0, "stream_log": 0, "adjoint": 0, "fused_tiled": 0,
 
 #: Shared memory one block may use on an H100 (227 KB, opt-in above 48 KB).
 SMEM_BYTES = 232_448
+#: Records per chunk of the stream kernel's shared-memory record ring
+#: (``csrc/stream.cu``).
+REC_CHUNK = 128
+#: Record kinds (``csrc/stream.cu``): padding, a mux over a staged decision
+#: variable and two pool rows (every BDD op), any other op of the table.
+R_NOP, R_MUX, R_OP = range(3)
+#: Trials per thread of the step kernel by value type (``csrc/stream.cu``
+#: kTrials): 2 in float32, the fastest of K = 1, 2, 4 on the BDD slice's
+#: module (``PERF.md``); 1 in float64.  Its blocks run 128 threads.
+_STEP_K = {torch.float32: 2, torch.float64: 1}
+#: Trials and pool rows below this bound (``csrc/stream.cu``'s 32-bit row
+#: offsets multiply out to 64 bits).
+_MAX_STEP_TRIALS = 1 << 31
+#: The most trials one level-parallel block takes.
+_LEVEL_TILE = 32
 #: The most pool plus resident slots a replay program may have: what one
 #: block of one warp (32 float32 trials) holds in shared memory.
 REPLAY_SLOTS = SMEM_BYTES // (32 * 4)
@@ -117,6 +145,67 @@ _NO_VMEM_BUDGET = 1 << 62
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    VARIANTS.clear()
+
+
+def count_window(lo: int, hi: int, n: int, gate: str
+                 ) -> tuple[int, int, bool, int]:
+    """The count-DP form of a window ``[lo, hi]`` over ``n`` arguments:
+    ``(lo, hi, complement, states)``, the one rule every encoder applies.
+
+    A window with ``hi >= n`` is upper-open, P(count >= lo): ``lo + 1``
+    states absorbing at ``lo`` (returned with ``hi = n``).  A bounded one
+    needs ``hi + 2``.  Counting the false arguments instead turns
+    ``[lo, hi]`` into ``[n - hi, n - lo]``; the cheaper of the two forms
+    wins (``complement`` then asks the encoder to flip every argument's
+    complement flag).  An empty window becomes ``[1, 0]`` (value 0, two
+    states).  A form beyond :data:`MAX_COUNT_STATES` raises
+    ``LogicError`` naming ``gate``: a bounded window whose ``hi`` and
+    ``n - lo`` both exceed 126.
+    """
+    lo, hi, n = max(int(lo), 0), int(hi), int(n)
+    if lo > min(hi, n):
+        return 1, 0, False, 2
+
+    def form(a: int, b: int) -> tuple[int, int]:
+        return (a, n, a + 1) if b >= n else (a, b, b + 2)
+    direct = form(lo, hi)
+    comp = form(max(n - hi, 0), n - lo)
+    flip = comp[2] < direct[2]
+    w_lo, w_hi, states = comp if flip else direct
+    if states > MAX_COUNT_STATES:
+        raise LogicError(
+            f"count gate {gate}: window [{lo}, {hi}] over {n} arguments "
+            f"needs {states} DP states (counting the complements too); "
+            f"the kernels hold at most {MAX_COUNT_STATES} per thread")
+    return w_lo, w_hi, flip, states
+
+
+def _count_row(aux, n_args: int, gate: str, args: list, begin: int):
+    """``(aux0, aux1, states)`` of a count op whose arguments are rows
+    ``begin:`` of ``args`` (flags flipped in place for the complement
+    form)."""
+    lo, hi, flip, states = count_window(aux[0], aux[1], n_args, gate)
+    if flip:
+        for row in args[begin:begin + n_args]:
+            row[2] ^= 1
+    return lo, hi, states
+
+
+def check_count_gates(tree: CompiledTree) -> None:
+    """Raise ``LogicError`` naming the first count gate of ``tree`` whose
+    window no kernel form fits (:func:`count_window`), before any
+    program is built."""
+    base = tree.n_basic + tree.n_house
+    for level in tree.levels:
+        for kind, block in level.iter_blocks():
+            if kind != "count":
+                continue
+            for g in range(block.n_gates):
+                n_args = int(block.arg_mask[g].sum())
+                gate = tree.gates[int(block.out_idx[g]) - base]
+                count_window(block.min_num[g], block.max_num[g], n_args,
+                             repr(gate.name))
 
 
 def compile_stream(tree: CompiledTree, chunk_tiles: int = 256,
@@ -183,16 +272,48 @@ def _uncapped_program(exec_rows, n_b: int, n_h: int,
         nnz=sum(len(r[2]) for r in exec_rows), n_house=n_h)
 
 
-def compile_bdd_stream(bdd) -> StreamProgram:
+def _batched_rows(rows: list, width: int) -> list:
+    """``rows`` (exec rows in a valid order) rescheduled into steps of up
+    to ``width`` mutually independent rows: list scheduling that fills
+    each step with the ready rows of lowest original index, so the order
+    stays close to the original (on the BDD slice's module the pool stays
+    at 175 slots against 176 depth-first, with steps of 8 97 % full).
+    Every row keeps its own arithmetic, so values do not change."""
+    import heapq
+    out_of = {r[1]: i for i, r in enumerate(rows)}
+    waits = [0] * len(rows)
+    users: list = [[] for _ in rows]
+    for i, (_k, _out, args, _aux) in enumerate(rows):
+        deps = {out_of[slot] for slot, _f in args if slot in out_of}
+        waits[i] = len(deps)
+        for d in deps:
+            users[d].append(i)
+    ready = [i for i, w in enumerate(waits) if w == 0]
+    heapq.heapify(ready)
+    order: list = []
+    while ready:
+        step = [heapq.heappop(ready) for _ in range(min(width, len(ready)))]
+        order += step
+        for i in step:
+            for u in users[i]:
+                waits[u] -= 1
+                if waits[u] == 0:
+                    heapq.heappush(ready, u)
+    return [rows[i] for i in order]
+
+
+def compile_bdd_stream(bdd, batch: int = 1) -> StreamProgram:
     """Schedule exact ROBDD evaluation for the kernels: one fused mux per
     Shannon node, in the shared scheduler's depth-first order, so every
     op computes what the JAX package's stream computes.
 
-    The shared scheduler's caps (a 13 MiB VMEM pool, 400k unrolled edges)
-    belong to the TPU kernel.  Here the op table is data and the pool
-    lives in device memory, so none applies (:func:`_uncapped_program`).
-    Raises ``LogicError`` only for a constant BDD or one without raw node
-    arrays.
+    ``batch > 1`` reschedules that order into steps of up to ``batch``
+    independent muxes (:func:`_batched_rows`), the steps the stream
+    kernel loads whole before it stores; every node's value is unchanged,
+    bit for bit.  The shared scheduler's caps (a 13 MiB VMEM pool, 400k
+    unrolled edges) belong to the TPU kernel; here the op table is data,
+    so none applies (:func:`_uncapped_program`).  Raises ``LogicError``
+    only for a constant BDD or one without raw node arrays.
     """
     from ..compiler.schedule import _dfs_exec_rows
     if bdd.raw_var is None:
@@ -217,11 +338,30 @@ def compile_bdd_stream(bdd) -> StreamProgram:
                           (n_b + int(high_arr[n]), False),
                           (n_b + int(low_arr[n]), False)], None)
         for n in sorted(reach)]
-    program = _uncapped_program(_dfs_exec_rows(rows, n_b, 0, n_b + root),
-                                n_b, 0, n_b + root)
+    exec_rows = _dfs_exec_rows(rows, n_b, 0, n_b + root)
+    if batch > 1:
+        exec_rows = _batched_rows(exec_rows, batch)
+    program = _uncapped_program(exec_rows, n_b, 0, n_b + root)
     program.stage_cols = np.array([bdd.slot_of_var[v] for v in used_vars],
                                   dtype=np.int64)
     return program
+
+
+#: Muxes per step of the BDD programs the kernels run (the stream
+#: kernel's step at one trial per thread; two or four trials per thread
+#: take half or a quarter of each step).
+BDD_BATCH = 8
+
+
+def bdd_stream_encoding(bdd) -> "EncodedStream":
+    """The encoded :func:`compile_bdd_stream` program of ``bdd`` in steps
+    of ``BDD_BATCH``, cached on the BDD so importance (f64) and
+    uncertainty (f32) schedule and encode it once."""
+    enc = getattr(bdd, "_stream_encoding", None)
+    if enc is None:
+        enc = bdd._stream_encoding = encode_stream(
+            compile_bdd_stream(bdd, batch=BDD_BATCH))
+    return enc
 
 
 def compile_tree_stream(tree: CompiledTree) -> StreamProgram:
@@ -240,6 +380,7 @@ def compile_tree_stream(tree: CompiledTree) -> StreamProgram:
     from ..compiler.schedule import _dfs_exec_rows, _emit_gate_ops
     if tree.top_index is None:
         raise LogicError("stream schedule needs an anchored top event")
+    check_count_gates(tree)
     n_b, n_h = tree.n_basic, tree.n_house
     exec_rows = _dfs_exec_rows(_emit_gate_ops(tree), n_b, n_h,
                                tree.top_index)
@@ -268,7 +409,7 @@ class EncodedStream:
     n_house: int
     pool_slots: int
     top_slot: int
-    max_count_states: int  # largest count DP (hi + 2) in the program
+    max_count_states: int  # largest count DP (count_window) in the program
     staged_cols: np.ndarray  # (n_basic,) input column of each staged row
     _cache: dict = dataclasses.field(default_factory=dict,
                                             repr=False)
@@ -347,8 +488,10 @@ def encode_stream(program) -> EncodedStream:
         if kind in ("prod", "pair"):
             aux0 = int(bool(aux))
         elif kind == "count":
-            aux0, aux1 = int(aux[0]), int(aux[1])
-            max_states = max(max_states, aux1 + 2)
+            aux0, aux1, states = _count_row(
+                aux, len(locs), f"at op {len(ops)} (out slot {out_slot})",
+                args, begin)
+            max_states = max(max_states, states)
         elif kind == "fill":
             value = float(aux)
         ops.append([_KIND[kind], out_slot, begin, len(args), aux0, aux1,
@@ -440,16 +583,21 @@ def _plain_value(op, fill_value: float, args, load, staged: torch.Tensor):
         v = a + c - 2.0 * a * c
         return 1.0 - v if aux0 else v
     if kind == COUNT:
-        cap = aux1 + 1
+        # Absorbing at ``cap``: lo for an upper-open window (hi >= n, the
+        # value dp[lo]), else hi + 1 (count_window's forms).
+        is_open = aux1 >= e - b
+        cap = aux0 if is_open else aux1 + 1
         dp = [torch.ones(T, dtype=dtype, device=device)] + \
              [torch.zeros(T, dtype=dtype, device=device)] * cap
-        for j in range(b, e):
+        for j in range(b, e if cap >= 1 else b):
             x = load(args[j])
             new = [dp[0] * (1.0 - x)]
             for k in range(1, cap):
                 new.append(dp[k] * (1.0 - x) + dp[k - 1] * x)
             new.append(dp[cap] + dp[cap - 1] * x)
             dp = new
+        if is_open:
+            return dp[aux0]
         v = torch.zeros(T, dtype=dtype, device=device)
         if aux0 <= aux1:
             v = dp[aux0]
@@ -494,19 +642,241 @@ def stream_forward_plain(enc: EncodedStream, staged: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Kernel wrapper.
+# The trial-parallel kernel's records and shared-memory plan.
 # ---------------------------------------------------------------------------
 
-def _check_cuda(enc: EncodedStream, dtype, *tensors: torch.Tensor) -> None:
+def _step(dtype: torch.dtype) -> int:
+    """Records per step of the stream kernel (``csrc/stream.cu`` kStep):
+    8 mux chains in flight per thread."""
+    return 8 // _STEP_K[dtype]
+
+
+def pack_records(enc: EncodedStream, step: int) -> tuple:
+    """The op table as the stream kernel's records, in steps of ``step``
+    (cached): ``(records (n, 4) int32, rec_op (n,) int32)``, one int4 and
+    its op index (-1 for padding) per record, ``n`` whole chunks of
+    ``REC_CHUNK`` plus one chunk of NOPs.
+
+    A mux whose arguments are a staged row (p) and two pool slots (hi,
+    lo), none complemented — every op of a BDD program — packs whole:
+    ``(R_MUX << 24 | out, p row, hi slot, lo slot)``.  Consecutive such
+    muxes share a step while none reads a slot another of the step
+    writes (the kernel loads the whole step before it stores); a step is
+    padded with muxes into the scratch row ``pool_slots``.  Any other op
+    is ``(R_OP << 24 | out, 0, 0, 0)``, its step padded with NOPs, and
+    the kernel reads its row of the general table.
+    """
+    key = f"records:{step}"
+    if key in enc._cache:
+        return enc._cache[key]
+    ops, args = enc.ops, enc.args
+    if len(ops) and int(ops[:, 1].max()) >= (1 << 24) - 1:
+        raise LogicError("stream records hold pool slots below 2^24 - 1")
+    dummy = [(R_MUX << 24) | enc.pool_slots, 0, enc.pool_slots,
+             enc.pool_slots]
+    recs: list = []
+    rec_op: list = []
+    cur: list = []
+    cur_mux = False
+    written: set = set()
+
+    def close():
+        pad = dummy if cur_mux else [R_NOP << 24, 0, 0, 0]
+        for _ in range(step - len(cur)):
+            cur.append((pad, -1))
+        for rec, o in cur:
+            recs.append(rec)
+            rec_op.append(o)
+        cur.clear()
+        written.clear()
+
+    for o, (kind, out, b, _e) in enumerate(ops[:, :4].tolist()):
+        is_mux = kind == MUX and args[b, 0] == STAGED and \
+            args[b + 1, 0] == POOL and args[b + 2, 0] == POOL and \
+            not (args[b, 2] or args[b + 1, 2] or args[b + 2, 2])
+        if is_mux:
+            hi, lo = int(args[b + 1, 1]), int(args[b + 2, 1])
+            if cur and (not cur_mux or len(cur) == step or
+                        hi in written or lo in written):
+                close()
+            cur_mux = True
+            cur.append(([(R_MUX << 24) | out, int(args[b, 1]), hi, lo], o))
+            written.add(out)
+        else:
+            if cur and (cur_mux or len(cur) == step):
+                close()
+            cur_mux = False
+            cur.append(([(R_OP << 24) | out, 0, 0, 0], o))
+    if cur:
+        close()
+    n_pad = -len(recs) % REC_CHUNK    # whole steps of padding muxes
+    recs += [dummy] * n_pad
+    rec_op += [-1] * n_pad
+    n = len(recs) + REC_CHUNK
+    out_recs = np.zeros((n, 4), dtype=np.int32)
+    out_recs[:len(recs)] = recs
+    out_ops = np.full(n, -1, dtype=np.int32)
+    out_ops[:len(rec_op)] = rec_op
+    enc._cache[key] = (out_recs, out_ops)
+    return enc._cache[key]
+
+
+def stream_variant(enc: EncodedStream) -> str:
+    """The stream forward's kernel for ``enc``: ``"steps"`` (the step
+    kernel) for a program of muxes and fills (every BDD program),
+    ``"ops"`` (one trial per thread over the general op table) for any
+    other (tree programs: products, pairs, counts)."""
+    return "steps" if np.isin(enc.ops[:, 0], (MUX, FILL)).all() else "ops"
+
+
+# ---------------------------------------------------------------------------
+# The level schedule of the level-parallel logged forward and adjoint.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class LevelSchedule:
+    """An encoded program's ops by level, with each value's consumers.
+
+    An op's level is 1 + the highest level of the ops whose values it
+    reads (the ops that last wrote its pool arguments: gates, whose log
+    rows it reads, and spills), 0 when it reads none.  ``order`` lists the
+    ops level by level (op order within a level), ``level_ptr`` where
+    each level starts.  ``cons[cons_ptr[o]:cons_ptr[o + 1]]`` are the
+    argument rows (edges) that read op ``o``'s value, sorted by consumer
+    op descending, then position ascending: the order in which the
+    reverse walk accumulates that value's adjoint; ``stage_cons`` the
+    same for each staged row's direct reads.  ``top_op`` last writes the
+    top slot; the top value is log row ``top_idx`` (``top_src == LOG``)
+    or staged row ``top_idx``.
+    """
+
+    order: np.ndarray
+    level_ptr: np.ndarray
+    cons_ptr: np.ndarray
+    cons: np.ndarray
+    stage_ptr: np.ndarray
+    stage_cons: np.ndarray
+    top_op: int
+    top_src: int
+    top_idx: int
+    _cache: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.level_ptr) - 1
+
+    def tables(self, device: torch.device):
+        """The int32 arrays on ``device`` (cached): order, level_ptr,
+        cons_ptr, cons, stage_ptr, stage_cons (the last two lists padded
+        by one entry, so no pointer is null)."""
+        key = str(device)
+        if key not in self._cache:
+            self._cache[key] = tuple(
+                torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+                for a in (self.order, self.level_ptr, self.cons_ptr,
+                          np.r_[self.cons, 0], self.stage_ptr,
+                          np.r_[self.stage_cons, 0]))
+        return self._cache[key]
+
+
+def _csr(keys: np.ndarray, ops_of: np.ndarray, rows: np.ndarray, n: int):
+    """Rows grouped by key, each group by op descending then row."""
+    order = np.lexsort((rows, -ops_of, keys))
+    ptr = np.zeros(n + 1, dtype=np.int32)
+    np.cumsum(np.bincount(keys, minlength=n), out=ptr[1:])
+    return ptr, rows[order].astype(np.int32)
+
+
+def level_schedule(enc: EncodedStream) -> LevelSchedule:
+    """The level schedule of ``enc`` (cached on the encoding, as
+    :func:`tree_stream_encoding` caches the encoding)."""
+    if "levels" in enc._cache:
+        return enc._cache["levels"]
+    ops, args = enc.ops, enc.args
+    n_ops, n_args = len(ops), len(args)
+    op_of = np.repeat(np.arange(n_ops), ops[:, 3] - ops[:, 2])
+    if len(op_of) != n_args or (n_args and np.any(
+            ops[1:, 2] != ops[:-1, 3])):
+        raise LogicError("level schedules need contiguous argument rows")
+    producer = np.full(n_args, -1, dtype=np.int64)
+    level = np.zeros(n_ops, dtype=np.int64)
+    writer: dict[int, int] = {}
+    for o, (_k, out, b, e) in enumerate(ops[:, :4].tolist()):
+        lv = 0
+        for j in range(b, e):
+            if args[j, 0] == POOL:
+                w = writer[int(args[j, 1])]
+                producer[j] = w
+                lv = max(lv, int(level[w]) + 1)
+        level[o] = lv
+        writer[out] = o
+    top_op = writer[enc.top_slot]
+    order = np.argsort(level, kind="stable").astype(np.int32)
+    level_ptr = np.zeros(int(level.max(initial=-1)) + 2, dtype=np.int32)
+    np.cumsum(np.bincount(level), out=level_ptr[1:])
+    rows = np.arange(n_args)
+    read = producer >= 0
+    cons_ptr, cons = _csr(producer[read], op_of[read], rows[read], n_ops)
+    staged = args[:, 0] == STAGED
+    stage_ptr, stage_cons = _csr(args[staged, 1].astype(np.int64),
+                                 op_of[staged], rows[staged], enc.n_basic)
+    if ops[top_op, 6] >= 0:
+        top_src, top_idx = LOG, int(ops[top_op, 6])
+    else:   # a spilled basic
+        top_src, top_idx = STAGED, int(args[ops[top_op, 2], 1])
+    sched = LevelSchedule(order, level_ptr, cons_ptr, cons, stage_ptr,
+                          stage_cons, top_op, top_src, top_idx)
+    enc._cache["levels"] = sched
+    return sched
+
+
+def level_tile(n_trials: int) -> int:
+    """Trials per block of the level-parallel kernels: enough blocks to
+    give each of the card's 132 SMs one, at most ``_LEVEL_TILE``."""
+    return max(1, min(_LEVEL_TILE, -(-n_trials // 132)))
+
+
+def stream_forward_levels_plain(enc: EncodedStream, staged: torch.Tensor,
+                                house: torch.Tensor):
+    """The level-parallel logged forward in plain torch: the ops of each
+    level in :func:`level_schedule` order, every argument read by its
+    backward source (log row, staged row, house), each value written
+    straight to its log row.  Returns ``(top, log)``, bit-equal to
+    :func:`stream_forward_plain` with the log."""
+    sched = level_schedule(enc)
+    ops, args, fill = enc.plain_ops()
+    T = staged.shape[1]
+    log: list = [None] * enc.n_log
+
+    def x(a):
+        src, idx = a[3], a[4]
+        if src == LOG:
+            v = log[idx]
+        elif src == STAGED:
+            v = staged[idx]
+        else:
+            v = house[idx].expand(T)
+        return 1.0 - v if a[2] else v
+
+    for o in sched.order.tolist():
+        op = ops[o]
+        if op[6] >= 0:
+            log[op[6]] = _plain_value(op, fill[o], args, x, staged)
+    top = log[sched.top_idx] if sched.top_src == LOG \
+        else staged[sched.top_idx]
+    return top, (torch.stack(log) if log else staged.new_zeros((0, T)))
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers.
+# ---------------------------------------------------------------------------
+
+def _check_cuda(dtype, *tensors: torch.Tensor) -> None:
     for t in tensors:
         if t.device.type != "cuda" or t.dtype != dtype \
                 or not t.is_contiguous():
             raise LogicError(f"stream kernel takes contiguous {dtype} CUDA "
                              f"tensors, got {t.dtype} on {t.device}")
-    if enc.max_count_states > MAX_COUNT_STATES:
-        raise LogicError(
-            f"a count gate needs {enc.max_count_states} DP states; the "
-            f"kernels hold at most {MAX_COUNT_STATES} per thread")
 
 
 def _raise_on(lib, code: int, what: str) -> None:
@@ -515,13 +885,19 @@ def _raise_on(lib, code: int, what: str) -> None:
                            f"{lib.canopy_cuda_error_string(code).decode()}")
 
 
+def _count_variant(name: str) -> None:
+    VARIANTS[name] = VARIANTS.get(name, 0) + 1
+
+
 def stream_forward(enc: EncodedStream, staged: torch.Tensor, house,
                    with_log: bool = False):
     """Run the program on staged ``(n_basic, n_trials)`` input.
 
     Returns ``(top (n_trials,), log (n_log, n_trials) or None)``.  CPU
-    tensors run :func:`stream_forward_plain`; CUDA tensors launch the
-    kernel (``csrc/stream.cu``) or raise.
+    tensors run :func:`stream_forward_plain`; CUDA tensors launch a
+    kernel of ``csrc/stream.cu`` or raise.  Without the log: the kernel
+    :func:`stream_variant` picks (``VARIANTS`` counts it).  With it: the
+    level-parallel kernel.
     """
     _check_staged(enc, staged)
     device, dtype = staged.device, staged.dtype
@@ -531,21 +907,59 @@ def stream_forward(enc: EncodedStream, staged: torch.Tensor, house,
     from ._build import load_library
     lib = load_library()
     staged = staged.contiguous()
-    _check_cuda(enc, dtype, staged)
+    _check_cuda(dtype, staged)
     T = staged.shape[1]
     ops, args, fill = enc.tables(device)
-    pool = torch.empty((enc.pool_slots, T), dtype=dtype, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
     top = torch.empty(T, dtype=dtype, device=device)
-    log = torch.empty((enc.n_log, T), dtype=dtype, device=device) \
-        if with_log else None
-    LAUNCHES["stream_log" if with_log else "stream"] += 1
+    if with_log:
+        log = torch.empty((enc.n_log, T), dtype=dtype, device=device)
+        sched = level_schedule(enc)
+        order, level_ptr = sched.tables(device)[:2]
+        tile = level_tile(T)
+        smem_log = enc.n_log * tile * staged.element_size() <= SMEM_BYTES
+        LAUNCHES["stream_log"] += 1
+        code = getattr(lib, f"canopy_stream_level_forward_{_SUFFIX[dtype]}")(
+            ops.data_ptr(), fill.data_ptr(), args.data_ptr(),
+            order.data_ptr(), level_ptr.data_ptr(), sched.n_levels,
+            staged.data_ptr(), house_t.data_ptr(), log.data_ptr(),
+            top.data_ptr(), T, tile, enc.n_log, sched.top_src, sched.top_idx,
+            int(smem_log), stream)
+        _raise_on(lib, code, "stream level forward")
+        return top, log
+    variant = stream_variant(enc)
+    if variant == "ops":
+        pool = torch.empty((enc.pool_slots, T), dtype=dtype, device=device)
+        LAUNCHES["stream"] += 1
+        _count_variant("stream:ops")
+        code = getattr(lib, f"canopy_stream_ops_forward_{_SUFFIX[dtype]}")(
+            ops.data_ptr(), fill.data_ptr(), args.data_ptr(), enc.n_ops,
+            staged.data_ptr(), house_t.data_ptr(), pool.data_ptr(),
+            top.data_ptr(), T, enc.top_slot, stream)
+        _raise_on(lib, code, "stream forward")
+        return top, None
+    width = 128 * _STEP_K[dtype]
+    t_pad = -(-T // width) * width
+    if t_pad >= _MAX_STEP_TRIALS:
+        raise LogicError(f"the stream kernel runs below {_MAX_STEP_TRIALS} "
+                         f"trials per call, got {T}")
+    step = _step(dtype)
+    key = f"records:{step}:{device}"
+    if key not in enc._cache:
+        enc._cache[key] = tuple(torch.from_numpy(a).to(device)
+                                for a in pack_records(enc, step))
+    recs, rec_op = enc._cache[key]
+    gpool = torch.empty((enc.pool_slots + 1, t_pad), dtype=dtype,
+                        device=device)
+    LAUNCHES["stream"] += 1
+    _count_variant("stream:steps")
     code = getattr(lib, f"canopy_stream_forward_{_SUFFIX[dtype]}")(
-        ops.data_ptr(), fill.data_ptr(), args.data_ptr(), enc.n_ops,
-        staged.data_ptr(), house_t.data_ptr(), pool.data_ptr(),
-        top.data_ptr(), log.data_ptr() if with_log else None, T,
-        enc.top_slot, torch.cuda.current_stream(device).cuda_stream)
+        recs.data_ptr(), rec_op.data_ptr(), len(recs) // REC_CHUNK - 1,
+        ops.data_ptr(), fill.data_ptr(), args.data_ptr(), staged.data_ptr(),
+        house_t.data_ptr(), gpool.data_ptr(), t_pad, top.data_ptr(), T,
+        enc.top_slot, stream)
     _raise_on(lib, code, "stream forward")
-    return top, log
+    return top, None
 
 
 def stream_propagate_staged(enc: EncodedStream, staged: torch.Tensor,
@@ -623,6 +1037,7 @@ def compile_replay_stream(tree: CompiledTree, **kwargs):
     ``REPLAY_SLOTS`` (1,816: one warp's block) raises ``LogicError``.
     """
     from ..compiler.replay import build_replay_schedule
+    check_count_gates(tree)
     program = build_replay_schedule(tree, **_replay_sizing(tree, kwargs))
     _check_replay_fits(program)
     return program
@@ -720,8 +1135,10 @@ def encode_replay(program) -> EncodedReplay:
                                  value_of_row[row]]
                     args.append(entry[:2] + [int(bool(flag))] + entry[2:])
                 if kind == "count":
-                    aux0, aux1 = int(aux[0]), int(aux[1])
-                    max_states = max(max_states, aux1 + 2)
+                    aux0, aux1, states = _count_row(
+                        aux, len(locs), f"at op {len(ops)} (out slot "
+                        f"{out_slot})", args, begin)
+                    max_states = max(max_states, states)
                 elif kind in ("prod", "pair"):
                     aux0, aux1 = int(bool(aux)), 0
                 else:
@@ -905,7 +1322,7 @@ def replay_forward(enc: EncodedReplay, staged: torch.Tensor, house,
     from ._build import load_library
     lib = load_library()
     staged = staged.contiguous()
-    _check_cuda(enc, dtype, staged)
+    _check_cuda(dtype, staged)
     width = _replay_block_trials(enc.pool_slots + enc.res_rows, dtype)
     T = staged.shape[1]
     ops, args, _fill = enc.tables(device)
@@ -977,6 +1394,7 @@ def compile_spill_stream(tree: CompiledTree, **kwargs):
     """
     from ..compiler.schedule import _emit_gate_ops
     from ..compiler.spill import build_spill_schedule
+    check_count_gates(tree)
     kwargs = dict(kwargs)
     if "pool_slots" not in kwargs:
         widest = max((len(row[2]) for row in _emit_gate_ops(tree)),
@@ -1100,8 +1518,10 @@ def encode_spill(program) -> EncodedSpill:
                         entry = [POOL, loc[1], POOL, loc[1]]
                     args.append(entry[:2] + [int(bool(flag))] + entry[2:])
                 if kind == "count":
-                    aux0, aux1 = int(aux[0]), int(aux[1])
-                    max_states = max(max_states, aux1 + 2)
+                    aux0, aux1, states = _count_row(
+                        aux, len(locs), f"at op {len(ops)} (out slot "
+                        f"{out_slot})", args, begin)
+                    max_states = max(max_states, states)
                 elif kind in ("prod", "pair"):
                     aux0, aux1 = int(bool(aux)), 0
                 else:
@@ -1174,7 +1594,7 @@ def spill_forward(enc: EncodedSpill, staged: torch.Tensor,
     from ._build import load_library
     lib = load_library()
     staged = staged.contiguous()
-    _check_cuda(enc, dtype, staged)
+    _check_cuda(dtype, staged)
     width = _replay_block_trials(enc.pool_slots, dtype)
     T = staged.shape[1]
     ops, args, _fill = enc.tables(device)

@@ -9,18 +9,22 @@ false or the package is missing).  Phases, each raising on failure:
 1. the device: ``nvidia-smi`` name and power limit;
 2. the kernel build (``nvcc`` for ``sm_90a`` from ``canopy_tpu_torch/csrc``);
 3. every kernel against its plain PyTorch version on the card: the
-   forward bit-equal at 1,048,576 trials on the slice's big BDD module, on
-   the slice tree's uncapped stream program (the direct-propagation
-   path's importance program) and on the prod/pair/count tree programs of
-   two fixtures; the logged
-   forward and the backward, f32 and f64, bit-equal at 1 and 1,024
-   trials, and the backward within ``GRAD_RTOL`` of torch autograd
-   through the f64 plain forward; CUDA-event times of kernel and plain;
+   forward bit-equal at 1,048,576 trials on the slice's big BDD module (in
+   its batched schedule), on the slice tree's uncapped stream program
+   (the direct-propagation path's importance program) and on the
+   prod/pair/count tree programs of two fixtures (the step kernel on
+   the module, also in its depth-first order; the one-trial-per-thread
+   kernel on the trees); the level-parallel logged forward and backward,
+   f32 and f64, bit-equal at 1, 1,024 and 4,096 trials, and the backward
+   within ``GRAD_RTOL`` of torch autograd through the f64 plain forward;
+   CUDA-event times of kernel and plain, the level kernels beside a
+   critical-path model (levels x ``SMEM_ROUND_TRIP`` cycles); each
+   kernel instantiation's ptxas registers, stack and spills;
 4. the fused whole-tree kernels (``csrc/fused.cu``) against their plain
    version, bit-equal at 1,048,576 and 100,003 trials: the tiled
    counterpart on the slice tree and on ``demo_plant`` (a house event),
    the lane-row one on ``aralia_like_large`` and
-   ``aralia_like_nested_count`` (count gates up to 88 DP states);
+   ``aralia_like_nested_count`` (count gates up to 33 DP states);
    CUDA-event times of kernel and plain;
 5. dispatch: ``make_propagator(engine="auto")`` picks the uncapped tree
    stream on the slice tree, on ``aralia_like_large`` and on the
@@ -29,7 +33,11 @@ false or the package is missing).  Phases, each raising on failure:
    tree and the lane-row one on ``aralia_like_large``; each agrees with
    the f64 gather engine within ``TOP_RTOL`` (per trial, except on the
    hierarchical tree, whose tops near 1e-5 float32 cannot resolve to 1e-5
-   relative: there normwise and bit-equal to the float32 gather);
+   relative: there normwise and bit-equal to the float32 gather); then
+   an ``atleast 2`` gate over 130 basic events at p = 0.01 through
+   ``make_propagator(engine="auto")`` (the stream kernel), uncertainty
+   and stream importance, within 1e-6 of the CPU f64 values and of the
+   JAX package's value;
 6. the BDD slice, through the CLI in-process
    (``tests/fixtures/torch_slice_plant.xml --device cuda --bdd
    --importance --uncertainty --num-trials 1048576 --seed 7``): its
@@ -102,6 +110,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -184,6 +193,9 @@ BLOCK_LOG_RTOL = 1e-6
 #: BSR (a float32 log-space product) against the float32 gather engine,
 #: per trial.
 BSR_RTOL = 1e-5
+#: The JAX package's ``make_propagator`` value of atleast 2 of 130 basic
+#: events at p = 0.01 (float32, its TPU-path precision).
+WIDE_ATLEAST_JAX = 0.37371027
 #: The ragged product tree (padded fan-in positions, ``arg_mask`` False).
 RAGGED_TREE = dict(n_basic=32, n_gates=40, fanin=4, seed=3)
 
@@ -197,6 +209,9 @@ INT32_LANES = 132 * 64
 #: Special-function units of the card (132 SMs x 16 per clock), for the
 #: block-gather log kernel's logs and exps.
 SFU_LANES = 132 * 16
+#: Cycles of one dependent shared-memory round trip (load, use, store),
+#: for the level-parallel kernels' critical-path model.
+SMEM_ROUND_TRIP = 30
 #: Integer operations of one packed word: 8 Philox calls x 10 rounds x 2
 #: wide multiplies, and 32 compares.
 BERN_OPS_PER_WORD = 8 * 10 * 2 + 32
@@ -230,8 +245,8 @@ KERNELS = {
                      "canopy_tpu/ops/block_gather.py:331"),
 }
 #: The path whose launch count each kernel's record reports.
-PATH_OF = {"stream": "bdd-slice", "stream_log": "pdag-slice",
-           "adjoint": "pdag-slice", "fused_tiled": "dispatch",
+PATH_OF = {"stream": "bdd-slice", "stream_log": "bdd-slice",
+           "adjoint": "bdd-slice", "fused_tiled": "dispatch",
            "fused": "dispatch", "replay": "replay", "replay_tape": "replay",
            "replay_bwd": "replay", "bernoulli": "mc", "spill": "spill",
            "gather": "gather", "block_log": "block", "block_direct": "block"}
@@ -332,7 +347,56 @@ def read_counts(record: dict, path: str, kernels) -> dict:
     return launches
 
 
-def phase_build() -> None:
+def ptxas_table(report: str) -> dict:
+    """nvcc's ``-Xptxas -v`` report as {kernel: {registers, stack,
+    spill_stores, spill_loads, shared}} (``shared``: static bytes; the
+    level kernels' shared-memory logs are dynamic, sized per launch)."""
+    table: dict = {}
+    name = None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            table[name] = {"registers": None, "stack": 0, "spill_stores": 0,
+                           "spill_loads": 0, "shared": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            table[name].update(stack=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            table[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            table[name]["shared"] = int(m.group(1)) if m else 0
+    return table
+
+
+def short_name(mangled: str) -> str:
+    """``stream_level_forward_kernel<f32,1>`` from an instantiation's
+    mangled name (value type, then the integer and bool template
+    arguments in order)."""
+    for base in PTXAS_KERNELS:
+        at = mangled.find(base + "I")
+        if at >= 0:
+            args = mangled[at + len(base) + 1:]
+            vtype = {"f": "f32", "d": "f64"}[args[0]]
+            rest = re.findall(r"L[ib](\d+)E", args.split("EEv")[0])
+            return f"{base}<{','.join([vtype, *rest])}>"
+    return mangled
+
+
+#: The redesigned kernels' mangled names, as the ptxas report shows them.
+PTXAS_KERNELS = ("stream_steps_kernel", "stream_ops_kernel",
+                 "stream_level_forward_kernel",
+                 "stream_level_backward_kernel")
+
+
+def phase_build(record: dict) -> None:
     from canopy_tpu_torch.ops._build import build_info, load_library
     t0 = time.perf_counter()
     lib = load_library()
@@ -344,9 +408,19 @@ def phase_build() -> None:
     for line in info.get("ptxas", "").splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[build] ptxas {line.strip()}")
-    from canopy_tpu_torch.ops.stream_kernel import MAX_COUNT_STATES
+    # The stream and adjoint instantiations: registers, stack, spills.
+    table = {short_name(k): v for k, v in
+             ptxas_table(info.get("ptxas", "")).items()
+             if any(n in k for n in PTXAS_KERNELS)}
+    for name, row in table.items():
+        log(f"[build] {name}: {json.dumps(row)}")
+    record["ptxas"] = table
+    from canopy_tpu_torch.ops.stream_kernel import (MAX_COUNT_STATES,
+                                                    REC_CHUNK)
     check(lib.canopy_max_count_states() == MAX_COUNT_STATES,
           "kernel and wrapper disagree on the count-DP bound")
+    check(lib.canopy_stream_rec_chunk() == REC_CHUNK,
+          "kernel and wrapper disagree on the record chunk")
     from canopy_tpu_torch.ops.fused_kernel import SMEM_BYTES
     smem = lib.canopy_fused_max_smem_bytes()
     log(f"[build] opt-in shared memory per block: {smem} B (the fused "
@@ -355,13 +429,22 @@ def phase_build() -> None:
                               "assume")
 
 
+def module_bdd(label: str):
+    """The slice's BDD module that ``programs()`` labels ``label``."""
+    from canopy_tpu_torch.compiler.modules import build_modular_bdd
+    for bdd, _slot in build_modular_bdd(load_tree("torch_slice_plant")).chain:
+        if label == f"slice-module-{bdd.n_nodes}":
+            return bdd
+    raise KeyError(label)
+
+
 def programs():
     """(label, encoded program, house) of every program phase 3 checks:
     the slice's big BDD module (the BDD slice's stream program), the slice
     tree's uncapped stream program (the direct-propagation slice's
     importance program), and two fixtures' shared-scheduler programs."""
     from canopy_tpu_torch.compiler.modules import build_modular_bdd
-    from canopy_tpu_torch.ops.stream_kernel import (compile_bdd_stream,
+    from canopy_tpu_torch.ops.stream_kernel import (bdd_stream_encoding,
                                                     compile_stream,
                                                     encode_stream,
                                                     tree_stream_encoding)
@@ -370,7 +453,7 @@ def programs():
     for bdd, _slot in build_modular_bdd(slice_tree).chain:
         if bdd.n_nodes >= 256:
             out.append((f"slice-module-{bdd.n_nodes}",
-                        encode_stream(compile_bdd_stream(bdd)), []))
+                        bdd_stream_encoding(bdd), []))
     out.append(("slice-tree", tree_stream_encoding(slice_tree),
                 slice_tree.house_state_vector()))
     for name in ("aralia_like_ccf", "aralia_like_noncoherent"):
@@ -388,12 +471,23 @@ def _grad_error(grad: torch.Tensor, g64: torch.Tensor) -> float:
     return float((err / g64.abs().amax(dim=0).clamp(min=1e-300)).max())
 
 
+def level_model_ms(n_levels: int, clock_hz: float) -> float:
+    """A model, not a bound: the level-parallel kernels' critical path as
+    ``n_levels`` dependent shared-memory round trips of
+    ``SMEM_ROUND_TRIP`` cycles each at ``clock_hz``."""
+    return n_levels * SMEM_ROUND_TRIP / clock_hz * 1e3
+
+
 def phase_kernels(device, record: dict) -> None:
     from canopy_tpu_torch.ops.adjoint_kernel import (stream_backward,
                                                      stream_backward_plain)
-    from canopy_tpu_torch.ops.stream_kernel import (house_tensor,
+    from canopy_tpu_torch.ops.stream_kernel import (compile_bdd_stream,
+                                                    encode_stream,
+                                                    house_tensor,
+                                                    level_schedule,
                                                     stream_forward,
-                                                    stream_forward_plain)
+                                                    stream_forward_plain,
+                                                    stream_variant)
     progs = programs()
     kinds = set()
     for label, enc, house in progs:
@@ -401,6 +495,7 @@ def phase_kernels(device, record: dict) -> None:
     check({0, 1, 2, 3} <= kinds, "programs must cover prod/pair/count/mux")
     gen = torch.Generator(device=device)
     gen.manual_seed(20260)
+    clock = sm_clock_hz()
 
     def probabilities(shape, dtype=torch.float32):
         # PRA-scale inputs, as bench.py's bdd-stream section draws them.
@@ -409,13 +504,15 @@ def phase_kernels(device, record: dict) -> None:
 
     for label, enc, house in progs:
         # The stream record is the BDD slice's program at its uncertainty
-        # shape; the logged forward's and the adjoint's are the
-        # direct-propagation slice's importance program (PATH_OF).
+        # shape; the logged forward's and the adjoint's the same module at
+        # importance's shape (one f64 trial), where the BDD slice runs
+        # them (PATH_OF).  The slice tree's numbers are further timings.
         main = label.startswith("slice-module")
         importance = label == "slice-tree"
         h32 = house_tensor(enc, house, device)
         # Forward at the uncertainty batch size, f32 as uncertainty runs.
         staged = probabilities((enc.n_basic, SLICE_TRIALS))
+        variant = stream_variant(enc)
         top, _ = stream_forward(enc, staged, house)
         plain, _ = stream_forward_plain(enc, staged, h32)
         torch.cuda.synchronize()
@@ -426,37 +523,63 @@ def phase_kernels(device, record: dict) -> None:
                            1)
         log(f"[kernels] {label}: {enc.n_ops} ops, pool {enc.pool_slots}, "
             f"f32 forward at {SLICE_TRIALS} trials bit-equal to plain; "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+            f"kernel {ms:.3f} ms ({variant}), plain {plain_ms:.3f} ms")
+        sweep = [{"variant": variant, "ms": ms}]
         if main:
             record["stream"].update(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, variant=variant,
                 shape=f"{enc.n_ops} ops x {SLICE_TRIALS} trials, f32",
                 **bound((enc.n_basic + 1) * SLICE_TRIALS * 4,
                         op_flops(enc) * SLICE_TRIALS, 4))
+            # The same module in depth-first order (no independent steps):
+            # what the batched schedule buys.
+            dfs = encode_stream(compile_bdd_stream(module_bdd(label)))
+            row_of = {int(c): r for r, c in enumerate(enc.staged_cols)}
+            dstaged = staged[torch.tensor(
+                [row_of[int(c)] for c in dfs.staged_cols], device=device)]
+            got, _ = stream_forward(dfs, dstaged, house)
+            torch.cuda.synchronize()
+            check(torch.equal(got, plain), f"{label}: depth-first order "
+                                           f"differs from plain")
+            p_ms = cuda_ms(lambda: stream_forward(dfs, dstaged, house), 3)
+            sweep.append({"variant": stream_variant(dfs), "ms": p_ms,
+                          "order": "depth-first"})
+            log(f"[kernels] {label} in depth-first order (pool "
+                f"{dfs.pool_slots}): stream bit-equal to plain, "
+                f"{p_ms:.3f} ms")
+            del dstaged
+        record.setdefault("stream_sweep", {})[label] = sweep
         del staged, top, plain
         torch.cuda.empty_cache()
         # Logged forward and backward, in both value types, at 1 trial
-        # (importance's shape, f64 on the main path) and 1,024 trials.
-        for n in (1, 1024):
+        # (importance's shape, f64 on the main path), 1,024 and 4,096
+        # trials, bit-equal to plain.
+        sched = level_schedule(enc)
+        model = level_model_ms(sched.n_levels, clock)
+        for n in (1, 1024, 4096):
             for dtype in (torch.float64, torch.float32):
                 name = "f64" if dtype == torch.float64 else "f32"
                 staged = probabilities((enc.n_basic, n), dtype)
                 ct = (torch.rand(n, generator=gen, device=device,
                                  dtype=torch.float64) + 0.5).to(dtype)
                 hd = h32.to(dtype)
+                ptop, plog = stream_forward_plain(enc, staged, hd, True)
+                pgrad = stream_backward_plain(enc, staged, hd, plog, ct)
                 top, vlog = stream_forward(enc, staged, house,
                                            with_log=True)
-                ptop, plog = stream_forward_plain(enc, staged, hd, True)
                 grad = stream_backward(enc, staged, house, vlog, ct)
-                pgrad = stream_backward_plain(enc, staged, hd, plog, ct)
                 torch.cuda.synchronize()
                 log_err = float((vlog - plog).abs().max())
                 grad_err = float((grad - pgrad).abs().max())
                 check(torch.equal(top, ptop) and log_err == 0.0,
                       f"{label}: {name} logged forward differs at {n}")
-                check(grad_err == 0.0,
-                      f"{label}: {name} backward differs from plain at "
-                      f"{n} trials ({grad_err})")
+                check(grad_err == 0.0, f"{label}: {name} backward differs "
+                                       f"from plain at {n} trials "
+                                       f"({grad_err})")
+                ms_log = cuda_ms(lambda: stream_forward(
+                    enc, staged, house, with_log=True), 5)
+                ms_bwd = cuda_ms(lambda: stream_backward(
+                    enc, staged, house, plog, ct), 5)
                 # Autograd through the f64 plain forward.
                 s64 = staged.double().requires_grad_(True)
                 t64, _ = stream_forward_plain(enc, s64, h32.double())
@@ -465,35 +588,36 @@ def phase_kernels(device, record: dict) -> None:
                 limit = GRAD_RTOL[name]
                 check(rel <= limit, f"{label}: {name} backward vs f64 "
                                     f"autograd {rel:.3e} > {limit}")
-                ms_log = cuda_ms(lambda: stream_forward(
-                    enc, staged, house, with_log=True), 5)
-                ms_bwd = cuda_ms(lambda: stream_backward(
-                    enc, staged, house, vlog, ct), 5)
                 pms_log = cuda_ms(lambda: stream_forward_plain(
                     enc, staged, hd, True), 1)
                 pms_bwd = cuda_ms(lambda: stream_backward_plain(
                     enc, staged, hd, plog, ct), 1)
                 log(f"[kernels] {label}: {name} logged forward + backward "
                     f"at {n} trials bit-equal to plain; backward vs f64 "
-                    f"autograd {rel:.3e} (limit {limit}); log kernel "
-                    f"{ms_log:.3f} ms / plain {pms_log:.3f} ms; adjoint "
-                    f"kernel {ms_bwd:.3f} ms / plain {pms_bwd:.3f} ms")
-                if importance and n == 1 and name == "f64":
+                    f"autograd {rel:.3e} (limit {limit}); log {ms_log:.4f} "
+                    f"ms / adjoint {ms_bwd:.4f} ms ({sched.n_levels} "
+                    f"levels, critical path {model:.4f} ms: a model); "
+                    f"plain {pms_log:.3f} / {pms_bwd:.3f} ms")
+                if main and n == 1 and name == "f64":
                     record["stream_log"].update(
                         max_abs_err=log_err, ms=ms_log, plain_ms=pms_log,
                         shape=f"{enc.n_ops} ops x 1 trial, f64",
+                        critical_path_model_ms=model,
                         **bound((enc.n_basic + 1 + enc.n_log) * 8,
                                 op_flops(enc), 8))
                     record["adjoint"].update(
                         max_abs_err=grad_err, ms=ms_bwd, plain_ms=pms_bwd,
                         shape=f"{enc.n_ops} ops x 1 trial, f64",
+                        critical_path_model_ms=model,
                         **bound((2 * enc.n_basic + enc.n_log + 1) * 8,
                                 op_flops(enc, backward=True), 8))
                 if main or importance:
                     record.setdefault("timings", {})[
                         f"{label} {name}@{n}"] = {
                         "log_ms": ms_log, "log_plain_ms": pms_log,
-                        "adjoint_ms": ms_bwd, "adjoint_plain_ms": pms_bwd}
+                        "adjoint_ms": ms_bwd, "adjoint_plain_ms": pms_bwd,
+                        "n_levels": sched.n_levels,
+                        "critical_path_model_ms": model}
 
 
 def phase_slice(device, record: dict) -> None:
@@ -729,6 +853,63 @@ def phase_dispatch(device, record: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_wide_count(device, record: dict) -> None:
+    """atleast 2 of 130 basic events at p = 0.01 through
+    ``make_propagator(engine="auto")`` on the card (the stream kernel,
+    its count DP absorbing at 2), uncertainty and stream importance, each
+    within ``TOP_RTOL`` / 1e-6 of the CPU f64 values."""
+    from canopy_tpu_torch.compiler.expr_tape import ExpressionTape
+    from canopy_tpu_torch.compiler.graph import compile_gates
+    from canopy_tpu_torch.engine.importance import make_stream_importance_fn
+    from canopy_tpu_torch.engine.propagate import make_propagator
+    from canopy_tpu_torch.engine.uncertainty import uncertainty_analysis
+    from canopy_tpu_torch.mef.event import (Arg, BasicEvent, Connective,
+                                            Formula, Gate)
+    from canopy_tpu_torch.mef.expr.constant import ConstantExpression
+    events = []
+    for i in range(130):
+        e = BasicEvent(f"c{i:03d}")
+        e.expression = ConstantExpression(0.01)
+        events.append(e)
+    top = Gate("top")
+    top.formula = Formula(Connective.ATLEAST, [Arg(e) for e in events],
+                          min_number=2)
+    tree = compile_gates([top])
+    tree.top_index = tree.gate_index["top"]
+    p = torch.full((1, 130), 0.01, dtype=torch.float64)
+    want = float(make_propagator(tree, "cpu")(p)[0])
+    fn = make_propagator(tree, device)
+    got = float(fn(p.to(device))[0])
+    rel = abs(got - want) / want
+    check(fn.engine == "stream" and rel <= 1e-6,
+          f"wide atleast: {fn.engine} {got!r} vs CPU f64 {want!r}")
+    jax_rel = abs(got - WIDE_ATLEAST_JAX) / WIDE_ATLEAST_JAX
+    check(jax_rel <= 1e-6, f"wide atleast: {got!r} vs the JAX package's "
+                           f"{WIDE_ATLEAST_JAX}")
+    tape = ExpressionTape.build([e.expression for e in tree.basic_events])
+    unc = uncertainty_analysis(tree, tape, SLICE_SEED, AGREE_TRIALS,
+                               8760.0, device)
+    check(abs(unc.mean - want) <= 1e-6 * want, f"wide atleast uncertainty "
+                                              f"mean {unc.mean!r}")
+    grads = []
+    for dev in ("cpu", device):
+        q = torch.full((130,), 0.01, dtype=torch.float64, device=dev,
+                       requires_grad=True)
+        make_stream_importance_fn(tree, None, dev)(q).backward()
+        grads.append(q.grad.cpu())
+    g_rel = float((grads[1] - grads[0]).abs().max() / grads[0].abs().max())
+    check(g_rel <= 1e-6, f"wide atleast importance {g_rel:.3e}")
+    log(f"[count] atleast 2 of 130 at p = 0.01 on the card: {got!r} "
+        f"({fn.engine}, {getattr(fn, 'stream_variant', None)}; CPU f64 "
+        f"{want!r}, rel {rel:.3e}; the JAX "
+        f"package's {WIDE_ATLEAST_JAX}, rel {jax_rel:.3e}); uncertainty "
+        f"mean over {AGREE_TRIALS} trials {unc.mean!r}; importance vs CPU "
+        f"f64 {g_rel:.3e}")
+    record["wide_atleast"] = {"value": got, "cpu_f64": want,
+                              "rel": rel, "jax_rel": jax_rel,
+                              "importance_rel": g_rel}
+
+
 def phase_pdag(device, record: dict) -> None:
     """(c) The direct-propagation slice through ``RiskAnalysis``."""
     from canopy_tpu_torch.compiler.expr_tape import ExpressionTape
@@ -841,7 +1022,7 @@ def phase_replay(device, record: dict) -> None:
     from canopy_tpu_torch.ops.stream_kernel import (
         compile_replay_stream, encode_replay, house_tensor, replay_forward,
         replay_forward_plain, replay_grad_basic, stage_basic, stage_replay,
-        stream_forward, tree_stream_encoding)
+        stream_forward, stream_variant, tree_stream_encoding)
     from canopy_tpu_torch.utils.synthetic import synthetic_compiled_tree
 
     t0 = time.perf_counter()
@@ -920,17 +1101,20 @@ def phase_replay(device, record: dict) -> None:
     ms = cuda_ms(lambda: replay_forward(enc, staged, house), 3)
     stream_ms = cuda_ms(lambda: stream_forward(senc, sstaged, house), 3)
     plain_ms = cuda_ms(lambda: replay_forward_plain(enc, staged, h32), 1)
+    variant = stream_variant(senc)
     log(f"[replay] 65k tree, {T} trials: replay kernel bit-equal to plain "
         f"and to the stream kernel ({senc.n_ops} ops, pool "
-        f"{senc.pool_slots}); {REPLAY_AGREE} trials vs f64 gather max rel "
-        f"err {rel:.3e} (limit {TOP_RTOL}); replay {ms:.3f} ms, stream "
-        f"{stream_ms:.3f} ms, plain {plain_ms:.3f} ms")
+        f"{senc.pool_slots}, {variant} kernel, pool in device memory); "
+        f"{REPLAY_AGREE} trials vs f64 gather max rel err {rel:.3e} "
+        f"(limit {TOP_RTOL}); replay {ms:.3f} ms, stream {stream_ms:.3f} "
+        f"ms, plain {plain_ms:.3f} ms")
     record["replay"].update(
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
         shape=f"65k tree, {enc.n_log} gates x {T} trials, f32",
         **replay_bound(enc, T, 4, 1))
     record["replay_65k"] = dict(sizes, stream_ms=stream_ms,
                                 stream_pool=senc.pool_slots,
+                                stream_variant=variant,
                                 build_s=build_s, stage_s=stage_s)
     del staged, sstaged, plain, stops, tops, tops_staged, p, ref
     torch.cuda.empty_cache()
@@ -1558,13 +1742,14 @@ def main() -> int:
     log(f"[device] {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}; g++ "
         f"{shutil.which('g++')}")
-    phase_build()
     record = {name: {"name": name, "route": "cuda", "source": src,
                      "replaces": rep} for name, (src, rep) in
               KERNELS.items()}
+    phase_build(record)
     phase_kernels(device, record)
     phase_fused(device, record)
     phase_dispatch(device, record)
+    phase_wide_count(device, record)
     phase_slice(device, record)
     phase_pdag(device, record)
     phase_replay(device, record)

@@ -467,3 +467,154 @@ def test_bsr_on_cuda_refuses_tf32(cuda_device):  # noqa: F811
     finally:
         torch.set_float32_matmul_precision(before)
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def _slice_module():
+    _m, tree = load_tree("canopy_tpu_torch", "torch_slice_plant",
+                         tree_name="slice")
+    return max(build_modular_bdd(tree).chain, key=lambda c: c[0].n_nodes)[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_step_kernel_matches_plain(cuda_device, dtype):  # noqa: F811
+    """The step kernel on the BDD slice's module, in its batched and its
+    depth-first order, at a ragged trial count: bit-equal to plain."""
+    bdd = _slice_module()
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    for enc in (tsk.bdd_stream_encoding(bdd),
+                tsk.encode_stream(tsk.compile_bdd_stream(bdd))):
+        values = (torch.rand((100_003, int(enc.staged_cols.max()) + 1),
+                             generator=gen, device=cuda_device,
+                             dtype=torch.float64) * 0.05).to(dtype)
+        staged = tsk.stage_basic(enc, values, dtype)
+        want = tsk.stream_forward_plain(
+            enc, staged, tsk.house_tensor(enc, [], cuda_device, dtype))[0]
+        tsk.reset_launches()
+        assert torch.equal(tsk.stream_forward(enc, staged, [])[0], want)
+        assert tsk.VARIANTS == {"stream:steps": 1}
+
+
+def test_step_kernel_offsets_above_2_31(cuda_device):  # noqa: F811
+    """A small BDD at about 2^29 trials, so that both the staged input's
+    and the pool's row offsets pass 2^31 elements: the step kernel's
+    64-bit offsets.  The trials repeat a 4,096-trial pattern, so every
+    top must equal the plain version's on the pattern."""
+    from canopy_tpu_torch.compiler.graph import compile_gates
+    from canopy_tpu_torch.mef.event import (Arg, BasicEvent, Connective,
+                                            Formula, Gate)
+    events = [BasicEvent(f"v{i}") for i in range(6)]
+    top = Gate("top")
+    top.formula = Formula(Connective.ATLEAST, [Arg(e) for e in events],
+                          min_number=3)
+    tree = compile_gates([top])
+    tree.top_index = tree.gate_index["top"]
+    (bdd, _slot), = build_modular_bdd(tree).chain
+    enc = tsk.encode_stream(tsk.compile_bdd_stream(bdd))
+    assert tsk.stream_variant(enc) == "steps"
+    pattern, reps = 4096, 131_073
+    T = pattern * reps + 77
+    assert enc.n_basic * T >= 1 << 31
+    assert (enc.pool_slots + 1) * T >= 1 << 31
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    small = torch.rand((enc.n_basic, pattern), generator=gen,
+                       device=cuda_device) * 0.5
+    want = tsk.stream_forward_plain(
+        enc, small, tsk.house_tensor(enc, [], cuda_device))[0]
+    staged = torch.empty((enc.n_basic, T), device=cuda_device)
+    staged[:, :pattern * reps].view(-1, reps, pattern).copy_(
+        small[:, None, :])
+    staged[:, pattern * reps:] = small[:, :77]
+    got = tsk.stream_forward(enc, staged, [])[0]
+    del staged
+    assert torch.equal(got[:pattern * reps].view(reps, pattern),
+                       want.expand(reps, pattern))
+    assert torch.equal(got[pattern * reps:], want[:77])
+    del got
+    torch.cuda.empty_cache()
+
+
+def test_propagator_names_its_stream_variant(cuda_device):  # noqa: F811
+    """The 65k tree's program (5,029 pool slots): the propagator names
+    its stream variant, the one-trial-per-thread kernel, which is
+    bit-equal to plain."""
+    from canopy_tpu_torch.utils.synthetic import synthetic_compiled_tree
+    tree = synthetic_compiled_tree(n_basic=8192, n_gates=65536, fanin=4,
+                                   n_levels=14, seed=0)
+    fn = make_propagator(tree, cuda_device)
+    assert fn.engine == "stream" and fn.stream_variant == "ops"
+    enc = tsk.tree_stream_encoding(tree)
+    p = torch.rand((2048, tree.n_basic), device=cuda_device) * 0.05
+    staged = tsk.stage_basic(enc, p)
+    want = tsk.stream_forward_plain(
+        enc, staged, tsk.house_tensor(enc, [], cuda_device))[0]
+    tsk.reset_launches()
+    assert torch.equal(fn(p), want)
+    assert tsk.VARIANTS == {"stream:ops": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_trials", [1, 1024])
+def test_level_kernels_match_plain(cuda_device, n_trials,
+                                   dtype):  # noqa: F811
+    """The level-parallel logged forward and adjoint on the BDD slice's
+    module and the slice tree's program: bit-equal to the sequential
+    plain versions."""
+    _m, tree = load_tree("canopy_tpu_torch", "torch_slice_plant",
+                         tree_name="slice")
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    for enc, house in ((tsk.bdd_stream_encoding(_slice_module()), []),
+                       (tsk.tree_stream_encoding(tree),
+                        tree.house_state_vector())):
+        staged = (torch.rand((enc.n_basic, n_trials), generator=gen,
+                             device=cuda_device, dtype=torch.float64)
+                  * 0.05).to(dtype)
+        ct = (torch.rand(n_trials, generator=gen, device=cuda_device,
+                         dtype=torch.float64) + 0.5).to(dtype)
+        h = tsk.house_tensor(enc, house, cuda_device, dtype)
+        ptop, plog = tsk.stream_forward_plain(enc, staged, h, True)
+        pgrad = tak.stream_backward_plain(enc, staged, h, plog, ct)
+        top, log = tsk.stream_forward(enc, staged, house, with_log=True)
+        grad = tak.stream_backward(enc, staged, house, log, ct)
+        assert torch.equal(top, ptop) and torch.equal(log, plog)
+        assert torch.equal(grad, pgrad)
+
+
+def test_wide_atleast_on_cuda(cuda_device):  # noqa: F811
+    """atleast 2 of 130 at p = 0.01: the auto propagator, uncertainty and
+    stream importance on the card within 1e-6 relative of the CPU f64
+    values (the count DP absorbing at 2, not 132 states)."""
+    from canopy_tpu_torch.compiler.expr_tape import ExpressionTape
+    from canopy_tpu_torch.compiler.graph import compile_gates
+    from canopy_tpu_torch.engine.importance import make_stream_importance_fn
+    from canopy_tpu_torch.engine.uncertainty import uncertainty_analysis
+    from canopy_tpu_torch.mef.event import (Arg, BasicEvent, Connective,
+                                            Formula, Gate)
+    from canopy_tpu_torch.mef.expr.constant import ConstantExpression
+    events = []
+    for i in range(130):
+        e = BasicEvent(f"c{i:03d}")
+        e.expression = ConstantExpression(0.01)
+        events.append(e)
+    top = Gate("top")
+    top.formula = Formula(Connective.ATLEAST, [Arg(e) for e in events],
+                          min_number=2)
+    tree = compile_gates([top])
+    tree.top_index = tree.gate_index["top"]
+    p = torch.full((4, 130), 0.01, dtype=torch.float64)
+    want = float(make_propagator(tree, "cpu")(p)[0])
+    assert abs(want - 0.3737098441591238) <= 1e-15
+    fn = make_propagator(tree, cuda_device)
+    assert fn.engine == "stream"
+    got = fn(p.to(cuda_device)).double().cpu()
+    assert float((got - want).abs().max()) <= 1e-6 * want
+    tape = ExpressionTape.build([e.expression for e in tree.basic_events])
+    unc = uncertainty_analysis(tree, tape, 7, 4096, 8760.0, cuda_device)
+    assert abs(unc.mean - want) <= 1e-6 * want
+    grads = []
+    for device in ("cpu", cuda_device):
+        q = torch.full((130,), 0.01, dtype=torch.float64, device=device,
+                       requires_grad=True)
+        make_stream_importance_fn(tree, None, device)(q).backward()
+        grads.append(q.grad.cpu())
+    assert float((grads[1] - grads[0]).abs().max()) <= \
+        1e-6 * float(grads[0].abs().max())

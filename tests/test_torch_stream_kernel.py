@@ -128,9 +128,15 @@ def test_encoder_tables():
     assert np.array_equal(enc.staged_cols, program.basic_perm)
     pool_args = enc.args[enc.args[:, 0] == tsk.POOL]
     assert set(pool_args[:, 3]) <= {tsk.LOG, tsk.STAGED}
-    assert enc.max_count_states == 2 + max(
-        op[4][1] for op in program.ops if op[0] == "gate"
-        and op[1] == "count")
+    # The cheaper count DP: upper-open (hi >= n) lo + 1 states, bounded
+    # hi + 2, or the same over the complements' window [n - hi, n - lo].
+    def states(lo, hi, n):
+        return lo + 1 if hi >= n else hi + 2
+    assert enc.max_count_states == max(
+        min(states(lo, hi, len(op[3])),
+            states(max(len(op[3]) - hi, 0), len(op[3]) - lo, len(op[3])))
+        for op in program.ops if op[0] == "gate" and op[1] == "count"
+        for lo, hi in [op[4]])
 
 
 def test_any_trial_count_and_per_trial_independence():
