@@ -23,6 +23,16 @@
 // the kernel is bit-equal to it.  The log sits in shared memory when the
 // tile's log fits.  Any trial count runs; the edge buffer (n_args x
 // n_trials) is what bounds it.
+//
+// The same kernel is the replay backward (replaces canopy_tpu/ops/
+// replay_adjoint_kernel.py:_bwd_kernel, the replay program's reverse walk
+// in segments with an adjoint pool in VMEM and an adjoint log in HBM).
+// ops/replay_adjoint_kernel.replay_level_program rewrites a replay
+// program as a stream program: each EVICT and REFILL becomes a SPILL-kind
+// copy op whose one argument is the slot or log row it reads, so its
+// adjoint, the fold of its consumers' edges, passes to that location's
+// producer exactly where the sequential walk added it.  Every gradient
+// row of the basic replay stream has one reader.
 #include "adjoint_ops.cuh"
 
 using namespace canopy;
@@ -52,9 +62,11 @@ __global__ void stream_level_backward_kernel(
     const int* __restrict__ stage_cons, int n_basic,
     const V* __restrict__ staged, const V* __restrict__ house,
     const V* __restrict__ log, const V* __restrict__ ct, V* edge,
-    V* __restrict__ grad, long long T, int tile, int n_log, int top_op) {
+    V* __restrict__ grad, long long T, int tile, int n_log, int top_op,
+    V* dp_base) {
   extern __shared__ __align__(16) unsigned char smem[];
   V* slog = reinterpret_cast<V*>(smem);
+  const DpScratch<V> dp = dp_scratch(dp_base);
   const long long t0 = (long long)blockIdx.x * tile;
   const int nt = (int)(T - t0 < tile ? T - t0 : tile);
   if (SMEM_LOG) {
@@ -82,7 +94,7 @@ __global__ void stream_level_backward_kernel(
         const BackReads<V> x{args, staged, house, rows, stride,
                              SMEM_LOG ? tl : t, T, t};
         const EdgeCtx<V> ctx{x, args, edge, T, t};
-        backward_gate(op, a, ctx);
+        backward_gate(op, a, ctx, dp);
       }
     }
     __syncthreads();
@@ -107,7 +119,7 @@ int launch_level_backward(const int* ops, const int* args, const int* order,
                           int n_basic, const V* staged, const V* house,
                           const V* log, const V* ct, V* edge, V* grad,
                           long long T, int tile, int n_log, int top_op,
-                          int smem_log, void* stream) {
+                          int smem_log, V* dp, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long blocks = (T + tile - 1) / tile;
   if (smem_log) {
@@ -119,13 +131,13 @@ int launch_level_backward(const int* ops, const int* args, const int* order,
     kernel<<<(unsigned)blocks, LEVEL_THREADS, smem, s>>>(
         ops, args, order, level_ptr, n_levels, cons_ptr, cons, stage_ptr,
         stage_cons, n_basic, staged, house, log, ct, edge, grad, T, tile,
-        n_log, top_op);
+        n_log, top_op, dp);
   } else {
     stream_level_backward_kernel<V, false>
         <<<(unsigned)blocks, LEVEL_THREADS, 0, s>>>(
             ops, args, order, level_ptr, n_levels, cons_ptr, cons,
             stage_ptr, stage_cons, n_basic, staged, house, log, ct, edge,
-            grad, T, tile, n_log, top_op);
+            grad, T, tile, n_log, top_op, dp);
   }
   return (int)cudaGetLastError();
 }
@@ -135,18 +147,19 @@ int launch_level_backward(const int* ops, const int* args, const int* order,
 extern "C" {
 
 // grad (n_basic, T), edge (n_args, T) scratch (need not be zeroed);
-// order/level_ptr/cons_ptr/cons/stage_ptr/stage_cons from level_schedule.
+// order/level_ptr/cons_ptr/cons/stage_ptr/stage_cons from level_schedule;
+// dp the count-DP scratch (states, blocks * LEVEL_THREADS) or null.
 int canopy_stream_level_backward_f32(
     const int* ops, const int* args, const int* order, const int* level_ptr,
     int n_levels, const int* cons_ptr, const int* cons, const int* stage_ptr,
     const int* stage_cons, int n_basic, const float* staged,
     const float* house, const float* log, const float* ct, float* edge,
     float* grad, long long T, int tile, int n_log, int top_op, int smem_log,
-    void* stream) {
+    float* dp, void* stream) {
   return launch_level_backward<float>(
       ops, args, order, level_ptr, n_levels, cons_ptr, cons, stage_ptr,
       stage_cons, n_basic, staged, house, log, ct, edge, grad, T, tile,
-      n_log, top_op, smem_log, stream);
+      n_log, top_op, smem_log, dp, stream);
 }
 
 int canopy_stream_level_backward_f64(
@@ -155,11 +168,11 @@ int canopy_stream_level_backward_f64(
     const int* stage_cons, int n_basic, const double* staged,
     const double* house, const double* log, const double* ct, double* edge,
     double* grad, long long T, int tile, int n_log, int top_op, int smem_log,
-    void* stream) {
+    double* dp, void* stream) {
   return launch_level_backward<double>(
       ops, args, order, level_ptr, n_levels, cons_ptr, cons, stage_ptr,
       stage_cons, n_basic, staged, house, log, ct, edge, grad, T, tile,
-      n_log, top_op, smem_log, stream);
+      n_log, top_op, smem_log, dp, stream);
 }
 
 }  // extern "C"

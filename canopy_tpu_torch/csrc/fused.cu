@@ -38,17 +38,18 @@ __global__ void fused_forward_kernel(const int* __restrict__ ops,
                                      const float* __restrict__ staged,
                                      const float* __restrict__ house,
                                      float* __restrict__ top, long long T,
-                                     int top_row) {
+                                     int top_row, float* dp_base) {
   extern __shared__ float gates[];  // (n_gates, W), trials contiguous
   const int W = blockDim.x, lane = threadIdx.x;
   const long long t = (long long)blockIdx.x * W + lane;
   if (t >= T) return;  // columns are private: no barrier to keep
   float* column = gates + lane;
   const SharedRows<float> rows{column, W};
+  const DpScratch<float> dp = dp_scratch(dp_base);
   for (int o = 0; o < n_ops; ++o) {
     const int* op = ops + (long long)o * OP_COLS;
     column[op[1] * W] =
-        eval_op(op, o, nullptr, args, staged, house, rows, T, t);
+        eval_op(op, o, nullptr, args, staged, house, rows, T, t, dp);
   }
   top[t] = column[top_row * W];
 }
@@ -58,11 +59,12 @@ __global__ void fused_forward_kernel(const int* __restrict__ ops,
 extern "C" {
 
 // staged (n_basic, T) f32, house (n_house + 1,) f32, top (T,) f32; W
-// trials per block with n_gates * W * 4 bytes of dynamic shared memory.
+// trials per block with n_gates * W * 4 bytes of dynamic shared memory;
+// dp the count-DP scratch (states, blocks * W) or null.
 int canopy_fused_forward_f32(const int* ops, const int* args, int n_ops,
                              const float* staged, const float* house,
                              float* top, long long T, int n_gates, int top_row,
-                             int W, void* stream) {
+                             int W, float* dp, void* stream) {
   const size_t smem = (size_t)n_gates * W * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       fused_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -71,7 +73,7 @@ int canopy_fused_forward_f32(const int* ops, const int* args, int n_ops,
   const long long blocks = (T + W - 1) / W;
   fused_forward_kernel<<<(unsigned)blocks, W, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      ops, args, n_ops, staged, house, top, T, top_row);
+      ops, args, n_ops, staged, house, top, T, top_row, dp);
   return (int)cudaGetLastError();
 }
 

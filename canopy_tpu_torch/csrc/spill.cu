@@ -44,7 +44,7 @@ __global__ void spill_forward_kernel(const int* __restrict__ ops,
                                      const V* __restrict__ staged,
                                      const V* __restrict__ house, V* scratch,
                                      V* __restrict__ top, long long T,
-                                     int top_slot) {
+                                     int top_slot, V* dp_base) {
   extern __shared__ __align__(16) unsigned char smem_bytes[];
   V* shared = reinterpret_cast<V*>(smem_bytes);
   const int W = blockDim.x, lane = threadIdx.x;
@@ -52,6 +52,7 @@ __global__ void spill_forward_kernel(const int* __restrict__ ops,
   if (t >= T) return;
   V* column = shared + lane;
   const SharedRows<V> pool{column, W};
+  const DpScratch<V> dp = dp_scratch(dp_base);
   for (int o = 0; o < n_ops; ++o) {
     const int* op = ops + (long long)o * OP_COLS;
     const int kind = op[0];
@@ -61,7 +62,7 @@ __global__ void spill_forward_kernel(const int* __restrict__ ops,
       column[op[1] * W] = scratch[at(op[4], T, t)];
     } else {  // a gate, or SPILL: a staged row into the pool
       column[op[1] * W] =
-          eval_op(op, o, nullptr, args, staged, house, pool, T, t);
+          eval_op(op, o, nullptr, args, staged, house, pool, T, t, dp);
     }
   }
   top[t] = column[top_slot * W];
@@ -71,7 +72,7 @@ template <typename V>
 int launch_spill_forward(const int* ops, const int* args, int n_ops,
                          const V* staged, const V* house, V* scratch, V* top,
                          long long T, int pool_slots, int top_slot, int W,
-                         void* stream) {
+                         V* dp, void* stream) {
   const size_t smem = (size_t)pool_slots * W * sizeof(V);
   cudaError_t err = cudaFuncSetAttribute(
       spill_forward_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -80,7 +81,7 @@ int launch_spill_forward(const int* ops, const int* args, int n_ops,
   const long long blocks = (T + W - 1) / W;
   spill_forward_kernel<V>
       <<<(unsigned)blocks, W, smem, static_cast<cudaStream_t>(stream)>>>(
-          ops, args, n_ops, staged, house, scratch, top, T, top_slot);
+          ops, args, n_ops, staged, house, scratch, top, T, top_slot, dp);
   return (int)cudaGetLastError();
 }
 
@@ -90,25 +91,26 @@ extern "C" {
 
 // staged (n_basic, T), house (n_house + 1,), scratch (max(n_scratch, 1), T),
 // top (T,); W trials per block with pool_slots * W * sizeof(V) bytes of
-// dynamic shared memory.
+// dynamic shared memory; dp the count-DP scratch (states, blocks * W) or
+// null.
 int canopy_spill_forward_f32(const int* ops, const int* args, int n_ops,
                              const float* staged, const float* house,
                              float* scratch, float* top, long long T,
-                             int pool_slots, int top_slot, int W,
+                             int pool_slots, int top_slot, int W, float* dp,
                              void* stream) {
   return launch_spill_forward<float>(ops, args, n_ops, staged, house,
                                      scratch, top, T, pool_slots, top_slot, W,
-                                     stream);
+                                     dp, stream);
 }
 
 int canopy_spill_forward_f64(const int* ops, const int* args, int n_ops,
                              const double* staged, const double* house,
                              double* scratch, double* top, long long T,
-                             int pool_slots, int top_slot, int W,
+                             int pool_slots, int top_slot, int W, double* dp,
                              void* stream) {
   return launch_spill_forward<double>(ops, args, n_ops, staged, house,
                                       scratch, top, T, pool_slots, top_slot,
-                                      W, stream);
+                                      W, dp, stream);
 }
 
 }  // extern "C"

@@ -214,8 +214,10 @@ __global__ void __launch_bounds__(2 * STEP_THREADS, 2)
               const long long tk = base + k * B + i;
               const long long t = tk < T ? tk : T - 1;  // staged reads
               const GlobalRows<V> rows{gpool, Tp, tk};
-              gpool[at(out, Tp, tk)] =
-                  eval_op(op, o, fill, args, staged, house, rows, T, t);
+              // Step programs hold muxes and fills only: no count DP.
+              gpool[at(out, Tp, tk)] = eval_op(op, o, fill, args, staged,
+                                               house, rows, T, t,
+                                               DpScratch<V>{nullptr, 0});
             }
           }
         }
@@ -250,7 +252,10 @@ int launch_steps(const int4* recs, const int* rec_op, int n_chunks,
 // One trial per thread over the general op table, the pool (pool_slots,
 // T) in device memory: the first design, kept for programs of general
 // ops (tree programs), whose eval_op chains need the occupancy of a small
-// register footprint.
+// register footprint.  Blocks of OPS_THREADS (ops/stream_kernel.py
+// _OPS_THREADS, which sizes the count-DP scratch).
+constexpr int OPS_THREADS = 128;
+
 template <typename V>
 __global__ void stream_ops_kernel(const int* __restrict__ ops,
                                   const float* __restrict__ fill,
@@ -258,14 +263,15 @@ __global__ void stream_ops_kernel(const int* __restrict__ ops,
                                   const V* __restrict__ staged,
                                   const V* __restrict__ house, V* pool,
                                   V* __restrict__ top, long long T,
-                                  int top_slot) {
+                                  int top_slot, V* dp_base) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= T) return;
   const GlobalRows<V> rows{pool, T, t};
+  const DpScratch<V> dp = dp_scratch(dp_base);
   for (int o = 0; o < n_ops; ++o) {
     const int* op = ops + (long long)o * OP_COLS;
     pool[at(op[1], T, t)] =
-        eval_op(op, o, fill, args, staged, house, rows, T, t);
+        eval_op(op, o, fill, args, staged, house, rows, T, t, dp);
   }
   top[t] = pool[at(top_slot, T, t)];
 }
@@ -273,12 +279,12 @@ __global__ void stream_ops_kernel(const int* __restrict__ ops,
 template <typename V>
 int launch_ops(const int* ops, const float* fill, const int* args, int n_ops,
                const V* staged, const V* house, V* pool, V* top, long long T,
-               int top_slot, void* stream) {
-  const int threads = 128;
+               int top_slot, V* dp, void* stream) {
+  const int threads = OPS_THREADS;
   const long long blocks = (T + threads - 1) / threads;
   stream_ops_kernel<V><<<(unsigned)blocks, threads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      ops, fill, args, n_ops, staged, house, pool, top, T, top_slot);
+      ops, fill, args, n_ops, staged, house, pool, top, T, top_slot, dp);
   return (int)cudaGetLastError();
 }
 
@@ -293,9 +299,10 @@ __global__ void stream_level_forward_kernel(
     const int* __restrict__ level_ptr, int n_levels,
     const V* __restrict__ staged, const V* __restrict__ house, V* log,
     V* __restrict__ top, long long T, int tile, int n_log, int top_src,
-    int top_idx) {
+    int top_idx, V* dp_base) {
   extern __shared__ __align__(16) unsigned char smem[];
   V* slog = reinterpret_cast<V*>(smem);
+  const DpScratch<V> dp = dp_scratch(dp_base);
   const long long t0 = (long long)blockIdx.x * tile;
   const int nt = (int)(T - t0 < tile ? T - t0 : tile);
   V* rows = SMEM_LOG ? slog : log;
@@ -310,7 +317,8 @@ __global__ void stream_level_forward_kernel(
       if (row < 0) continue;  // SPILL: its readers read the staged row
       const long long c = SMEM_LOG ? tl : t;
       const BackReads<V> x{args, staged, house, rows, stride, c, T, t};
-      rows[(long long)row * stride + c] = eval_op_with(op, V(fill[o]), x);
+      rows[(long long)row * stride + c] =
+          eval_op_with(op, V(fill[o]), x, dp);
     }
     __syncthreads();
   }
@@ -335,7 +343,7 @@ int launch_level_forward(const int* ops, const float* fill, const int* args,
                          const int* order, const int* level_ptr, int n_levels,
                          const V* staged, const V* house, V* log, V* top,
                          long long T, int tile, int n_log, int top_src,
-                         int top_idx, int smem_log, void* stream) {
+                         int top_idx, int smem_log, V* dp, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long blocks = (T + tile - 1) / tile;
   if (smem_log) {
@@ -346,12 +354,12 @@ int launch_level_forward(const int* ops, const float* fill, const int* args,
     if (err != cudaSuccess) return (int)err;
     kernel<<<(unsigned)blocks, LEVEL_THREADS, smem, s>>>(
         ops, fill, args, order, level_ptr, n_levels, staged, house, log, top,
-        T, tile, n_log, top_src, top_idx);
+        T, tile, n_log, top_src, top_idx, dp);
   } else {
     stream_level_forward_kernel<V, false>
         <<<(unsigned)blocks, LEVEL_THREADS, 0, s>>>(
             ops, fill, args, order, level_ptr, n_levels, staged, house, log,
-            top, T, tile, n_log, top_src, top_idx);
+            top, T, tile, n_log, top_src, top_idx, dp);
   }
   return (int)cudaGetLastError();
 }
@@ -385,37 +393,40 @@ int canopy_stream_forward_f64(const void* recs, const int* rec_op,
 }
 
 // The one-trial-per-thread kernel: top (T,), pool (pool_slots, T)
-// scratch.
+// scratch; dp the count-DP scratch (states, blocks * OPS_THREADS) or null
+// (dp_scratch, stream_ops.cuh).
 int canopy_stream_ops_forward_f32(const int* ops, const float* fill,
                                   const int* args, int n_ops,
                                   const float* staged, const float* house,
                                   float* pool, float* top, long long T,
-                                  int top_slot, void* stream) {
+                                  int top_slot, float* dp, void* stream) {
   return launch_ops<float>(ops, fill, args, n_ops, staged, house, pool, top,
-                           T, top_slot, stream);
+                           T, top_slot, dp, stream);
 }
 
 int canopy_stream_ops_forward_f64(const int* ops, const float* fill,
                                   const int* args, int n_ops,
                                   const double* staged, const double* house,
                                   double* pool, double* top, long long T,
-                                  int top_slot, void* stream) {
+                                  int top_slot, double* dp, void* stream) {
   return launch_ops<double>(ops, fill, args, n_ops, staged, house, pool, top,
-                            T, top_slot, stream);
+                            T, top_slot, dp, stream);
 }
 
-// log (n_log, T), top (T,); order/level_ptr from level_schedule.
+// log (n_log, T), top (T,); order/level_ptr from level_schedule; dp the
+// count-DP scratch (states, blocks * LEVEL_THREADS) or null.
 int canopy_stream_level_forward_f32(const int* ops, const float* fill,
                                     const int* args, const int* order,
                                     const int* level_ptr, int n_levels,
                                     const float* staged, const float* house,
                                     float* log, float* top, long long T,
                                     int tile, int n_log, int top_src,
-                                    int top_idx, int smem_log, void* stream) {
+                                    int top_idx, int smem_log, float* dp,
+                                    void* stream) {
   return launch_level_forward<float>(ops, fill, args, order, level_ptr,
                                      n_levels, staged, house, log, top, T,
                                      tile, n_log, top_src, top_idx, smem_log,
-                                     stream);
+                                     dp, stream);
 }
 
 int canopy_stream_level_forward_f64(const int* ops, const float* fill,
@@ -425,11 +436,11 @@ int canopy_stream_level_forward_f64(const int* ops, const float* fill,
                                     const double* house, double* log,
                                     double* top, long long T, int tile,
                                     int n_log, int top_src, int top_idx,
-                                    int smem_log, void* stream) {
+                                    int smem_log, double* dp, void* stream) {
   return launch_level_forward<double>(ops, fill, args, order, level_ptr,
                                       n_levels, staged, house, log, top, T,
                                       tile, n_log, top_src, top_idx,
-                                      smem_log, stream);
+                                      smem_log, dp, stream);
 }
 
 const char* canopy_cuda_error_string(int code) {

@@ -33,8 +33,47 @@ enum Src { POOL = 0, STAGED = 1, HOUSE = 2, LOG = 3 };
 
 constexpr int OP_COLS = 7;
 constexpr int ARG_COLS = 5;
-// Per-thread count-DP states (lo + 1 or hi + 2 of them, see above).
+// Count-DP states (lo + 1 or hi + 2 of them, see above) that one thread
+// keeps in its own local array; a wider form runs the same recurrence
+// over a column of a device-memory scratch (DpScratch).
 constexpr int MAX_COUNT_STATES = 128;
+
+// The device-memory count-DP scratch of one thread: a (states, launched
+// threads) array, the thread index contiguous, allocated by the wrapper
+// only for a program whose count_window forms exceed MAX_COUNT_STATES
+// (null otherwise).  State k of the thread sits at column[k * stride].
+template <typename V>
+struct DpScratch {
+  V* column;
+  long long stride;
+};
+
+// The scratch column of the calling thread (blockIdx.x * blockDim.x +
+// threadIdx.x of gridDim.x * blockDim.x threads) in `base`.
+template <typename V>
+__device__ __forceinline__ DpScratch<V> dp_scratch(V* base) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  return {base == nullptr
+              ? nullptr
+              : base + (long long)blockIdx.x * blockDim.x + threadIdx.x,
+          stride};
+}
+
+// DP state arrays of the count recurrences: a thread-local array, or the
+// thread's scratch column.  Both run the same code, in the same order.
+template <typename V>
+struct LocalDp {
+  V* a;
+  __device__ __forceinline__ V& operator[](int k) const { return a[k]; }
+};
+template <typename V>
+struct ScratchDp {
+  V* column;
+  long long stride;
+  __device__ __forceinline__ V& operator[](int k) const {
+    return column[k * stride];
+  }
+};
 
 // The absorbing state of a count window [lo, hi] over n arguments.
 __device__ __forceinline__ int count_cap(int lo, int hi, int n) {
@@ -126,14 +165,41 @@ struct BackReads {
   }
 };
 
+// The Poisson-binomial DP of a COUNT op over states dp[0..cap], the
+// absorbing state `cap` (">= cap"), its arguments read through x(j).
+template <typename V, typename D, typename X>
+__device__ __forceinline__ V count_value(const int* __restrict__ op, D dp,
+                                         const X& x) {
+  const int b = op[2], e = op[3], lo = op[4], hi = op[5], n = e - b;
+  const int cap = count_cap(lo, hi, n);
+  dp[0] = V(1);
+  for (int k = 1; k <= cap; ++k) dp[k] = V(0);
+  for (int j = b; j < e && cap >= 1; ++j) {
+    const V xj = x(j);
+    dp[cap] = dp[cap] + dp[cap - 1] * xj;
+    for (int k = cap - 1; k >= 1; --k)
+      dp[k] = dp[k] * (V(1) - xj) + dp[k - 1] * xj;
+    dp[0] = dp[0] * (V(1) - xj);
+  }
+  if (hi >= n) return dp[lo];
+  V v = V(0);
+  if (lo <= hi) {
+    v = dp[lo];
+    for (int k = lo + 1; k <= hi; ++k) v = v + dp[k];
+  }
+  return v;
+}
+
 // The value of one op, its arguments read through x(j) (the argument
 // table row j, complement applied): the one body of the op arithmetic
 // that every forward kernel shares.  With --fmad=false it rounds as the
 // plain PyTorch versions do.  A SPILL op's one argument is its staged
-// row, so x(b) is the value it copies.
+// row, so x(b) is the value it copies.  A COUNT op wider than
+// MAX_COUNT_STATES keeps its DP in the thread's scratch column `dp`.
 template <typename V, typename X>
 __device__ __forceinline__ V eval_op_with(const int* __restrict__ op,
-                                          V fill_value, const X& x) {
+                                          V fill_value, const X& x,
+                                          const DpScratch<V>& dp) {
   const int kind = op[0], b = op[2], e = op[3];
   V v;
   if (kind == MUX) {
@@ -148,27 +214,11 @@ __device__ __forceinline__ V eval_op_with(const int* __restrict__ op,
     v = a + c - V(2) * a * c;
     if (op[4]) v = V(1) - v;
   } else if (kind == COUNT) {
-    // Poisson-binomial DP with the absorbing state `cap` (">= cap").
-    const int lo = op[4], hi = op[5], n = e - b;
-    const int cap = count_cap(lo, hi, n);
-    V dp[MAX_COUNT_STATES];
-    dp[0] = V(1);
-    for (int k = 1; k <= cap; ++k) dp[k] = V(0);
-    for (int j = b; j < e && cap >= 1; ++j) {
-      const V xj = x(j);
-      dp[cap] = dp[cap] + dp[cap - 1] * xj;
-      for (int k = cap - 1; k >= 1; --k)
-        dp[k] = dp[k] * (V(1) - xj) + dp[k - 1] * xj;
-      dp[0] = dp[0] * (V(1) - xj);
-    }
-    if (hi >= n) {
-      v = dp[lo];
+    if (count_cap(op[4], op[5], e - b) < MAX_COUNT_STATES) {
+      V local[MAX_COUNT_STATES];
+      v = count_value<V>(op, LocalDp<V>{local}, x);
     } else {
-      v = V(0);
-      if (lo <= hi) {
-        v = dp[lo];
-        for (int k = lo + 1; k <= hi; ++k) v = v + dp[k];
-      }
+      v = count_value<V>(op, ScratchDp<V>{dp.column, dp.stride}, x);
     }
   } else if (kind == FILL) {
     v = V(fill_value);
@@ -186,9 +236,9 @@ __device__ __forceinline__ V eval_op(const int* __restrict__ op, int o,
                                      const V* __restrict__ staged,
                                      const V* __restrict__ house,
                                      const Pool& pool, long long T,
-                                     long long t) {
+                                     long long t, const DpScratch<V>& dp) {
   const ArgLoader<V, Pool> x{args, staged, house, pool, T, t};
-  return eval_op_with(op, fill != nullptr ? V(fill[o]) : V(0), x);
+  return eval_op_with(op, fill != nullptr ? V(fill[o]) : V(0), x, dp);
 }
 
 }  // namespace canopy

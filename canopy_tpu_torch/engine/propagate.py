@@ -178,8 +178,8 @@ def top_event_probability(tree: CompiledTree, basic_p: torch.Tensor,
 #: The JAX package's thrashing guard for the spill tier under its TPU auto
 #: dispatch: a schedule refilling more than this share of its ops trails
 #: gather there.  Kept as the same logic; the port's auto dispatch never
-#: picks spill (the uncapped stream runs every anchored tree whose count
-#: windows fit, ``_auto_engine``).
+#: picks spill (the uncapped stream runs every anchored tree,
+#: ``_auto_engine``).
 _SPILL_MAX_REFILL_DENSITY = 0.15
 
 
@@ -202,11 +202,7 @@ def _auto_engine(tree: CompiledTree, device: torch.device,
     """The engine ``engine="auto"`` runs: on CUDA with an anchored top the
     uncapped tree stream, which measured 7-10x faster on the card than
     the fused kernels on the trees they fit (``PERF.md``); gather on the
-    CPU, for ``output="all"`` and for a tree without an anchored top.
-    The stream refuses one anchored tree: a count gate whose window no
-    kernel DP form fits (``ops/stream_kernel.count_window``: a bounded
-    window whose ``hi`` and ``n - lo`` both exceed 126), with
-    ``LogicError`` when the propagator is built."""
+    CPU, for ``output="all"`` and for a tree without an anchored top."""
     if device.type != "cuda" or output != "top" or tree.top_index is None:
         return "gather"
     return "stream"

@@ -113,33 +113,27 @@ def load_library() -> ctypes.CDLL:
                         i32, vp]
         fwd.restype = i32
         fwd = getattr(lib, f"canopy_stream_ops_forward_{suffix}")
-        fwd.argtypes = [vp, vp, vp, i32, vp, vp, vp, vp, i64, i32, vp]
+        fwd.argtypes = [vp, vp, vp, i32, vp, vp, vp, vp, i64, i32, vp, vp]
         fwd.restype = i32
         lvl = getattr(lib, f"canopy_stream_level_forward_{suffix}")
         lvl.argtypes = [vp, vp, vp, vp, vp, i32, vp, vp, vp, vp, i64, i32,
-                        i32, i32, i32, i32, vp]
+                        i32, i32, i32, i32, vp, vp]
         lvl.restype = i32
         lvl = getattr(lib, f"canopy_stream_level_backward_{suffix}")
         lvl.argtypes = [vp, vp, vp, vp, i32, vp, vp, vp, vp, i32, vp, vp,
-                        vp, vp, vp, vp, i64, i32, i32, i32, i32, vp]
+                        vp, vp, vp, vp, i64, i32, i32, i32, i32, vp, vp]
         lvl.restype = i32
-        fwd = getattr(lib, f"canopy_replay_forward_{suffix}")
-        fwd.argtypes = [vp, vp, i32, vp, vp, vp, vp, i64, i32, i32, i32, i32,
+        for name in ("replay_forward", "replay_tape_forward"):
+            fwd = getattr(lib, f"canopy_{name}_{suffix}")
+            fwd.argtypes = [vp, i32, i32, vp, vp, vp, vp, vp, vp, i64, i32,
+                            i32, i32, i32, i32, vp, vp]
+            fwd.restype = i32
+        fwd = getattr(lib, f"canopy_spill_forward_{suffix}")
+        fwd.argtypes = [vp, vp, i32, vp, vp, vp, vp, i64, i32, i32, i32, vp,
                         vp]
         fwd.restype = i32
-        tape = getattr(lib, f"canopy_replay_tape_forward_{suffix}")
-        tape.argtypes = [vp, vp, i32, vp, vp, vp, vp, vp, i64, i32, i32, i32,
-                         i32, vp]
-        tape.restype = i32
-        bwd = getattr(lib, f"canopy_replay_backward_{suffix}")
-        bwd.argtypes = [vp, vp, i32, vp, vp, vp, vp, vp, vp, i64, i32, i32,
-                        i32, vp]
-        bwd.restype = i32
-        fwd = getattr(lib, f"canopy_spill_forward_{suffix}")
-        fwd.argtypes = [vp, vp, i32, vp, vp, vp, vp, i64, i32, i32, i32, vp]
-        fwd.restype = i32
     lib.canopy_fused_forward_f32.argtypes = [vp, vp, i32, vp, vp, vp, i64,
-                                             i32, i32, i32, vp]
+                                             i32, i32, i32, vp, vp]
     lib.canopy_fused_forward_f32.restype = i32
     lib.canopy_fused_max_smem_bytes.restype = i32
     lib.canopy_packed_bernoulli.argtypes = [vp, i64, i64, i64, ctypes.c_uint,

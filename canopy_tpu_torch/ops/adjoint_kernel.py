@@ -28,13 +28,15 @@ import torch
 
 from ..errors import LogicError
 from .stream_kernel import (COUNT, FILL, LAUNCHES, LOG, MUX, PAIR, POOL,
-                            PROD, SMEM_BYTES, SPILL, STAGED, _SUFFIX,
-                            EncodedStream, _check_cuda, _check_staged,
+                            PROD, SMEM_BYTES, SPILL, STAGED, _LEVEL_THREADS,
+                            _SUFFIX, EncodedStream, _check_cuda,
+                            _check_staged, _dp_scratch, _ptr,
                             _raise_on, house_tensor, level_schedule,
                             level_tile, stream_forward)
 
 __all__ = ["stream_backward", "stream_backward_plain",
-           "stream_backward_levels_plain", "make_differentiable_stream"]
+           "stream_backward_levels_plain", "level_backward",
+           "make_differentiable_stream"]
 
 
 def _plain_backward_gate(op, a, args, x, accum, zeros) -> None:
@@ -85,18 +87,18 @@ def _plain_backward_gate(op, a, args, x, accum, zeros) -> None:
         cap = aux0 if is_open else aux1 + 1
         xs = [x(args[j]) for j in range(b, e)]
         for s in range(e - b):
-            dp = [torch.ones_like(zeros)]
+            # States are rows of one (len, T) tensor, updated element for
+            # element as the kernel updates its states.
+            dp = torch.ones_like(zeros)[None]
             for j, v in enumerate(xs):
                 if j == s:
                     continue
-                new = [dp[0] * (1.0 - v)]
-                for k in range(1, len(dp)):
-                    new.append(dp[k] * (1.0 - v) + dp[k - 1] * v)
+                nv = 1.0 - v
+                new = torch.cat([dp[:1] * nv, dp[1:] * nv + dp[:-1] * v])
                 if len(dp) <= cap:
-                    new.append(dp[-1] * v)
+                    dp = torch.cat([new, dp[-1:] * v])
                 else:
-                    new[-1] = new[-1] + dp[-1] * v
-                dp = new
+                    dp = torch.cat([new[:-1], new[-1:] + dp[-1:] * v])
 
             def mass(a0, b0):
                 lo, hi = max(a0, 0), min(b0, len(dp) - 1)
@@ -218,10 +220,23 @@ def stream_backward(enc: EncodedStream, staged: torch.Tensor, house,
         raise LogicError("log/cotangent shapes do not match the program")
     if device.type != "cuda":
         return stream_backward_plain(enc, staged, house_t, log, ct)
+    return level_backward(enc, staged, house_t, log, ct, "adjoint")
+
+
+def level_backward(enc: EncodedStream, staged: torch.Tensor,
+                   house_t: torch.Tensor, log: torch.Tensor, ct: torch.Tensor,
+                   counter: str) -> torch.Tensor:
+    """Launch ``csrc/adjoint.cu``'s level-parallel gather form on CUDA
+    tensors over ``level_schedule(enc)``: the gradient ``(n_basic,
+    n_trials)``.  ``LAUNCHES[counter]`` counts the launch (``adjoint``
+    for stream programs, ``replay_bwd`` for replay programs in their level
+    form)."""
     from ._build import load_library
     lib = load_library()
+    dtype = staged.dtype
     staged, log, ct = staged.contiguous(), log.contiguous(), ct.contiguous()
     _check_cuda(dtype, staged, log, ct)
+    device, T = staged.device, staged.shape[1]
     ops, args, _fill = enc.tables(device)
     stream = torch.cuda.current_stream(device).cuda_stream
     sched = level_schedule(enc)
@@ -231,15 +246,16 @@ def stream_backward(enc: EncodedStream, staged: torch.Tensor, house,
     edge = torch.empty((max(len(enc.args), 1), T), dtype=dtype,
                        device=device)
     grad = torch.empty((enc.n_basic, T), dtype=dtype, device=device)
-    LAUNCHES["adjoint"] += 1
+    dp = _dp_scratch(enc, -(-T // tile), _LEVEL_THREADS, staged)
+    LAUNCHES[counter] += 1
     code = getattr(lib, f"canopy_stream_level_backward_{_SUFFIX[dtype]}")(
         ops.data_ptr(), args.data_ptr(),
         *(t.data_ptr() for t in tables[:2]), sched.n_levels,
         *(t.data_ptr() for t in tables[2:]), enc.n_basic,
         staged.data_ptr(), house_t.data_ptr(), log.data_ptr(),
         ct.data_ptr(), edge.data_ptr(), grad.data_ptr(), T, tile,
-        enc.n_log, sched.top_op, int(smem_log), stream)
-    _raise_on(lib, code, "stream level backward")
+        enc.n_log, sched.top_op, int(smem_log), _ptr(dp), stream)
+    _raise_on(lib, code, "level backward")
     return grad
 
 

@@ -49,7 +49,7 @@ from ..compiler.schedule import _emit_gate_ops
 from ..errors import LogicError
 from .stream_kernel import (HOUSE, LAUNCHES, POOL, SMEM_BYTES, STAGED,
                             EncodedStream, _KIND, _check_cuda, _count_row,
-                            _raise_on,
+                            _dp_scratch, _ptr, _raise_on,
                             house_tensor, stream_forward_plain)
 
 __all__ = ["SMEM_BYTES", "TILED_TRIALS", "LANE_TRIALS", "fused_supported",
@@ -107,9 +107,7 @@ def encode_fused(tree: CompiledTree) -> EncodedStream:
             args.append([src, index, int(bool(flag)), src, index])
         aux0 = aux1 = 0
         if kind == "count":
-            aux0, aux1, states = _count_row(
-                aux, len(gate_args), repr(tree.gates[out - base].name), args,
-                begin)
+            aux0, aux1, states = _count_row(aux, len(gate_args), args, begin)
             max_states = max(max_states, states)
         else:
             aux0 = int(bool(aux))
@@ -168,12 +166,13 @@ def fused_forward(enc: EncodedStream, staged: torch.Tensor, house,
     T = staged.shape[1]
     ops, args, _fill = enc.tables(device)
     top = torch.empty(T, dtype=torch.float32, device=device)
+    dp = _dp_scratch(enc, -(-T // block_trials), block_trials, staged)
     LAUNCHES["fused_tiled" if block_trials == TILED_TRIALS
              else "fused"] += 1
     code = lib.canopy_fused_forward_f32(
         ops.data_ptr(), args.data_ptr(), enc.n_ops, staged.data_ptr(),
         house_t.data_ptr(), top.data_ptr(), T, enc.pool_slots,
-        enc.top_slot, block_trials,
+        enc.top_slot, block_trials, _ptr(dp),
         torch.cuda.current_stream(device).cuda_stream)
     _raise_on(lib, code, "fused forward")
     return top

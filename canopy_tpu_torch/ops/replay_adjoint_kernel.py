@@ -4,18 +4,29 @@ Replaces ``canopy_tpu/ops/replay_adjoint_kernel.py``.  Its
 ``_tape_fwd_kernel`` copies every argument the replay forward reads into
 an HBM argument tape; here the taped forward is the replay kernel with
 its value log on (one row per gate output, the stream adjoint's design:
-about 4x fewer rows on the bench trees), launched from
-``csrc/replay_adjoint.cu``.  Its ``_bwd_kernel`` walks the backward
-segments of ``compiler/replay_adjoint.py`` in reverse, as sub-kernels of
-at most ``max_bwd_ops`` ops, with an XLA scatter-add of the gate-stream
-cotangents into the adjoint log between segments; here one launch walks
-the flat replay op table (``stream_kernel.encode_replay``) in reverse,
-the adjoint pool in shared memory with the forward's slot assignment,
-the eviction-log adjoints in device memory, and every cotangent of an
-evicted value's read added straight into its log row (see
-``csrc/replay_adjoint.cu``).  The result is the gradient stream, laid out
-like the basic replay stream, which ``stream_kernel.replay_grad_basic``
-folds back onto the basic events in a fixed order.
+about 4x fewer rows on the bench trees), ``csrc/replay_ops.cuh``
+instantiated from ``csrc/replay_adjoint.cu``.  Its ``_bwd_kernel`` walks
+the backward segments of ``compiler/replay_adjoint.py`` in reverse, as
+sub-kernels of at most ``max_bwd_ops`` ops, with an XLA scatter-add of
+the gate-stream cotangents into the adjoint log between segments.
+
+Here the backward is level-parallel, in the stream adjoint's gather form
+(``csrc/adjoint.cu``, one kernel for both adjoints).
+:func:`replay_level_program` rewrites the flat replay op table
+(``stream_kernel.encode_replay``) as a stream program the level kernel
+takes: gates keep their arguments, and each EVICT and REFILL becomes a
+copy op (SPILL) whose one argument is the location it reads, so moving a
+value's adjoint through the eviction log is an op like any other.  Each
+argument's producer follows the schedule: a pool slot's last writer (a
+gate or a REFILL), an eviction-log row's EVICT.  Every op's adjoint is
+then the left fold, from 0, of its consumers' edge partials in reverse
+op order, which is how the sequential walk (:func:`replay_backward_plain`)
+accumulates each slot, log row and gradient row, EVICT and REFILL
+included: the kernel is bit-equal to it
+(:func:`replay_backward_levels_plain` shows it in plain torch).  The
+result is the gradient stream, laid out like the basic replay stream,
+which ``stream_kernel.replay_grad_basic`` folds back onto the basic
+events in a fixed order.
 
 The adjoint schedule (``bwd_segments``, tape puts) of a
 ``ReplayAdjointProgram`` is therefore not run: the port uses its base
@@ -23,32 +34,35 @@ program (built without the resident tier, as the JAX builder forces for
 the adjoint) and keeps the builder for its checks and its host
 simulator, the CPU oracle.
 
-What bounds the backward on the card: device-memory traffic of the value
-log, the eviction-log adjoints and the gradient stream, at the
-forward's occupancy (``csrc/replay.cu``).
+What bounds the backward on the card: the value log (one read per
+argument), the edge partials (one write and one read per argument) and
+the gradient stream, against a critical path of one shared-memory round
+trip per level of the level program.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..compiler.graph import CompiledTree
 from ..errors import LogicError
-from .adjoint_kernel import _plain_backward_gate
-from .stream_kernel import (EVICT, LAUNCHES, LOG, POOL, REFILL,
-                            STAGED, _SUFFIX, EncodedReplay, _check_cuda,
-                            _check_replay_fits, _check_staged, _raise_on,
-                            _replay_block_trials, _replay_sizing,
-                            encode_replay, house_tensor, replay_forward)
+from .adjoint_kernel import (_plain_backward_gate, level_backward,
+                             stream_backward_levels_plain)
+from .stream_kernel import (EVICT, LOG, POOL, REFILL, SPILL, STAGED,
+                            EncodedReplay, EncodedStream, _check_replay_fits,
+                            _check_staged, _replay_sizing, encode_replay,
+                            house_tensor, replay_forward, schedule_levels)
 
 __all__ = ["compile_replay_adjoint", "replay_tape_forward",
-           "replay_backward_plain", "replay_adjoint_backward",
+           "replay_backward_plain", "replay_level_program",
+           "replay_backward_levels_plain", "replay_adjoint_backward",
            "make_differentiable_replay"]
 
 
 def compile_replay_adjoint(tree: CompiledTree, **kwargs):
     """``compiler/replay_adjoint.build_replay_adjoint`` sized for the card
-    as ``compile_replay_stream`` sizes the forward (a 113-slot pool by
+    as ``compile_replay_stream`` sizes the forward (a 56-slot pool by
     default; the builder turns the resident tier off for the adjoint),
     the built program checked against one block's shared memory
     (``LogicError``)."""
@@ -116,13 +130,86 @@ def replay_backward_plain(enc: EncodedReplay, staged: torch.Tensor,
     return torch.stack(grad)
 
 
+def replay_level_program(enc: EncodedReplay) -> EncodedStream:
+    """The replay program ``enc`` (no resident tier) as the level
+    kernel's stream program, its :func:`~.stream_kernel.level_schedule`
+    attached (cached on ``enc``).
+
+    Ops keep their order and value-log rows.  A gate keeps its argument
+    rows; an EVICT or a REFILL becomes a SPILL-kind op with one argument
+    row of its own, the slot (EVICT) or eviction-log row (REFILL) it
+    copies, through which the level kernel hands the op's adjoint to that
+    location's producer.  Producers: a pool slot's last writer (gate or
+    REFILL), an eviction-log row's EVICT; staged and house arguments have
+    none.  The top op is the top slot's last writer.
+    """
+    if "level_program" in enc._cache:
+        return enc._cache["level_program"]
+    if enc.res_rows:
+        raise LogicError("the replay backward takes programs without a "
+                         "resident tier (compile_replay_adjoint)")
+    P = enc.pool_slots
+    ops, args, producer = [], [], []
+    writer: dict[int, int] = {}     # pool slot -> its last writer
+    evictor: dict[int, int] = {}    # eviction-log row -> its EVICT
+    for o, (kind, slot, b, e, aux0, aux1, row) in enumerate(
+            enc.ops.tolist()):
+        begin = len(args)
+        if kind == EVICT:
+            args.append([POOL, slot, 0, POOL, slot])
+            producer.append(writer[slot])
+            evictor[aux0] = o
+        elif kind == REFILL:
+            args.append([POOL, P + aux0, 0, POOL, P + aux0])
+            producer.append(evictor[aux0])
+            writer[slot] = o
+        else:
+            for a in enc.args[b:e].tolist():
+                args.append(a)
+                idx = a[1]
+                producer.append(-1 if a[0] != POOL else writer[idx]
+                                if idx < P else evictor[idx - P])
+            ops.append([kind, slot, begin, len(args), aux0, aux1, row])
+            writer[slot] = o
+            continue
+        ops.append([SPILL, slot, begin, begin + 1, 0, 0, -1])
+    top_op = src = writer[enc.top_slot]
+    while ops[src][0] == SPILL:     # a refilled top: its gate's log row
+        src = producer[ops[src][2]]
+    program = EncodedStream(
+        ops=np.asarray(ops, dtype=np.int32).reshape(-1, 7),
+        args=np.asarray(args, dtype=np.int32).reshape(-1, 5),
+        fill=np.zeros(len(ops), dtype=np.float32), n_log=enc.n_log,
+        n_basic=enc.n_basic, n_house=enc.n_house, pool_slots=P,
+        top_slot=enc.top_slot, max_count_states=enc.max_count_states,
+        staged_cols=enc.staged_cols)
+    program._cache["levels"] = schedule_levels(
+        program.ops, program.args, np.asarray(producer, dtype=np.int64),
+        enc.n_basic, top_op, LOG, ops[src][6])
+    enc._cache["level_program"] = program
+    return program
+
+
+def replay_backward_levels_plain(enc: EncodedReplay, staged: torch.Tensor,
+                                 house: torch.Tensor, vlog: torch.Tensor,
+                                 ct: torch.Tensor) -> torch.Tensor:
+    """The level-parallel replay backward in plain torch: the stream
+    adjoint's gather form over :func:`replay_level_program` (levels in
+    reverse, edge slots, each op's adjoint the fold of its consumers'
+    edges).  Bit-equal to :func:`replay_backward_plain`; returns the
+    gradient stream ``(brs_len_pad, n_trials)``."""
+    return stream_backward_levels_plain(replay_level_program(enc), staged,
+                                        house, vlog, ct)
+
+
 def replay_adjoint_backward(enc: EncodedReplay, staged: torch.Tensor, house,
                             vlog: torch.Tensor,
                             ct: torch.Tensor) -> torch.Tensor:
     """Gradient stream ``(brs_len_pad, n_trials)`` of the top values with
     cotangent ``ct``.  CPU tensors run :func:`replay_backward_plain`; CUDA
-    tensors launch ``csrc/replay_adjoint.cu`` or raise.  Programs with a
-    resident tier raise (build them with ``compile_replay_adjoint``)."""
+    tensors launch the level-parallel kernel of ``csrc/adjoint.cu`` on
+    :func:`replay_level_program` or raise.  Programs with a resident tier
+    raise (build them with ``compile_replay_adjoint``)."""
     _check_staged(enc, staged)
     if enc.res_rows:
         raise LogicError("the replay backward takes programs without a "
@@ -135,23 +222,8 @@ def replay_adjoint_backward(enc: EncodedReplay, staged: torch.Tensor, house,
         raise LogicError("log/cotangent shapes do not match the program")
     if device.type != "cuda":
         return replay_backward_plain(enc, staged, house_t, vlog, ct)
-    from ._build import load_library
-    lib = load_library()
-    staged, vlog, ct = staged.contiguous(), vlog.contiguous(), ct.contiguous()
-    _check_cuda(dtype, staged, vlog, ct)
-    width = _replay_block_trials(enc.pool_slots, dtype)
-    ops, args, _fill = enc.tables(device)
-    adjlog = torch.zeros((max(enc.n_evicted, 1), T), dtype=dtype,
-                         device=device)
-    grad = torch.zeros((enc.n_basic, T), dtype=dtype, device=device)
-    LAUNCHES["replay_bwd"] += 1
-    code = getattr(lib, f"canopy_replay_backward_{_SUFFIX[dtype]}")(
-        ops.data_ptr(), args.data_ptr(), enc.n_ops, staged.data_ptr(),
-        house_t.data_ptr(), vlog.data_ptr(), ct.data_ptr(),
-        adjlog.data_ptr(), grad.data_ptr(), T, enc.pool_slots,
-        enc.top_slot, width, torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(lib, code, "replay backward")
-    return grad
+    return level_backward(replay_level_program(enc), staged, house_t, vlog,
+                          ct, "replay_bwd")
 
 
 class _DifferentiableReplay(torch.autograd.Function):

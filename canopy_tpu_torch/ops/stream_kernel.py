@@ -34,10 +34,11 @@ Replay programs.  The JAX package keeps its replay engine here too
 (``_replay_kernel``, ``replay_propagate_staged``), and so does the port:
 :func:`compile_replay_stream` sizes ``compiler/replay.py``'s schedule for
 shared memory, :func:`encode_replay` flattens it into one op table of the
-same format (``csrc/replay_ops.cuh``), and :func:`replay_forward` runs it
-through ``csrc/replay.cu`` or :func:`replay_forward_plain`.  The staged
-basic replay stream is ``(brs_len_pad, n_trials)``, one row per basic
-read, trials contiguous.
+same format, and :func:`replay_forward` runs it through ``csrc/replay.cu``
+(:func:`replay_ring_stream`, the table as the ring kernel's op stream, in
+:func:`replay_plan`'s block width and ring depth) or
+:func:`replay_forward_plain`.  The staged basic replay stream is
+``(brs_len_pad, n_trials)``, one row per basic read, trials contiguous.
 
 Spill programs.  :func:`compile_spill_stream` sizes
 ``compiler/spill.py``'s Belady schedule for shared memory,
@@ -68,16 +69,20 @@ __all__ = ["compile_stream", "compile_bdd_stream", "compile_tree_stream",
            "encode_stream", "stage_basic", "unstage_basic",
            "stream_forward", "stream_forward_plain", "stream_propagate",
            "stream_propagate_staged", "stream_bdd_probability", "house_tensor",
-           "SMEM_BYTES", "REPLAY_SLOTS", "REPLAY_TRIALS",
+           "SMEM_BYTES", "REPLAY_SLOTS", "SPILL_SLOTS", "REPLAY_TRIALS",
+           "SPILL_TRIALS",
+           "REPLAY_RING_DEPTHS", "REPLAY_RING_BYTES", "REPLAY_CHUNK_WORDS",
+           "ReplayPlan", "replay_plan", "RingStream", "replay_ring_stream",
            "compile_replay_stream", "EncodedReplay", "encode_replay",
            "stage_replay", "unstage_replay", "replay_grad_basic",
            "replay_forward", "replay_forward_plain", "replay_propagate",
            "replay_propagate_staged", "compile_spill_stream", "EncodedSpill",
            "encode_spill", "spill_forward", "spill_forward_plain",
            "spill_propagate", "spill_propagate_staged", "LAUNCHES",
-           "VARIANTS", "reset_launches", "count_window", "check_count_gates",
+           "VARIANTS", "reset_launches", "count_window",
            "REC_CHUNK", "pack_records", "stream_variant", "LevelSchedule",
-           "level_schedule", "level_tile", "stream_forward_levels_plain"]
+           "level_schedule", "schedule_levels", "level_tile",
+           "stream_forward_levels_plain"]
 
 # Op kinds and argument sources (csrc/stream_ops.cuh); EVICT and REFILL
 # occur in replay programs only.
@@ -86,9 +91,10 @@ POOL, STAGED, HOUSE, LOG = range(4)
 _KIND = {"prod": PROD, "pair": PAIR, "count": COUNT, "mux": MUX,
          "fill": FILL}
 _SRC = {"pool": POOL, "stage": STAGED, "house": HOUSE}
-#: Per-thread count-DP states in the kernels: :func:`count_window`'s form
-#: of a gate's window must fit (the top of ``aralia_like_nested_count``,
-#: at least 32 of 86, needs 33).
+#: Count-DP states a kernel thread keeps in its own local array
+#: (``csrc/stream_ops.cuh``); a program whose :func:`count_window` forms
+#: need more runs the same DP over a device-memory scratch
+#: (:func:`_dp_scratch`), allocated for that program only.
 MAX_COUNT_STATES = 128
 
 #: Launches of the stream forward by variant (``stream:steps``,
@@ -99,7 +105,8 @@ VARIANTS: dict = {}
 #: (forward with the value log), ``adjoint`` (backward), the fused
 #: whole-tree kernels ``fused_tiled`` and ``fused`` (``fused_kernel.py``),
 #: the replay kernels ``replay`` (forward), ``replay_tape`` (forward
-#: with the value log) and ``replay_bwd`` (``replay_adjoint_kernel.py``),
+#: with the value log) and ``replay_bwd`` (the level backward of
+#: ``csrc/adjoint.cu`` on a replay program, ``replay_adjoint_kernel.py``),
 #: the spill kernel ``spill``, the Philox sampler ``bernoulli``
 #: (``bernoulli_kernel.py``), the gather level kernel ``gather``
 #: (``gather_kernel.py``) and the block-gather level kernels ``block_log``
@@ -126,16 +133,46 @@ _STEP_K = {torch.float32: 2, torch.float64: 1}
 _MAX_STEP_TRIALS = 1 << 31
 #: The most trials one level-parallel block takes.
 _LEVEL_TILE = 32
+#: Threads per block of the one-trial-per-thread stream kernel and of the
+#: level-parallel kernels (``csrc/stream.cu`` OPS_THREADS and
+#: LEVEL_THREADS, ``csrc/adjoint.cu``): they size the count-DP scratch.
+_OPS_THREADS = 128
+_LEVEL_THREADS = 256
+#: The replay forward's prefetch ring (``csrc/replay_ops.cuh``): each
+#: thread keeps its next basic-stream and eviction-log reads in flight in
+#: ``depth`` shared-memory rows of its block.  The depth is the smallest
+#: of ``REPLAY_RING_DEPTHS`` (the kernel's instantiations:
+#: ``cp.async.wait_group`` takes a constant) whose rows of the block's
+#: trials hold ``REPLAY_RING_BYTES``, the bytes an SM keeps in flight.
+REPLAY_RING_DEPTHS = (8, 16, 32, 64)
+REPLAY_RING_BYTES = 24_576
+#: int32 words per chunk of the replay forward's op stream (more for a
+#: program whose longest op needs them); two chunks and their two
+#: mbarriers sit in shared memory.
+REPLAY_CHUNK_WORDS = 1024
+_REPLAY_BARRIER_BYTES = 16
 #: The most pool plus resident slots a replay program may have: what one
-#: block of one warp (32 float32 trials) holds in shared memory.
-REPLAY_SLOTS = SMEM_BYTES // (32 * 4)
-#: The default replay sizing: blocks of this many float32 trials, so a
-#: pool of ``SMEM_BYTES // (4 * REPLAY_TRIALS)`` = 113 slots and no
-#: resident tier.  The kernels are latency-bound and an SM holds one
-#: block, so fewer slots run more trials at once; on the card this was
-#: the fastest of 32 to 1,024 trials per block at 65,536 trials
-#: (``tools/replay_occupancy.py``, ``PERF.md``).
-REPLAY_TRIALS = 512
+#: block of one warp (32 float32 trials) holds beside the shallowest ring
+#: and the op-stream chunks.
+REPLAY_SLOTS = (SMEM_BYTES - _REPLAY_BARRIER_BYTES - 8 * REPLAY_CHUNK_WORDS
+                ) // (32 * 4) - REPLAY_RING_DEPTHS[0]
+#: The most pool slots a spill program may have: what one block of one
+#: warp (32 float32 trials) holds in shared memory.
+SPILL_SLOTS = SMEM_BYTES // (32 * 4)
+#: Sizes the default replay pool: ``SMEM_BYTES // (4 * REPLAY_TRIALS)`` =
+#: 56 slots.  The ring kernel's time follows the trials an SM holds, and
+#: a 56-slot pool lets two 256-trial blocks share an SM at 65,536 trials:
+#: on the 65k tree as fast as 28 or 14 slots, with fewer evictions, and
+#: faster than any larger pool (``tools/replay_occupancy.py``,
+#: ``PERF.md``).
+REPLAY_TRIALS = 1024
+#: Sizes the default spill pool: ``SMEM_BYTES // (4 * SPILL_TRIALS)`` =
+#: 113 slots, a block of 512 float32 trials, the fastest block of the
+#: first replay kernel, whose one-trial-per-thread design spill shares.
+SPILL_TRIALS = 512
+#: Streaming multiprocessors of an H100 SXM: the replay forward narrows
+#: its blocks until the trials spread over all of them.
+_SMS = 132
 #: The replay builders' TPU VMEM budget has no meaning on the card (the
 #: port checks shared memory on the built program): one no program
 #: reaches.
@@ -148,8 +185,7 @@ def reset_launches() -> None:
     VARIANTS.clear()
 
 
-def count_window(lo: int, hi: int, n: int, gate: str
-                 ) -> tuple[int, int, bool, int]:
+def count_window(lo: int, hi: int, n: int) -> tuple[int, int, bool, int]:
     """The count-DP form of a window ``[lo, hi]`` over ``n`` arguments:
     ``(lo, hi, complement, states)``, the one rule every encoder applies.
 
@@ -159,9 +195,8 @@ def count_window(lo: int, hi: int, n: int, gate: str
     ``[lo, hi]`` into ``[n - hi, n - lo]``; the cheaper of the two forms
     wins (``complement`` then asks the encoder to flip every argument's
     complement flag).  An empty window becomes ``[1, 0]`` (value 0, two
-    states).  A form beyond :data:`MAX_COUNT_STATES` raises
-    ``LogicError`` naming ``gate``: a bounded window whose ``hi`` and
-    ``n - lo`` both exceed 126.
+    states).  Every window has a form; one beyond
+    :data:`MAX_COUNT_STATES` runs its DP in device memory.
     """
     lo, hi, n = max(int(lo), 0), int(hi), int(n)
     if lo > min(hi, n):
@@ -173,39 +208,18 @@ def count_window(lo: int, hi: int, n: int, gate: str
     comp = form(max(n - hi, 0), n - lo)
     flip = comp[2] < direct[2]
     w_lo, w_hi, states = comp if flip else direct
-    if states > MAX_COUNT_STATES:
-        raise LogicError(
-            f"count gate {gate}: window [{lo}, {hi}] over {n} arguments "
-            f"needs {states} DP states (counting the complements too); "
-            f"the kernels hold at most {MAX_COUNT_STATES} per thread")
     return w_lo, w_hi, flip, states
 
 
-def _count_row(aux, n_args: int, gate: str, args: list, begin: int):
+def _count_row(aux, n_args: int, args: list, begin: int):
     """``(aux0, aux1, states)`` of a count op whose arguments are rows
     ``begin:`` of ``args`` (flags flipped in place for the complement
     form)."""
-    lo, hi, flip, states = count_window(aux[0], aux[1], n_args, gate)
+    lo, hi, flip, states = count_window(aux[0], aux[1], n_args)
     if flip:
         for row in args[begin:begin + n_args]:
             row[2] ^= 1
     return lo, hi, states
-
-
-def check_count_gates(tree: CompiledTree) -> None:
-    """Raise ``LogicError`` naming the first count gate of ``tree`` whose
-    window no kernel form fits (:func:`count_window`), before any
-    program is built."""
-    base = tree.n_basic + tree.n_house
-    for level in tree.levels:
-        for kind, block in level.iter_blocks():
-            if kind != "count":
-                continue
-            for g in range(block.n_gates):
-                n_args = int(block.arg_mask[g].sum())
-                gate = tree.gates[int(block.out_idx[g]) - base]
-                count_window(block.min_num[g], block.max_num[g], n_args,
-                             repr(gate.name))
 
 
 def compile_stream(tree: CompiledTree, chunk_tiles: int = 256,
@@ -380,7 +394,6 @@ def compile_tree_stream(tree: CompiledTree) -> StreamProgram:
     from ..compiler.schedule import _dfs_exec_rows, _emit_gate_ops
     if tree.top_index is None:
         raise LogicError("stream schedule needs an anchored top event")
-    check_count_gates(tree)
     n_b, n_h = tree.n_basic, tree.n_house
     exec_rows = _dfs_exec_rows(_emit_gate_ops(tree), n_b, n_h,
                                tree.top_index)
@@ -488,9 +501,7 @@ def encode_stream(program) -> EncodedStream:
         if kind in ("prod", "pair"):
             aux0 = int(bool(aux))
         elif kind == "count":
-            aux0, aux1, states = _count_row(
-                aux, len(locs), f"at op {len(ops)} (out slot {out_slot})",
-                args, begin)
+            aux0, aux1, states = _count_row(aux, len(locs), args, begin)
             max_states = max(max_states, states)
         elif kind == "fill":
             value = float(aux)
@@ -585,17 +596,17 @@ def _plain_value(op, fill_value: float, args, load, staged: torch.Tensor):
     if kind == COUNT:
         # Absorbing at ``cap``: lo for an upper-open window (hi >= n, the
         # value dp[lo]), else hi + 1 (count_window's forms).
+        # States are rows of one (cap + 1, T) tensor: each update is the
+        # kernel's per-state arithmetic, element for element.
         is_open = aux1 >= e - b
         cap = aux0 if is_open else aux1 + 1
-        dp = [torch.ones(T, dtype=dtype, device=device)] + \
-             [torch.zeros(T, dtype=dtype, device=device)] * cap
+        dp = torch.zeros((cap + 1, T), dtype=dtype, device=device)
+        dp[0] = 1.0
         for j in range(b, e if cap >= 1 else b):
             x = load(args[j])
-            new = [dp[0] * (1.0 - x)]
-            for k in range(1, cap):
-                new.append(dp[k] * (1.0 - x) + dp[k - 1] * x)
-            new.append(dp[cap] + dp[cap - 1] * x)
-            dp = new
+            nx = 1.0 - x
+            dp = torch.cat([dp[:1] * nx, dp[1:cap] * nx + dp[:cap - 1] * x,
+                            (dp[cap] + dp[cap - 1] * x)[None]])
         if is_open:
             return dp[aux0]
         v = torch.zeros(T, dtype=dtype, device=device)
@@ -787,30 +798,24 @@ def _csr(keys: np.ndarray, ops_of: np.ndarray, rows: np.ndarray, n: int):
     return ptr, rows[order].astype(np.int32)
 
 
-def level_schedule(enc: EncodedStream) -> LevelSchedule:
-    """The level schedule of ``enc`` (cached on the encoding, as
-    :func:`tree_stream_encoding` caches the encoding)."""
-    if "levels" in enc._cache:
-        return enc._cache["levels"]
-    ops, args = enc.ops, enc.args
+def schedule_levels(ops: np.ndarray, args: np.ndarray, producer: np.ndarray,
+                    n_basic: int, top_op: int, top_src: int,
+                    top_idx: int) -> LevelSchedule:
+    """The :class:`LevelSchedule` of an op table whose argument row ``j``
+    reads the value of op ``producer[j]`` (-1: a staged row or a house
+    constant).  Producers precede their readers."""
     n_ops, n_args = len(ops), len(args)
     op_of = np.repeat(np.arange(n_ops), ops[:, 3] - ops[:, 2])
     if len(op_of) != n_args or (n_args and np.any(
             ops[1:, 2] != ops[:-1, 3])):
         raise LogicError("level schedules need contiguous argument rows")
-    producer = np.full(n_args, -1, dtype=np.int64)
     level = np.zeros(n_ops, dtype=np.int64)
-    writer: dict[int, int] = {}
-    for o, (_k, out, b, e) in enumerate(ops[:, :4].tolist()):
-        lv = 0
-        for j in range(b, e):
-            if args[j, 0] == POOL:
-                w = writer[int(args[j, 1])]
-                producer[j] = w
-                lv = max(lv, int(level[w]) + 1)
-        level[o] = lv
-        writer[out] = o
-    top_op = writer[enc.top_slot]
+    for o, (b, e) in enumerate(ops[:, 2:4].tolist()):
+        lv = -1
+        for w in producer[b:e].tolist():
+            if w >= 0 and level[w] > lv:
+                lv = int(level[w])
+        level[o] = lv + 1
     order = np.argsort(level, kind="stable").astype(np.int32)
     level_ptr = np.zeros(int(level.max(initial=-1)) + 2, dtype=np.int32)
     np.cumsum(np.bincount(level), out=level_ptr[1:])
@@ -819,13 +824,33 @@ def level_schedule(enc: EncodedStream) -> LevelSchedule:
     cons_ptr, cons = _csr(producer[read], op_of[read], rows[read], n_ops)
     staged = args[:, 0] == STAGED
     stage_ptr, stage_cons = _csr(args[staged, 1].astype(np.int64),
-                                 op_of[staged], rows[staged], enc.n_basic)
+                                 op_of[staged], rows[staged], n_basic)
+    return LevelSchedule(order, level_ptr, cons_ptr, cons, stage_ptr,
+                         stage_cons, top_op, top_src, top_idx)
+
+
+def level_schedule(enc: EncodedStream) -> LevelSchedule:
+    """The level schedule of ``enc`` (cached on the encoding, as
+    :func:`tree_stream_encoding` caches the encoding): each pool
+    argument's producer is the op that last wrote its slot (a gate or a
+    spill)."""
+    if "levels" in enc._cache:
+        return enc._cache["levels"]
+    ops, args = enc.ops, enc.args
+    producer = np.full(len(args), -1, dtype=np.int64)
+    writer: dict[int, int] = {}
+    for o, (_k, out, b, e) in enumerate(ops[:, :4].tolist()):
+        for j in range(b, e):
+            if args[j, 0] == POOL:
+                producer[j] = writer[int(args[j, 1])]
+        writer[out] = o
+    top_op = writer[enc.top_slot]
     if ops[top_op, 6] >= 0:
         top_src, top_idx = LOG, int(ops[top_op, 6])
     else:   # a spilled basic
         top_src, top_idx = STAGED, int(args[ops[top_op, 2], 1])
-    sched = LevelSchedule(order, level_ptr, cons_ptr, cons, stage_ptr,
-                          stage_cons, top_op, top_src, top_idx)
+    sched = schedule_levels(ops, args, producer, enc.n_basic, top_op,
+                            top_src, top_idx)
     enc._cache["levels"] = sched
     return sched
 
@@ -885,6 +910,25 @@ def _raise_on(lib, code: int, what: str) -> None:
                            f"{lib.canopy_cuda_error_string(code).decode()}")
 
 
+def _dp_scratch(enc: EncodedStream, blocks: int, threads: int,
+                like: torch.Tensor):
+    """The count-DP scratch of a kernel launch of ``blocks`` x
+    ``threads``: ``(states, blocks * threads)`` of ``like``'s dtype and
+    device, the thread index contiguous (``csrc/stream_ops.cuh``
+    dp_scratch), for a program whose widest count form exceeds
+    :data:`MAX_COUNT_STATES`; else None (the threads' local arrays hold
+    every DP).  Keep it alive until the launch is queued."""
+    if enc.max_count_states <= MAX_COUNT_STATES:
+        return None
+    return torch.empty((enc.max_count_states, blocks * threads),
+                       dtype=like.dtype, device=like.device)
+
+
+def _ptr(tensor) -> int:
+    """A tensor's device pointer, 0 (null) for None."""
+    return 0 if tensor is None else tensor.data_ptr()
+
+
 def _count_variant(name: str) -> None:
     VARIANTS[name] = VARIANTS.get(name, 0) + 1
 
@@ -918,24 +962,26 @@ def stream_forward(enc: EncodedStream, staged: torch.Tensor, house,
         order, level_ptr = sched.tables(device)[:2]
         tile = level_tile(T)
         smem_log = enc.n_log * tile * staged.element_size() <= SMEM_BYTES
+        dp = _dp_scratch(enc, -(-T // tile), _LEVEL_THREADS, staged)
         LAUNCHES["stream_log"] += 1
         code = getattr(lib, f"canopy_stream_level_forward_{_SUFFIX[dtype]}")(
             ops.data_ptr(), fill.data_ptr(), args.data_ptr(),
             order.data_ptr(), level_ptr.data_ptr(), sched.n_levels,
             staged.data_ptr(), house_t.data_ptr(), log.data_ptr(),
             top.data_ptr(), T, tile, enc.n_log, sched.top_src, sched.top_idx,
-            int(smem_log), stream)
+            int(smem_log), _ptr(dp), stream)
         _raise_on(lib, code, "stream level forward")
         return top, log
     variant = stream_variant(enc)
     if variant == "ops":
         pool = torch.empty((enc.pool_slots, T), dtype=dtype, device=device)
+        dp = _dp_scratch(enc, -(-T // _OPS_THREADS), _OPS_THREADS, staged)
         LAUNCHES["stream"] += 1
         _count_variant("stream:ops")
         code = getattr(lib, f"canopy_stream_ops_forward_{_SUFFIX[dtype]}")(
             ops.data_ptr(), fill.data_ptr(), args.data_ptr(), enc.n_ops,
             staged.data_ptr(), house_t.data_ptr(), pool.data_ptr(),
-            top.data_ptr(), T, enc.top_slot, stream)
+            top.data_ptr(), T, enc.top_slot, _ptr(dp), stream)
         _raise_on(lib, code, "stream forward")
         return top, None
     width = 128 * _STEP_K[dtype]
@@ -996,21 +1042,20 @@ def _check_replay_fits(program) -> None:
     """Shared-memory check of a BUILT replay program: its pool plus its
     resident tier as built (``res_tiles`` is padded up to the basic-stream
     chunk, so it may exceed what was asked for) against what one block of
-    one warp holds."""
+    one warp holds beside its ring and op-stream chunks."""
     slots = program.pool_slots + program.res_tiles
     if slots > REPLAY_SLOTS:
         raise LogicError(
             f"replay program needs {program.pool_slots} pool + "
             f"{program.res_tiles} resident slots; one block holds "
-            f"{REPLAY_SLOTS} at 32 trials ({SMEM_BYTES} B of shared "
-            f"memory)")
+            f"{REPLAY_SLOTS} at 32 trials beside its ring ({SMEM_BYTES} B "
+            f"of shared memory)")
 
 
 def _replay_sizing(tree: CompiledTree, kwargs: dict) -> dict:
     """The card's defaults for the replay builders: no resident tier, a
-    pool of what a block of ``REPLAY_TRIALS`` float32 trials holds (113
-    slots) or the widest gate's working set if that is more, and no TPU
-    VMEM budget."""
+    pool of ``SMEM_BYTES // (4 * REPLAY_TRIALS)`` slots (56) or the
+    widest gate's working set if that is more, and no TPU VMEM budget."""
     from ..compiler.schedule import _emit_gate_ops
     kwargs = dict(kwargs)
     kwargs.setdefault("resident_tiles", 0)
@@ -1028,16 +1073,16 @@ def compile_replay_stream(tree: CompiledTree, **kwargs):
     the shared builder) sized for the card.
 
     The JAX package sizes the pool from the TPU's 13 MiB of VMEM with a
-    1,024-tile resident tier.  Here pool and resident tier share one
-    block's 232,448 B of shared memory: by default a pool of 113 slots
-    (blocks of ``REPLAY_TRIALS`` = 512 trials) and no resident tier; a
-    resident tier asked for adds its slots, rounded up to the
-    basic-stream chunk.  Any builder keyword may be given; the built
-    program is then checked, and a pool plus resident tier beyond
-    ``REPLAY_SLOTS`` (1,816: one warp's block) raises ``LogicError``.
+    1,024-tile resident tier.  Here pool, resident tier and prefetch ring
+    share one block's 232,448 B of shared memory: by default a pool of 56
+    slots (``REPLAY_TRIALS``) and no resident tier; a resident tier asked
+    for adds its slots, rounded up to the basic-stream chunk.  Any
+    builder keyword may be given; the built program is then checked, and
+    a pool plus resident tier beyond
+    ``REPLAY_SLOTS`` (1,743: one warp's block beside the shallowest ring)
+    raises ``LogicError``.
     """
     from ..compiler.replay import build_replay_schedule
-    check_count_gates(tree)
     program = build_replay_schedule(tree, **_replay_sizing(tree, kwargs))
     _check_replay_fits(program)
     return program
@@ -1135,9 +1180,8 @@ def encode_replay(program) -> EncodedReplay:
                                  value_of_row[row]]
                     args.append(entry[:2] + [int(bool(flag))] + entry[2:])
                 if kind == "count":
-                    aux0, aux1, states = _count_row(
-                        aux, len(locs), f"at op {len(ops)} (out slot "
-                        f"{out_slot})", args, begin)
+                    aux0, aux1, states = _count_row(aux, len(locs), args,
+                                                    begin)
                     max_states = max(max_states, states)
                 elif kind in ("prod", "pair"):
                     aux0, aux1 = int(bool(aux)), 0
@@ -1288,20 +1332,241 @@ def replay_forward_plain(enc: EncodedReplay, staged: torch.Tensor,
     return shared[enc.top_slot], (torch.stack(vlog) if with_log else None)
 
 
-def _replay_block_trials(slots: int, dtype: torch.dtype) -> int:
-    """Trials per block: the widest power of two up to 1,024 (a block's
-    most threads) whose ``slots`` rows of ``dtype`` fit one block's shared
-    memory (32 in float32 and 16 in float64 at ``REPLAY_SLOTS``, 512 and
-    256 at the default 113).  An SM holds one such block, so fewer slots
-    hold more trials at once."""
+def _spill_block_trials(slots: int, dtype: torch.dtype) -> int:
+    """Trials per spill block: the widest power of two up to 1,024 (a
+    block's most threads) whose ``slots`` rows of ``dtype`` fit one
+    block's shared memory (32 in float32 and 16 in float64 at
+    ``SPILL_SLOTS``, 512 and 256 at the default 113).  An SM holds one
+    such block, so fewer slots hold more trials at once."""
     size = torch.finfo(dtype).bits // 8
     width = 1024
     while width > 1 and slots * width * size > SMEM_BYTES:
         width //= 2
     if slots * width * size > SMEM_BYTES:
-        raise LogicError(f"{slots} replay slots of {dtype} exceed one "
+        raise LogicError(f"{slots} spill slots of {dtype} exceed one "
                          f"block's {SMEM_BYTES} B of shared memory")
     return width
+
+
+# The replay forward's op stream (csrc/replay_ops.cuh): word kinds in
+# bits 30-31 of an argument word, the complement flag in bit 29, the
+# payload below; a fetch code names the row a ring entry copies (0: none,
+# 1 + r: basic-stream row r, _RING_EVLOG + r: eviction-log row r).
+_W_SHARED, _W_RING, _W_HOUSE = 0, 1, 2
+_PAYLOAD = (1 << 29) - 1
+_RING_EVLOG = 1 << 28
+_HEADER_WORDS = 8
+_END = -1
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplayPlan:
+    """The replay forward's launch shape for one program, value type and
+    trial count (:func:`replay_plan`)."""
+
+    width: int          # trials (threads) per block
+    depth: int          # ring rows per thread
+    chunk_words: int    # int32 words per op-stream chunk
+    shared_bytes: int   # dynamic shared memory per block
+
+
+def _chunk_words(enc: EncodedReplay) -> int:
+    """Op-stream chunk words: ``REPLAY_CHUNK_WORDS``, or the power of two
+    that holds the longest op (header, arguments or ring pads, and the
+    end mark)."""
+    longest = int((enc.ops[:, 3] - enc.ops[:, 2]).max(initial=0))
+    need = _HEADER_WORDS + max(longest, REPLAY_RING_DEPTHS[-1]) + 1
+    words = REPLAY_CHUNK_WORDS
+    while words < need:
+        words *= 2
+    return words
+
+
+def replay_plan(enc: EncodedReplay, dtype: torch.dtype,
+                n_trials: int) -> ReplayPlan:
+    """Block width and ring depth of the replay forward, from the
+    program's ``pool_slots + res_rows``.
+
+    A block of ``width`` trials holds ``(pool_slots + res_rows + depth) *
+    width`` values and two op-stream chunks in shared memory.  The ring
+    depth for a width is the smallest of ``REPLAY_RING_DEPTHS`` whose rows
+    hold ``REPLAY_RING_BYTES`` (the deepest if none does, or the deepest
+    that fits); the width is the widest power of two up to 1,024 that
+    fits with its depth and leaves no SM idle (at most ``n_trials / 132``
+    rounded down to a power of two, 32 at least: below a warp only where
+    a warp does not fit).  Raises ``LogicError`` when even one trial per
+    block does not fit.
+    """
+    size = torch.finfo(dtype).bits // 8
+    slots = enc.pool_slots + enc.res_rows
+    chunk = _chunk_words(enc)
+
+    def shared(width: int, depth: int) -> int:
+        return _REPLAY_BARRIER_BYTES + 8 * chunk + (slots + depth) * width \
+            * size
+
+    def depth_for(width: int) -> int:
+        return next((d for d in REPLAY_RING_DEPTHS
+                     if d * width * size >= REPLAY_RING_BYTES),
+                    REPLAY_RING_DEPTHS[-1])
+
+    spread = max(32, 1 << (-(-n_trials // _SMS)).bit_length() - 1)
+    width = 1024
+    while width > 1 and (width > spread or
+                         shared(width, depth_for(width)) > SMEM_BYTES):
+        width //= 2
+    depths = [d for d in REPLAY_RING_DEPTHS if d <= depth_for(width)
+              and shared(width, d) <= SMEM_BYTES]
+    if not depths:
+        raise LogicError(f"{slots} replay slots of {dtype} and the "
+                         f"shallowest ring exceed one block's {SMEM_BYTES} "
+                         f"B of shared memory")
+    return ReplayPlan(width, depths[-1], chunk, shared(width, depths[-1]))
+
+
+@dataclasses.dataclass
+class RingStream:
+    """A replay program as the ring kernel's op stream
+    (:func:`replay_ring_stream`)."""
+
+    words: np.ndarray   # (n_chunks * chunk_words,) int32
+    head: np.ndarray    # (depth - 1,) int32: the ring's first fetch codes
+    n_chunks: int
+    chunk_words: int
+    depth: int
+    fetches: np.ndarray  # fetch code of every ring consumption, in order
+    n_pads: int          # of them, pads consumed at EVICT ops
+    _cache: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def tables(self, device: torch.device):
+        """(words, head) on ``device`` (cached)."""
+        key = str(device)
+        if key not in self._cache:
+            self._cache[key] = (torch.from_numpy(self.words).to(device),
+                                torch.from_numpy(self.head).to(device))
+        return self._cache[key]
+
+
+def _ring_fetches(enc: EncodedReplay, depth: int):
+    """The fetch codes of every ring consumption in program order, and
+    the pads each op consumes.
+
+    Each basic-stream argument, eviction-log argument and REFILL consumes
+    the next ring entry; the kernel issues entry ``k + depth - 1`` when it
+    consumes entry ``k``.  An eviction-log entry must be issued after the
+    EVICT that stores its row, so where the program reads a row back
+    sooner than that, pad entries (fetching nothing) are consumed at the
+    EVICT, after its store, until the read's issue falls at or after them.
+    """
+    shared_rows = enc.pool_slots + enc.res_rows
+    codes: list = []
+    evict_op: dict[int, int] = {}
+    reads: list = []            # (op, position in its op, log row)
+    args = enc.args.tolist()
+    for o, (kind, _slot, b, e, aux0, _a1, _row) in enumerate(
+            enc.ops.tolist()):
+        if kind == EVICT:
+            evict_op[aux0] = o
+            codes.append([])
+            continue
+        if kind == REFILL:
+            reads.append((o, 0, aux0))
+            codes.append([_RING_EVLOG + aux0])
+            continue
+        op_codes = []
+        for src, idx, *_rest in args[b:e]:
+            if src == STAGED:
+                op_codes.append(idx + 1)
+            elif src == POOL and idx >= shared_rows:
+                reads.append((o, len(op_codes), idx - shared_rows))
+                op_codes.append(_RING_EVLOG + idx - shared_rows)
+        codes.append(op_codes)
+    counts = np.array([len(c) for c in codes], dtype=np.int64)
+    pads = np.zeros(len(codes), dtype=np.int64)
+    if reads:
+        r_op, r_pos, r_row = (np.array(c) for c in zip(*reads))
+        r_evict = np.array([evict_op[r] for r in r_row.tolist()])
+        while True:
+            first = np.cumsum(counts + pads) - counts - pads
+            need = first[r_evict] + depth - 1 - (first[r_op] + r_pos)
+            late = np.flatnonzero(need > 0)
+            if not len(late):
+                break
+            pads[r_evict[late[0]]] += need[late[0]]
+    return codes, pads
+
+
+def replay_ring_stream(enc: EncodedReplay, depth: int) -> RingStream:
+    """The program ``enc`` as the ring kernel's op stream for a ring of
+    ``depth`` rows (cached on ``enc``).
+
+    Ops keep their order, in chunks of ``_chunk_words(enc)`` int32 words
+    that hold whole ops (an end mark, -1, after the last).  An op is an
+    8-word header ``[kind, slot, b, e, aux0, aux1, log_row, extra]``
+    (``b``, ``e``: its argument words within the chunk) and its argument
+    words.  A shared-memory argument (pool or resident slot) or house
+    argument names its index; a basic-stream or eviction-log argument is
+    a ring read whose payload is the fetch code the kernel issues when it
+    consumes it (the entry ``depth - 1`` ahead).  ``extra``: a gate's
+    count of ring reads, a REFILL's fetch code to issue; an EVICT's words
+    are its pads, each a fetch code to issue.
+    """
+    key = f"ring:{depth}"
+    if key in enc._cache:
+        return enc._cache[key]
+    codes, pads = _ring_fetches(enc, depth)
+    seq = []
+    for o, op_codes in enumerate(codes):
+        seq += [0] * int(pads[o]) + op_codes
+    fetches = np.asarray(seq, dtype=np.int64)
+    if len(fetches) and (fetches.max() >= _PAYLOAD or max(
+            enc.n_basic, enc.n_evicted) >= _RING_EVLOG):
+        raise LogicError("replay program too large for the ring's 28-bit "
+                         "row codes")
+    ahead = np.concatenate([fetches, np.zeros(depth, np.int64)])
+    chunk = _chunk_words(enc)
+    shared_rows = enc.pool_slots + enc.res_rows
+    words: list = []
+    pos = 0
+    k = depth - 1        # the fetch issued by the next consumption
+    args = enc.args.tolist()
+    for o, (kind, slot, b, e, aux0, aux1, row) in enumerate(
+            enc.ops.tolist()):
+        body: list = []
+        if kind == EVICT:
+            body = [(_W_RING << 30) | int(c)
+                    for c in ahead[k:k + int(pads[o])]]
+            k += int(pads[o])
+            extra = 0
+        elif kind == REFILL:
+            extra = int(ahead[k])
+            k += 1
+        else:
+            for src, idx, flag, *_rest in args[b:e]:
+                if src == STAGED or (src == POOL and idx >= shared_rows):
+                    word = (_W_RING << 30) | int(ahead[k])
+                    k += 1
+                elif src == POOL:
+                    word = (_W_SHARED << 30) | idx
+                else:
+                    word = (_W_HOUSE << 30) | idx
+                body.append(word | (flag << 29))
+            extra = len(codes[o])
+        if pos + _HEADER_WORDS + len(body) + 1 > chunk:
+            words += [_END] + [0] * (chunk - pos - 1)
+            pos = 0
+        begin = pos + _HEADER_WORDS
+        words += [kind, slot, begin, begin + len(body), aux0, aux1, row,
+                  extra] + body
+        pos = begin + len(body)
+    words += [_END] + [0] * (chunk - pos - 1)
+    stream = RingStream(
+        words=np.asarray(words, dtype=np.int64).astype(np.int32),
+        head=ahead[:depth - 1].astype(np.int32), n_chunks=len(words) // chunk,
+        chunk_words=chunk, depth=depth, fetches=fetches,
+        n_pads=int(pads.sum()))
+    enc._cache[key] = stream
+    return stream
 
 
 def replay_forward(enc: EncodedReplay, staged: torch.Tensor, house,
@@ -1312,7 +1577,8 @@ def replay_forward(enc: EncodedReplay, staged: torch.Tensor, house,
     Returns ``(top (n_trials,), value log (n_log, n_trials) or None)``.
     CPU tensors run :func:`replay_forward_plain`; CUDA tensors launch
     ``csrc/replay.cu`` (with the log, ``csrc/replay_adjoint.cu``'s taped
-    forward) or raise.
+    forward) on :func:`replay_ring_stream` in the :func:`replay_plan`
+    shape, or raise.
     """
     _check_staged(enc, staged)
     device, dtype = staged.device, staged.dtype
@@ -1323,28 +1589,24 @@ def replay_forward(enc: EncodedReplay, staged: torch.Tensor, house,
     lib = load_library()
     staged = staged.contiguous()
     _check_cuda(dtype, staged)
-    width = _replay_block_trials(enc.pool_slots + enc.res_rows, dtype)
     T = staged.shape[1]
-    ops, args, _fill = enc.tables(device)
+    plan = replay_plan(enc, dtype, T)
+    ring = replay_ring_stream(enc, plan.depth)
+    words, head = ring.tables(device)
     evlog = torch.empty((max(enc.n_evicted, 1), T), dtype=dtype,
                         device=device)
     top = torch.empty(T, dtype=dtype, device=device)
-    common = (enc.pool_slots, enc.res_rows, enc.top_slot, width,
-              torch.cuda.current_stream(device).cuda_stream)
-    vlog = None
-    if with_log:
-        vlog = torch.empty((enc.n_log, T), dtype=dtype, device=device)
-        LAUNCHES["replay_tape"] += 1
-        code = getattr(lib, f"canopy_replay_tape_forward_{_SUFFIX[dtype]}")(
-            ops.data_ptr(), args.data_ptr(), enc.n_ops, staged.data_ptr(),
-            house_t.data_ptr(), evlog.data_ptr(), vlog.data_ptr(),
-            top.data_ptr(), T, *common)
-    else:
-        LAUNCHES["replay"] += 1
-        code = getattr(lib, f"canopy_replay_forward_{_SUFFIX[dtype]}")(
-            ops.data_ptr(), args.data_ptr(), enc.n_ops, staged.data_ptr(),
-            house_t.data_ptr(), evlog.data_ptr(), top.data_ptr(), T,
-            *common)
+    vlog = torch.empty((enc.n_log, T), dtype=dtype, device=device) \
+        if with_log else None
+    dp = _dp_scratch(enc, -(-T // plan.width), plan.width, staged)
+    LAUNCHES["replay_tape" if with_log else "replay"] += 1
+    name = "replay_tape_forward" if with_log else "replay_forward"
+    code = getattr(lib, f"canopy_{name}_{_SUFFIX[dtype]}")(
+        words.data_ptr(), ring.n_chunks, ring.chunk_words, head.data_ptr(),
+        staged.data_ptr(), house_t.data_ptr(), evlog.data_ptr(),
+        _ptr(vlog), top.data_ptr(), T, enc.pool_slots, enc.res_rows,
+        enc.top_slot, plan.width, plan.depth, _ptr(dp),
+        torch.cuda.current_stream(device).cuda_stream)
     _raise_on(lib, code, "replay forward")
     return top, vlog
 
@@ -1370,11 +1632,11 @@ def replay_propagate(enc: EncodedReplay, basic_p: torch.Tensor,
 
 def _check_spill_fits(pool_slots: int) -> None:
     """A spill block holds its pool in shared memory: at most
-    ``REPLAY_SLOTS`` slots (one warp of float32 trials)."""
-    if pool_slots > REPLAY_SLOTS:
+    ``SPILL_SLOTS`` slots (one warp of float32 trials)."""
+    if pool_slots > SPILL_SLOTS:
         raise LogicError(
             f"spill program needs {pool_slots} pool slots; one block holds "
-            f"{REPLAY_SLOTS} at 32 trials ({SMEM_BYTES} B of shared memory)")
+            f"{SPILL_SLOTS} at 32 trials ({SMEM_BYTES} B of shared memory)")
 
 
 def compile_spill_stream(tree: CompiledTree, **kwargs):
@@ -1384,22 +1646,21 @@ def compile_spill_stream(tree: CompiledTree, **kwargs):
     The JAX package sizes the pool from the TPU's 13 MiB of VMEM (minus a
     staging ring of chunks and two slab buffers).  Here the pool is what
     one block keeps in shared memory: by default 113 slots (blocks of
-    ``REPLAY_TRIALS`` = 512 float32 trials), or the widest gate's working
+    ``SPILL_TRIALS`` = 512 float32 trials), or the widest gate's working
     set if that is more; every basic event sits in one staging chunk
     (the card reads any staged row straight from device memory, so no
     basic needs a pool slot); and no TPU VMEM budget.  Any builder keyword
     may be given.  The built program's pool is checked: beyond
-    ``REPLAY_SLOTS`` (1,816) it raises ``LogicError``, as does a gate
+    ``SPILL_SLOTS`` (1,816) it raises ``LogicError``, as does a gate
     wider than an explicitly given pool (the builder's own check).
     """
     from ..compiler.schedule import _emit_gate_ops
     from ..compiler.spill import build_spill_schedule
-    check_count_gates(tree)
     kwargs = dict(kwargs)
     if "pool_slots" not in kwargs:
         widest = max((len(row[2]) for row in _emit_gate_ops(tree)),
                      default=0)
-        kwargs["pool_slots"] = max(SMEM_BYTES // (4 * REPLAY_TRIALS),
+        kwargs["pool_slots"] = max(SMEM_BYTES // (4 * SPILL_TRIALS),
                                    widest + 2)
     kwargs.setdefault("chunk_tiles", max(tree.n_basic, 1))
     kwargs.setdefault("vmem_budget", _NO_VMEM_BUDGET)
@@ -1518,9 +1779,8 @@ def encode_spill(program) -> EncodedSpill:
                         entry = [POOL, loc[1], POOL, loc[1]]
                     args.append(entry[:2] + [int(bool(flag))] + entry[2:])
                 if kind == "count":
-                    aux0, aux1, states = _count_row(
-                        aux, len(locs), f"at op {len(ops)} (out slot "
-                        f"{out_slot})", args, begin)
+                    aux0, aux1, states = _count_row(aux, len(locs), args,
+                                                    begin)
                     max_states = max(max_states, states)
                 elif kind in ("prod", "pair"):
                     aux0, aux1 = int(bool(aux)), 0
@@ -1595,17 +1855,18 @@ def spill_forward(enc: EncodedSpill, staged: torch.Tensor,
     lib = load_library()
     staged = staged.contiguous()
     _check_cuda(dtype, staged)
-    width = _replay_block_trials(enc.pool_slots, dtype)
+    width = _spill_block_trials(enc.pool_slots, dtype)
     T = staged.shape[1]
     ops, args, _fill = enc.tables(device)
     scratch = torch.empty((max(enc.n_scratch, 1), T), dtype=dtype,
                           device=device)
     top = torch.empty(T, dtype=dtype, device=device)
+    dp = _dp_scratch(enc, -(-T // width), width, staged)
     LAUNCHES["spill"] += 1
     code = getattr(lib, f"canopy_spill_forward_{_SUFFIX[dtype]}")(
         ops.data_ptr(), args.data_ptr(), enc.n_ops, staged.data_ptr(),
         house_t.data_ptr(), scratch.data_ptr(), top.data_ptr(), T,
-        enc.pool_slots, enc.top_slot, width,
+        enc.pool_slots, enc.top_slot, width, _ptr(dp),
         torch.cuda.current_stream(device).cuda_stream)
     _raise_on(lib, code, "spill forward")
     return top

@@ -37,7 +37,14 @@ false or the package is missing).  Phases, each raising on failure:
    an ``atleast 2`` gate over 130 basic events at p = 0.01 through
    ``make_propagator(engine="auto")`` (the stream kernel), uncertainty
    and stream importance, within 1e-6 of the CPU f64 values and of the
-   JAX package's value;
+   JAX package's value; the path ``wide-count``: ``cardinality [130,
+   140]`` over 300 basic events (142 DP states: the device-memory DP
+   scratch) at ``WIDE_TRIALS`` trials through the stream, both fused,
+   the replay and the spill kernels, each bit-equal to its plain version
+   and within ``TOP_RTOL`` of the CPU f64 gather engine, and at one f64
+   trial through both adjoints (logged forward and level backward, taped
+   forward and level backward), bit-equal to plain, their gradients
+   within 1e-5 of the CPU f64 importance;
 6. the BDD slice, through the CLI in-process
    (``tests/fixtures/torch_slice_plant.xml --device cuda --bdd
    --importance --uncertainty --num-trials 1048576 --seed 7``): its
@@ -52,21 +59,27 @@ false or the package is missing).  Phases, each raising on failure:
    ``tests/fixtures/torch_pdag_golden.json``, the redrawn batch
    reproducing the reported mean exactly, and 65,536 of its trials'
    kernel tops against the f64 gather engine;
-8. the replay path (``csrc/replay.cu``, ``csrc/replay_adjoint.cu``):
-   (a) ``bench.py``'s 65,536-gate replay tree at 65,536 trials through
+8. the replay path (``csrc/replay.cu`` and ``csrc/replay_adjoint.cu``,
+   the ring kernel of ``csrc/replay_ops.cuh``; the backward
+   ``csrc/adjoint.cu`` on the program's level form): (a) ``bench.py``'s
+   65,536-gate replay tree at 65,536 trials through
    ``make_propagator(engine="replay")`` and the staged pair, bit-equal to
    the plain version and to the stream kernel on the same inputs, 2,048
-   trials within ``TOP_RTOL`` of the f64 gather engine; (b) the
+   trials within ``TOP_RTOL`` of the f64 gather engine, the plan's block
+   width and ring depth and the kernel's ptxas row logged; (b) the
    16,384-gate replay-adjoint tree under a forced small schedule (every
    kind of read: pool, resident, basic stream, slab, refill, gate
    stream), forward, taped forward and backward bit-equal to plain; (c)
    ``make_differentiable_replay`` on that tree at 1,024 float32 trials
    (``bench.py``'s size), taped forward and backward bit-equal to plain
    and the gradient within ``GRAD_RTOL`` of autograd through the f64
-   plain forward; (d) ``_make_replay_importance_fn`` (f64, one trial),
-   its MIF within ``REPLAY_MIF_RTOL`` of the stream adjoint's.  Inputs
-   come from numpy (seed ``REPLAY_SEED``), so the CPU can reproduce any
-   trial.  CUDA-event times of replay, stream and plain;
+   plain forward, the backward beside its critical-path model (levels x
+   ``SMEM_ROUND_TRIP`` cycles); (c') both again at one f64 trial,
+   importance's shape; (d) ``_make_replay_importance_fn`` (f64, one
+   trial), timed end to end, its MIF within ``REPLAY_MIF_RTOL`` of the
+   stream adjoint's.  Inputs come from numpy (seed ``REPLAY_SEED``), so
+   the CPU can reproduce any trial.  CUDA-event times of replay, stream
+   and plain;
 9. Monte Carlo and the spill engine (``csrc/bernoulli.cu``,
    ``csrc/spill.cu``): (a) the Philox kernel bit-equal to its plain
    version on the slice's 263 events x 312,500 words (10^7 trials) and
@@ -97,7 +110,7 @@ false or the package is missing).  Phases, each raising on failure:
    ``gather``: ``gather_propagate`` on that tree and on a ragged product
    tree, each bit-equal to plain and to the float32 gather engine.
 
-Each path (5, 6, 7, 8, 9's two and 10's two) runs with the launch counts
+Each path (5's two, 6, 7, 8, 9's two and 10's two) runs with the launch counts
 set to 0 just before it and read just after; a kernel of the path that never
 launched fails the run.  Long output goes to ``chiprun_out/``.  The last lines are the
 kernels' JSON record (with each kernel's bound: the larger of its bytes
@@ -196,6 +209,9 @@ BSR_RTOL = 1e-5
 #: The JAX package's ``make_propagator`` value of atleast 2 of 130 basic
 #: events at p = 0.01 (float32, its TPU-path precision).
 WIDE_ATLEAST_JAX = 0.37371027
+#: Trials and input seed of the residual count window's engines.
+WIDE_TRIALS = 4_096
+WIDE_SEED = 20267
 #: The ragged product tree (padded fan-in positions, ``arg_mask`` False).
 RAGGED_TREE = dict(n_basic=32, n_gates=40, fanin=4, seed=3)
 
@@ -231,7 +247,7 @@ KERNELS = {
                "canopy_tpu/ops/stream_kernel.py:381"),
     "replay_tape": ("canopy_tpu_torch/csrc/replay_adjoint.cu",
                     "canopy_tpu/ops/replay_adjoint_kernel.py:32"),
-    "replay_bwd": ("canopy_tpu_torch/csrc/replay_adjoint.cu",
+    "replay_bwd": ("canopy_tpu_torch/csrc/adjoint.cu",
                    "canopy_tpu/ops/replay_adjoint_kernel.py:138"),
     "bernoulli": ("canopy_tpu_torch/csrc/bernoulli.cu",
                   "canopy_tpu/ops/pallas_kernels.py:45"),
@@ -390,10 +406,11 @@ def short_name(mangled: str) -> str:
     return mangled
 
 
-#: The redesigned kernels' mangled names, as the ptxas report shows them.
+#: The redesigned kernels' base names, as the ptxas report's mangled
+#: names hold them.
 PTXAS_KERNELS = ("stream_steps_kernel", "stream_ops_kernel",
                  "stream_level_forward_kernel",
-                 "stream_level_backward_kernel")
+                 "stream_level_backward_kernel", "replay_forward_kernel")
 
 
 def phase_build(record: dict) -> None:
@@ -408,7 +425,7 @@ def phase_build(record: dict) -> None:
     for line in info.get("ptxas", "").splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[build] ptxas {line.strip()}")
-    # The stream and adjoint instantiations: registers, stack, spills.
+    # The redesigned kernels' instantiations: registers, stack, spills.
     table = {short_name(k): v for k, v in
              ptxas_table(info.get("ptxas", "")).items()
              if any(n in k for n in PTXAS_KERNELS)}
@@ -853,29 +870,66 @@ def phase_dispatch(device, record: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_wide_count(device, record: dict) -> None:
-    """atleast 2 of 130 basic events at p = 0.01 through
-    ``make_propagator(engine="auto")`` on the card (the stream kernel,
-    its count DP absorbing at 2), uncertainty and stream importance, each
-    within ``TOP_RTOL`` / 1e-6 of the CPU f64 values."""
-    from canopy_tpu_torch.compiler.expr_tape import ExpressionTape
+def count_gate_tree(n: int, lo: int, hi: int | None):
+    """One count gate over ``n`` basic events at p = 0.01: ``atleast lo``
+    when ``hi`` is None, else ``cardinality [lo, hi]`` with every fifth
+    argument complemented (``tests/test_torch_count_window.py``'s)."""
     from canopy_tpu_torch.compiler.graph import compile_gates
-    from canopy_tpu_torch.engine.importance import make_stream_importance_fn
-    from canopy_tpu_torch.engine.propagate import make_propagator
-    from canopy_tpu_torch.engine.uncertainty import uncertainty_analysis
     from canopy_tpu_torch.mef.event import (Arg, BasicEvent, Connective,
                                             Formula, Gate)
     from canopy_tpu_torch.mef.expr.constant import ConstantExpression
     events = []
-    for i in range(130):
+    for i in range(n):
         e = BasicEvent(f"c{i:03d}")
         e.expression = ConstantExpression(0.01)
         events.append(e)
     top = Gate("top")
-    top.formula = Formula(Connective.ATLEAST, [Arg(e) for e in events],
-                          min_number=2)
+    if hi is None:
+        top.formula = Formula(Connective.ATLEAST, [Arg(e) for e in events],
+                              min_number=lo)
+    else:
+        top.formula = Formula(Connective.CARDINALITY,
+                              [Arg(e, complement=i % 5 == 4)
+                               for i, e in enumerate(events)],
+                              min_number=lo, max_number=hi)
     tree = compile_gates([top])
     tree.top_index = tree.gate_index["top"]
+    return tree
+
+
+def phase_wide_count(device, record: dict) -> None:
+    """Count windows on the card.  (a) atleast 2 of 130 basic events at
+    p = 0.01 through ``make_propagator(engine="auto")`` (the stream
+    kernel, its count DP absorbing at 2), uncertainty and stream
+    importance, each within 1e-6 of the CPU f64 values.  (b) The path
+    ``wide-count``: cardinality [130, 140] of 300 (142 DP states, beyond
+    the kernels' local arrays: the device-memory DP scratch) at
+    ``WIDE_TRIALS`` float32 trials of uniform(0.35, 0.55) through every
+    engine whose kernel counts (stream, both fused kernels, replay,
+    spill), each bit-equal to its plain version on the card and within
+    ``TOP_RTOL`` of the CPU f64 gather engine per trial; then importance's
+    shape (f64, one trial) through the stream adjoint and the replay
+    adjoint, their kernels bit-equal to plain and their gradients within
+    1e-5 of the CPU f64 importance MIF."""
+    from canopy_tpu_torch.compiler.expr_tape import ExpressionTape
+    from canopy_tpu_torch.engine.importance import (
+        importance_measures, make_stream_importance_fn)
+    from canopy_tpu_torch.engine.propagate import make_propagator
+    from canopy_tpu_torch.engine.uncertainty import uncertainty_analysis
+    from canopy_tpu_torch.ops.adjoint_kernel import (stream_backward,
+                                                     stream_backward_plain)
+    from canopy_tpu_torch.ops.fused_kernel import (encode_fused,
+                                                   fused_forward_plain,
+                                                   fused_propagate,
+                                                   tile_trials)
+    from canopy_tpu_torch.ops.replay_adjoint_kernel import (
+        replay_adjoint_backward, replay_backward_plain, replay_tape_forward)
+    from canopy_tpu_torch.ops.stream_kernel import (
+        MAX_COUNT_STATES, compile_replay_stream, compile_spill_stream,
+        encode_replay, encode_spill, replay_forward_plain, replay_grad_basic,
+        replay_propagate, spill_forward_plain, stage_basic, stage_replay,
+        stream_forward, stream_forward_plain, tree_stream_encoding)
+    tree = count_gate_tree(130, 2, None)
     p = torch.full((1, 130), 0.01, dtype=torch.float64)
     want = float(make_propagator(tree, "cpu")(p)[0])
     fn = make_propagator(tree, device)
@@ -908,6 +962,99 @@ def phase_wide_count(device, record: dict) -> None:
     record["wide_atleast"] = {"value": got, "cpu_f64": want,
                               "rel": rel, "jax_rel": jax_rel,
                               "importance_rel": g_rel}
+
+    # (b) The residual window, through every counting engine.
+    t0 = time.perf_counter()
+    tree = count_gate_tree(300, 130, 140)
+    senc = tree_stream_encoding(tree)
+    fenc = encode_fused(tree)
+    renc = encode_replay(compile_replay_stream(tree, grs_chunk=512))
+    spenc = encode_spill(compile_spill_stream(tree))
+    states = {enc.max_count_states for enc in (senc, fenc, renc, spenc)}
+    check(states == {142}, f"residual window forms {states}")
+    p32 = np.random.default_rng(WIDE_SEED).uniform(
+        0.35, 0.55, (WIDE_TRIALS, 300)).astype(np.float32)
+    want = make_propagator(tree, "cpu", engine="gather")(
+        torch.from_numpy(p32).double()).numpy()
+    p = torch.from_numpy(p32).to(device)
+    h = torch.zeros(1, device=device)
+    log(f"[count] cardinality [130, 140] of 300: {states.pop()} DP states "
+        f"(the kernels' local arrays hold {MAX_COUNT_STATES}); programs "
+        f"and the CPU f64 reference in {time.perf_counter() - t0:.3f} s")
+    runs = {
+        "stream": (lambda: make_propagator(tree, device)(p),
+                   lambda: stream_forward_plain(
+                       senc, stage_basic(senc, p), h)[0]),
+        "fused_tiled": (lambda: make_propagator(tree, device,
+                                                engine="fused")(p),
+                        lambda: fused_forward_plain(fenc, tile_trials(p),
+                                                    h)),
+        "fused": (lambda: fused_propagate(tree, p, []),
+                  lambda: fused_forward_plain(fenc, tile_trials(p), h)),
+        "replay": (lambda: replay_propagate(renc, p, []),
+                   lambda: replay_forward_plain(
+                       renc, stage_replay(renc, p), h)[0]),
+        "spill": (lambda: make_propagator(tree, device, engine="spill")(p),
+                  lambda: spill_forward_plain(
+                      spenc, stage_basic(spenc, p), h))}
+    reset_counts()
+    result = {}
+    for name, (run, plain) in runs.items():
+        with torch.no_grad():
+            tops, ref = run(), plain()
+        check(torch.equal(tops, ref), f"residual window: {name} differs "
+                                      f"from its plain version")
+        rel = float((np.abs(tops.double().cpu().numpy() - want)
+                     / np.abs(want)).max())
+        check(rel <= TOP_RTOL, f"residual window: {name} vs CPU f64 "
+                               f"{rel:.3e}")
+        result[name] = rel
+    # Importance's shape, one f64 trial: the stream adjoint (logged
+    # forward, level backward) and the replay adjoint (taped forward,
+    # level backward; its program has no resident tier) held to their
+    # plain versions, and their gradients (the MIF) to the CPU f64
+    # stream importance.  The replay adjoint builder's own guards (the
+    # TPU's tape windows and count unroll) refuse this gate, so the
+    # replay program is the forward's.
+    point = torch.from_numpy(p32[0].astype(np.float64))
+    want = importance_measures(tree, point, top_fn=make_stream_importance_fn(
+        tree, None, "cpu")).mif
+    got = importance_measures(tree, point.to(device),
+                              top_fn=make_stream_importance_fn(
+                                  tree, None, device)).mif
+    one = torch.ones(1, dtype=torch.float64, device=device)
+    h64 = h.double()
+    staged = stage_basic(senc, point[None].to(device), torch.float64)
+    top, vlog = stream_forward(senc, staged, [], with_log=True)
+    ptop, plog = stream_forward_plain(senc, staged, h64, True)
+    check(torch.equal(top, ptop) and torch.equal(vlog, plog) and
+          torch.equal(stream_backward(senc, staged, [], vlog, one),
+                      stream_backward_plain(senc, staged, h64, plog, one)),
+          "residual window: stream importance kernels differ from plain")
+    staged = stage_replay(renc, point[None].to(device), torch.float64)
+    top, vlog = replay_tape_forward(renc, staged, [])
+    ptop, plog = replay_forward_plain(renc, staged, h64, True)
+    g_brs = replay_adjoint_backward(renc, staged, [], vlog, one)
+    check(torch.equal(top, ptop) and torch.equal(vlog, plog) and
+          torch.equal(g_brs, replay_backward_plain(renc, staged, h64, plog,
+                                                   one)),
+          "residual window: replay importance kernels differ from plain")
+    g_replay = replay_grad_basic(renc, g_brs)[0].cpu().numpy()
+    big = float(np.abs(want).max())
+    for label, mif in (("stream", got), ("replay", g_replay)):
+        rel = float(np.abs(mif - want).max()) / big
+        check(rel <= 1e-5, f"residual window: {label} importance MIF vs "
+                           f"CPU f64 {rel:.3e}")
+        result[f"{label}_importance_mif"] = rel
+    launches = read_counts(record, "wide-count", (
+        "stream", "stream_log", "adjoint", "fused_tiled", "fused", "replay",
+        "replay_tape", "replay_bwd", "spill"))
+    log(f"[count] cardinality [130, 140] of 300 at {WIDE_TRIALS} trials: "
+        f"every engine bit-equal to its plain version; per-trial max rel "
+        f"err vs CPU f64 gather (limit {TOP_RTOL}) and importance MIF vs "
+        f"CPU f64 (limit 1e-5): {json.dumps(result)}; launches {launches}")
+    record["residual_window"] = result
+    torch.cuda.empty_cache()
 
 
 def phase_pdag(device, record: dict) -> None:
@@ -1018,11 +1165,27 @@ def phase_replay(device, record: dict) -> None:
                                                    make_staged_propagator)
     from canopy_tpu_torch.ops.replay_adjoint_kernel import (
         compile_replay_adjoint, make_differentiable_replay,
-        replay_adjoint_backward, replay_backward_plain, replay_tape_forward)
+        replay_adjoint_backward, replay_backward_plain, replay_level_program,
+        replay_tape_forward)
     from canopy_tpu_torch.ops.stream_kernel import (
-        compile_replay_stream, encode_replay, house_tensor, replay_forward,
-        replay_forward_plain, replay_grad_basic, stage_basic, stage_replay,
+        compile_replay_stream, encode_replay, house_tensor, level_schedule,
+        replay_forward, replay_forward_plain, replay_grad_basic,
+        replay_plan, replay_ring_stream, stage_basic, stage_replay,
         stream_forward, stream_variant, tree_stream_encoding)
+
+    def ring_shape(enc, dtype, n_trials) -> dict:
+        """The forward's plan, ring stream and ptxas row for a launch."""
+        plan = replay_plan(enc, dtype, n_trials)
+        ring = replay_ring_stream(enc, plan.depth)
+        vtype = "f32" if dtype == torch.float32 else "f64"
+        rows = record.get("ptxas", {})
+        return {"block_trials": plan.width, "ring_depth": plan.depth,
+                "chunk_words": plan.chunk_words, "chunks": ring.n_chunks,
+                "shared_bytes": plan.shared_bytes, "ring_pads": ring.n_pads,
+                "ring_reads": len(ring.fetches) - ring.n_pads,
+                "ptxas": {log_on: rows.get(
+                    f"replay_forward_kernel<{vtype},{log_on},{plan.depth}>")
+                    for log_on in (0, 1)}}
     from canopy_tpu_torch.utils.synthetic import synthetic_compiled_tree
 
     t0 = time.perf_counter()
@@ -1084,6 +1247,8 @@ def phase_replay(device, record: dict) -> None:
              "stream_gb": prog.brs_len_pad * T * 4 / 1e9,
              "log_gb": prog.n_evicted * T * 4 / 1e9}
     log(f"[replay] 65k tree program: {json.dumps(sizes)}")
+    shape65 = ring_shape(enc, torch.float32, T)
+    log(f"[replay] 65k tree forward at {T} f32 trials: {json.dumps(shape65)}")
     h32 = house_tensor(enc, house, device)
     plain, _ = replay_forward_plain(enc, staged, h32)
     err = float((tops_staged - plain).abs().max())
@@ -1115,7 +1280,8 @@ def phase_replay(device, record: dict) -> None:
     record["replay_65k"] = dict(sizes, stream_ms=stream_ms,
                                 stream_pool=senc.pool_slots,
                                 stream_variant=variant,
-                                build_s=build_s, stage_s=stage_s)
+                                build_s=build_s, stage_s=stage_s,
+                                **shape65)
     del staged, sstaged, plain, stops, tops, tops_staged, p, ref
     torch.cuda.empty_cache()
 
@@ -1182,24 +1348,71 @@ def phase_replay(device, record: dict) -> None:
                                                     True), 1)
     pms_bwd = cuda_ms(lambda: replay_backward_plain(enc16, staged16, h16,
                                                     plog, ones), 1)
+    n_levels = level_schedule(replay_level_program(enc16)).n_levels
+    model = level_model_ms(n_levels, sm_clock_hz())
+    shape_tape = ring_shape(enc16, torch.float32, ADJOINT_TRIALS)
     log(f"[replay] 16k tree ({enc16.n_log} gates, {len(aprog.base.segments)} "
         f"segments, pool {enc16.pool_slots}, {enc16.n_evicted} evictions), "
         f"{ADJOINT_TRIALS} trials f32: taped forward and backward bit-equal "
         f"to plain; gradient vs f64 autograd {grel:.3e} (limit "
         f"{GRAD_RTOL['f32']}); tape {ms_tape:.3f} ms / plain "
-        f"{pms_tape:.3f} ms, backward {ms_bwd:.3f} ms / plain "
-        f"{pms_bwd:.3f} ms")
+        f"{pms_tape:.3f} ms ({json.dumps(shape_tape)}), backward "
+        f"{ms_bwd:.3f} ms / plain {pms_bwd:.3f} ms ({n_levels} levels, "
+        f"critical path {model:.4f} ms: a model)")
     shape16 = f"16k tree, {enc16.n_log} gates x {ADJOINT_TRIALS} trials, f32"
     record["replay_tape"].update(
         max_abs_err=tape_err, ms=ms_tape, plain_ms=pms_tape, shape=shape16,
-        **replay_bound(enc16, ADJOINT_TRIALS, 4, 1 + enc16.n_log))
+        **shape_tape, **replay_bound(enc16, ADJOINT_TRIALS, 4,
+                                     1 + enc16.n_log))
     record["replay_bwd"].update(
         max_abs_err=grad_err, ms=ms_bwd, plain_ms=pms_bwd, shape=shape16,
+        n_levels=n_levels, critical_path_model_ms=model,
         **replay_bound(enc16, ADJOINT_TRIALS, 4,
                        enc16.n_log + 1 + len(enc16.read_rows), True))
     del staged16, vlog, plog, grad, pgrad, s64, g64, q, value
 
-    # (d) Importance through the replay adjoint against the stream's.
+    # (c') The same kernels at importance's shape: one f64 trial.
+    staged1 = stage_replay(enc16, point[None], torch.float64)
+    h1 = h16.double()
+    one = torch.ones(1, dtype=torch.float64, device=device)
+    top, vlog = replay_tape_forward(enc16, staged1, house)
+    ptop, plog = replay_forward_plain(enc16, staged1, h1, True)
+    check(torch.equal(top, ptop) and torch.equal(vlog, plog),
+          "taped forward differs from plain at one f64 trial")
+    check(torch.equal(
+        replay_adjoint_backward(enc16, staged1, house, vlog, one),
+        replay_backward_plain(enc16, staged1, h1, plog, one)),
+          "backward differs from plain at one f64 trial")
+    ms_tape1 = cuda_ms(lambda: replay_tape_forward(enc16, staged1, house), 5)
+    ms_bwd1 = cuda_ms(lambda: replay_adjoint_backward(
+        enc16, staged1, house, vlog, one), 5)
+    shape_one = ring_shape(enc16, torch.float64, 1)
+    log(f"[replay] 16k tree, one f64 trial (importance's shape): taped "
+        f"forward and backward bit-equal to plain; tape {ms_tape1:.3f} ms "
+        f"({json.dumps(shape_one)}), backward {ms_bwd1:.4f} ms ({n_levels} "
+        f"levels, critical path {model:.4f} ms: a model)")
+    record.setdefault("timings", {})["replay-16k f64@1"] = {
+        "tape_ms": ms_tape1, "backward_ms": ms_bwd1, "n_levels": n_levels,
+        "critical_path_model_ms": model, **shape_one,
+        "tape_bound": replay_bound(enc16, 1, 8, 1 + enc16.n_log),
+        "backward_bound": replay_bound(
+            enc16, 1, 8, enc16.n_log + 1 + len(enc16.read_rows), True)}
+    del staged1, vlog, plog
+
+    # (d) Importance through the replay adjoint against the stream's,
+    # end to end (host clock): building the importance function (the
+    # adjoint program), then the measures.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    top_fn = _make_replay_importance_fn(tree16, None, device)
+    t1 = time.perf_counter()
+    imp = importance_measures(tree16, point, top_fn=top_fn)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    record["replay_importance_s"] = {"build": t1 - t0, "measures": t2 - t1}
+    log(f"[replay] importance end to end (16k tree, one f64 trial): "
+        f"_make_replay_importance_fn {t1 - t0:.3f} s, importance_measures "
+        f"{t2 - t1:.3f} s")
     want = importance_measures(tree16, point, top_fn=make_stream_importance_fn(
         tree16, None, device))
     big = float(np.abs(want.mif).max())

@@ -3,14 +3,17 @@
 ``ops/stream_kernel.count_window`` gives a window ``[lo, hi]`` over ``n``
 arguments its cheaper kernel form: upper-open (``hi >= n``) absorbing at
 ``lo`` (``lo + 1`` states), bounded (``hi + 2``), or the same over the
-complemented arguments' window ``[n - hi, n - lo]``.  Before it, an
-``atleast`` gate over more than 126 inputs asked for ``n + 2`` states and
-every CUDA wrapper refused it.
+complemented arguments' window ``[n - hi, n - lo]``.  Every window has a
+form: one beyond ``MAX_COUNT_STATES`` (``cardinality [130, 140]`` over
+300 inputs, 142 states) runs its DP in a device-memory scratch on the
+card and in the same plain versions here.
 
 Tolerances: the forms round differently from the JAX package's DP (one
 absorbing state at ``hi + 1``), so f64 values and gradients agree within
 1e-12 relative of the JAX f64 gather engine and ``jax.grad``; the
-float32 fused kernel's plain version within 1e-6.
+float32 fused kernel's plain version within 1e-6; the 300-input gate's
+stream adjoint within 1e-10 of torch autograd through the f64 plain
+forward (both are f64, in different operation orders).
 """
 
 import jax
@@ -27,7 +30,6 @@ from canopy_tpu.mef.expr.constant import ConstantExpression as JConst
 import canopy_tpu_torch.mef.event as tev
 from canopy_tpu_torch.compiler.graph import compile_gates
 from canopy_tpu_torch.engine.propagate import make_propagator
-from canopy_tpu_torch.errors import LogicError
 from canopy_tpu_torch.mef.expr.constant import ConstantExpression
 from canopy_tpu_torch.ops import adjoint_kernel as tak
 from canopy_tpu_torch.ops import fused_kernel as tfk
@@ -89,26 +91,72 @@ def rel(got, want) -> float:
     (7, 5, 10, (1, 0, False, 2)),          # empty window: value 0
 ])
 def test_count_window_forms(lo, hi, n, form):
-    assert tsk.count_window(lo, hi, n, "'g'") == form
+    assert tsk.count_window(lo, hi, n) == form
 
 
 def test_residual_window_raises():
-    with pytest.raises(LogicError, match="count gate 'g'.*142 DP states"):
-        tsk.count_window(130, 140, 300, "'g'")
+    """The residual window, a bounded one whose hi and n - lo both exceed
+    126: cardinality [130, 140] of 300 keeps its direct 142-state form
+    (the complement's [160, 170] needs 172), beyond the kernels' local
+    arrays."""
+    assert tsk.count_window(130, 140, 300) == (130, 140, False, 142)
+    assert 142 > tsk.MAX_COUNT_STATES
+
+
+def residual_inputs(n_trials: int = 8) -> np.ndarray:
+    """p in [0.35, 0.55]: counts near 135, so P(count in [130, 140]) is
+    about 0.4 and representable in float32 too."""
+    return np.random.default_rng(300).uniform(0.35, 0.55, (n_trials, 300))
 
 
 @pytest.mark.parametrize("entry", ["stream", "fused", "replay", "spill"])
 def test_residual_window_raises_at_encode_time(entry):
-    """A bounded window whose hi and n - lo both exceed 126 raises
-    naming the gate when its program is built, on any device."""
-    tt = count_tree(tev, ConstantExpression, compile_gates, 300, 130, 140)
-    build = {"stream": tsk.compile_tree_stream, "fused": tfk.encode_fused,
-             "replay": tsk.compile_replay_stream,
-             "spill": tsk.compile_spill_stream}[entry]
-    with pytest.raises(LogicError, match="count gate 'top'"):
-        build(tt)
-    with pytest.raises(LogicError, match="count gate 'top'"):
-        make_propagator(tt, torch.device("cuda"), engine="stream")
+    """cardinality [130, 140] over 300 inputs quantifies through every
+    encoder and its plain version, f64, within 1e-12 relative of the JAX
+    package's f64 gather engine; a CUDA propagator builds without a
+    card."""
+    jt, tt = trees(300, 130, 140)
+    p = residual_inputs()
+    want = np.asarray(jax_top_probability(jt, jnp.asarray(p)))
+    h = torch.zeros(1, dtype=torch.float64)
+    if entry == "stream":
+        enc = tsk.tree_stream_encoding(tt)
+        got = tsk.stream_forward(enc, _staged(enc, p), [])[0]
+    elif entry == "fused":
+        enc = tfk.encode_fused(tt)
+        got = tfk.fused_forward_plain(enc, _staged(enc, p), h)
+    elif entry == "replay":
+        enc = tsk.encode_replay(tsk.compile_replay_stream(tt, grs_chunk=512))
+        got = tsk.replay_forward(enc, tsk.stage_replay(
+            enc, torch.from_numpy(p), torch.float64), [])[0]
+    else:
+        enc = tsk.encode_spill(tsk.compile_spill_stream(tt))
+        got = tsk.spill_forward(enc, _staged(enc, p), [])
+    assert enc.max_count_states == 142
+    assert rel(got.numpy(), want) <= RTOL
+    fn = make_propagator(tt, torch.device("cuda"), engine="stream")
+    assert fn.engine == "stream"
+
+
+def test_residual_window_gradient_matches_autograd():
+    """The 300-input gate's stream adjoint (plain version, the
+    leave-one-out DP over 141 states) against torch autograd through the
+    f64 plain forward, and the level form bit-equal to the sequential
+    walk."""
+    _jt, tt = trees(300, 130, 140)
+    enc = tsk.tree_stream_encoding(tt)
+    staged = _staged(enc, residual_inputs(2))
+    h = torch.zeros(1, dtype=torch.float64)
+    ct = torch.tensor([1.0, 0.75], dtype=torch.float64)
+    top, log = tsk.stream_forward_plain(enc, staged, h, True)
+    grad = tak.stream_backward_plain(enc, staged, h, log, ct)
+    s64 = staged.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(tsk.stream_forward_plain(enc, s64, h)[0],
+                                  s64, ct)
+    scale = float(want.abs().max())
+    assert float((grad - want).abs().max()) <= 1e-10 * scale
+    assert torch.equal(
+        tak.stream_backward_levels_plain(enc, staged, h, log, ct), grad)
 
 
 def test_nested_count_top_needs_33_states():

@@ -357,9 +357,9 @@ def test_spill_program_beyond_shared_memory_raises(cuda_device):  # noqa: F811
     tree = synthetic_compiled_tree(n_basic=64, n_gates=256, fanin=4,
                                    n_levels=5, seed=1)
     with pytest.raises(LogicError, match="shared memory"):
-        tsk.compile_spill_stream(tree, pool_slots=tsk.REPLAY_SLOTS + 1)
+        tsk.compile_spill_stream(tree, pool_slots=tsk.SPILL_SLOTS + 1)
     enc = tsk.encode_spill(build_spill_schedule(
-        tree, pool_slots=tsk.REPLAY_SLOTS + 1))
+        tree, pool_slots=tsk.SPILL_SLOTS + 1))
     tsk.reset_launches()
     with pytest.raises(LogicError, match="shared memory"):
         tsk.spill_forward(enc, torch.zeros((enc.n_basic, 64),
@@ -618,3 +618,103 @@ def test_wide_atleast_on_cuda(cuda_device):  # noqa: F811
         grads.append(q.grad.cpu())
     assert float((grads[1] - grads[0]).abs().max()) <= \
         1e-6 * float(grads[0].abs().max())
+
+
+def _cardinality_tree(n: int, lo: int, hi: int):
+    """cardinality [lo, hi] over n basic events, every fifth argument
+    complemented (``tests/test_torch_count_window.py``'s gate)."""
+    from canopy_tpu_torch.compiler.graph import compile_gates
+    from canopy_tpu_torch.mef.event import (Arg, BasicEvent, Connective,
+                                            Formula, Gate)
+    from canopy_tpu_torch.mef.expr.constant import ConstantExpression
+    events = []
+    for i in range(n):
+        e = BasicEvent(f"c{i:03d}")
+        e.expression = ConstantExpression(0.01)
+        events.append(e)
+    top = Gate("top")
+    top.formula = Formula(Connective.CARDINALITY,
+                          [Arg(e, complement=i % 5 == 4)
+                           for i, e in enumerate(events)],
+                          min_number=lo, max_number=hi)
+    tree = compile_gates([top])
+    tree.top_index = tree.gate_index["top"]
+    return tree
+
+
+def test_residual_window_kernels_match_plain(cuda_device):  # noqa: F811
+    """cardinality [130, 140] over 300 inputs (142 DP states, beyond the
+    kernels' local arrays: the device-memory DP scratch): every kernel
+    that evaluates COUNT ops bit-equal to its plain version, forward and
+    backward, float32 at 1,000 trials and float64 at one."""
+    from canopy_tpu_torch.ops import replay_adjoint_kernel as trk
+    tree = _cardinality_tree(300, 130, 140)
+    senc = tsk.tree_stream_encoding(tree)
+    fenc = tfk.encode_fused(tree)
+    renc = tsk.encode_replay(tsk.compile_replay_stream(tree, grs_chunk=512))
+    aenc = renc    # no resident tier: the backward takes it
+    spenc = tsk.encode_spill(tsk.compile_spill_stream(tree))
+    for enc in (senc, fenc, renc, spenc):
+        assert enc.max_count_states == 142 > tsk.MAX_COUNT_STATES
+    gen = torch.Generator(device=cuda_device).manual_seed(142)
+    tsk.reset_launches()
+    for dtype, n in ((torch.float32, 1000), (torch.float64, 1)):
+        p = (torch.rand((n, 300), generator=gen, device=cuda_device,
+                        dtype=torch.float64) * 0.2 + 0.35).to(dtype)
+        h = torch.zeros(1, dtype=dtype, device=cuda_device)
+        ct = torch.rand(n, generator=gen, device=cuda_device,
+                        dtype=torch.float64).to(dtype) + 0.5
+        staged = tsk.stage_basic(senc, p, dtype)
+        top, _ = tsk.stream_forward(senc, staged, [])
+        assert torch.equal(top, tsk.stream_forward_plain(senc, staged, h)[0])
+        top, log = tsk.stream_forward(senc, staged, [], with_log=True)
+        ptop, plog = tsk.stream_forward_plain(senc, staged, h, True)
+        assert torch.equal(top, ptop) and torch.equal(log, plog)
+        assert torch.equal(tak.stream_backward(senc, staged, [], log, ct),
+                           tak.stream_backward_plain(senc, staged, h, plog,
+                                                     ct))
+        if dtype == torch.float32:
+            fstaged = tfk.tile_trials(p)
+            want = tfk.fused_forward_plain(fenc, fstaged, h)
+            for width in (tfk.TILED_TRIALS, tfk.LANE_TRIALS):
+                assert torch.equal(tfk.fused_forward(fenc, fstaged, [],
+                                                     width), want)
+        rstaged = tsk.stage_replay(renc, p, dtype)
+        assert torch.equal(tsk.replay_forward(renc, rstaged, [])[0],
+                           tsk.replay_forward_plain(renc, rstaged, h)[0])
+        astaged = tsk.stage_replay(aenc, p, dtype)
+        top, vlog = trk.replay_tape_forward(aenc, astaged, [])
+        ptop, plog = tsk.replay_forward_plain(aenc, astaged, h, True)
+        assert torch.equal(top, ptop) and torch.equal(vlog, plog)
+        assert torch.equal(
+            trk.replay_adjoint_backward(aenc, astaged, [], vlog, ct),
+            trk.replay_backward_plain(aenc, astaged, h, plog, ct))
+        sstaged = tsk.stage_basic(spenc, p, dtype)
+        assert torch.equal(tsk.spill_forward(spenc, sstaged, []),
+                           tsk.spill_forward_plain(spenc, sstaged, h))
+    for name in ("stream", "stream_log", "adjoint", "fused_tiled", "fused",
+                 "replay", "replay_tape", "replay_bwd", "spill"):
+        assert tsk.LAUNCHES[name] > 0, name
+
+
+@pytest.mark.parametrize("n_trials", [33, 20_000, 65_536])
+def test_replay_ring_widths_match_plain(cuda_device, n_trials):  # noqa: F811
+    """The ring forward at the block widths its plan picks for 33, 20,000
+    and 65,536 trials (32, 128 and 256 trials per block, a ragged last
+    block), float32, bit-equal to plain and to the stream kernel."""
+    from canopy_tpu_torch.utils.synthetic import synthetic_compiled_tree
+    tree = synthetic_compiled_tree(n_basic=512, n_gates=4096, fanin=4,
+                                   n_levels=12, seed=1)
+    enc = tsk.encode_replay(tsk.compile_replay_stream(tree))
+    plan = tsk.replay_plan(enc, torch.float32, n_trials)
+    assert plan.width == {33: 32, 20_000: 128, 65_536: 256}[n_trials]
+    gen = torch.Generator(device=cuda_device).manual_seed(n_trials)
+    p = torch.rand((n_trials, tree.n_basic), generator=gen,
+                   device=cuda_device) * 0.05
+    staged = tsk.stage_replay(enc, p)
+    h = torch.zeros(1, device=cuda_device)
+    top, _ = tsk.replay_forward(enc, staged, [])
+    assert torch.equal(top, tsk.replay_forward_plain(enc, staged, h)[0])
+    senc = tsk.tree_stream_encoding(tree)
+    assert torch.equal(top, tsk.stream_forward(
+        senc, tsk.stage_basic(senc, p), [])[0])

@@ -296,16 +296,19 @@ def test_grad_basic_order_and_jax_parity():
 
 
 def test_sizing_reads_the_built_program():
-    """Default sizing: 113 pool slots (a block of 512 float32 trials), no
-    resident tier, widened for a gate wider than the pool.  The
-    shared-memory check reads the program as built: a resident request of
-    128 padded up to the 256-row basic-stream chunk makes 256 resident
-    slots, so a pool of 1,816 - 128 no longer fits."""
+    """Default sizing: 56 pool slots (two 256-trial blocks share an SM),
+    no resident tier, widened for a gate wider than the pool.  The
+    shared-memory check reads the program as built: a resident request
+    of 128 padded up to the 256-row basic-stream chunk makes 256 resident
+    slots, so a pool of ``REPLAY_SLOTS`` - 128 no longer fits.
+    ``REPLAY_SLOTS``: one warp's block beside the op-stream chunks and the
+    shallowest ring."""
     tree = synthetic_compiled_tree(seed=0, **TREE)
-    assert tsk.REPLAY_SLOTS == 1816 == tsk.SMEM_BYTES // (32 * 4)
+    assert tsk.REPLAY_SLOTS == 1743 == (
+        tsk.SMEM_BYTES - 16 - 8 * tsk.REPLAY_CHUNK_WORDS) // (32 * 4) - 8
     program = tsk.compile_replay_stream(tree)
-    assert (program.pool_slots, program.res_tiles) == (113, 0)
-    assert tsk.SMEM_BYTES // (4 * tsk.REPLAY_TRIALS) == 113
+    assert (program.pool_slots, program.res_tiles) == (56, 0)
+    assert tsk.SMEM_BYTES // (4 * tsk.REPLAY_TRIALS) == 56
     with pytest.raises(LogicError, match="resident"):
         tsk.compile_replay_stream(tree, resident_tiles=128,
                                   pool_slots=tsk.REPLAY_SLOTS - 128)
@@ -348,3 +351,261 @@ def test_make_propagator_replay_engine():
         make_propagator(tree, "cpu", output="all", engine="replay")
     # On CUDA (decided without a card) auto keeps the stream.
     assert make_propagator(tree, torch.device("cuda")).engine == "stream"
+
+
+# ---------------------------------------------------------------------------
+# The ring kernel's host plan and op stream (csrc/replay_ops.cuh).
+# ---------------------------------------------------------------------------
+
+def walk_ring(enc, ring, staged: torch.Tensor, house: torch.Tensor,
+              with_log: bool = False):
+    """The ring kernel's walk of its op stream, in plain torch: chunk by
+    chunk, each header and argument word decoded as the kernel decodes
+    it, every ring read taken from the slot its entry was issued into
+    (``depth - 1`` consumptions earlier, the fetch read at issue time, so
+    an eviction-log row fetched before its EVICT raises ``KeyError``).
+    Returns ``(top, value log or None)``."""
+    D, T = ring.depth, staged.shape[1]
+    P, R = enc.pool_slots, enc.res_rows
+    shared: list = [None] * P + [staged[i] for i in range(R)]
+    evlog: dict = {}
+    vlog: list = [None] * enc.n_log
+    slots: list = [None] * D
+    state = {"k": 0}
+
+    def fetch(code):
+        if code == 0:
+            return None
+        if code < tsk._RING_EVLOG:
+            return staged[code - 1]
+        return evlog[code - tsk._RING_EVLOG]
+
+    def issue(code):
+        """Consume entry k: issue entry k + D - 1 into the slot of k - 1."""
+        entry = state["k"] + D - 1
+        slots[entry % D] = (entry, fetch(code))
+        state["k"] += 1
+
+    def take(code):
+        entry, value = slots[state["k"] % D]
+        assert entry == state["k"] and value is not None
+        issue(code)
+        return value
+
+    for e in range(D - 1):
+        slots[e] = (e, fetch(int(ring.head[e])))
+    words = ring.words.tolist()
+    cw_len = ring.chunk_words
+    for c in range(ring.n_chunks):
+        cw = words[c * cw_len:(c + 1) * cw_len]
+        w = 0
+        while w < cw_len and cw[w] >= 0:
+            kind, slot, b, e, aux0, _aux1, row, extra = cw[w:w + 8]
+            if kind == tsk.EVICT:
+                evlog[aux0] = shared[slot]
+                for j in range(b, e):
+                    issue(cw[j] & tsk._PAYLOAD)
+            elif kind == tsk.REFILL:
+                shared[slot] = take(extra)
+            else:
+                k0 = state["k"]
+
+                def load(word):
+                    payload = word & tsk._PAYLOAD
+                    src = (word & 0xFFFFFFFF) >> 30
+                    v = shared[payload] if src == tsk._W_SHARED else \
+                        take(payload) if src == tsk._W_RING else \
+                        house[payload].expand(T)
+                    return 1.0 - v if (word >> 29) & 1 else v
+                v = tsk._plain_value(cw[w:w + 7], 0.0, cw, load, staged)
+                # A count DP that reads nothing (cap 0) passes its ring
+                # reads on as pads.
+                ring_words = [x for x in cw[b:e]
+                              if (x & 0xFFFFFFFF) >> 30 == tsk._W_RING]
+                for x in ring_words[state["k"] - k0:extra]:
+                    issue(x & tsk._PAYLOAD)
+                shared[slot] = v
+                vlog[row] = v
+            w = e
+    return shared[enc.top_slot], (torch.stack(vlog) if with_log else None)
+
+
+#: A seven-slot schedule that reads rows of the eviction log back within
+#: a few ring entries of their EVICT: its ring needs pads at every depth.
+PADS = dict(THRASH, grs_chunk=16, slab_bufs=2, slab_tiles=2,
+            max_ops_per_segment=5000, pool_slots=7)
+
+
+def wide_count_tree():
+    """AND of cardinality [130, 140] over 300 basic events (every fifth
+    complemented: 142 DP states) and cardinality [0, 12] of 12 of them
+    (always true: its DP reads no argument): gates past the kernel's narrow
+    path, one of which reads nothing."""
+    from canopy_tpu_torch.compiler.graph import compile_gates
+    from canopy_tpu_torch.mef.event import (Arg, BasicEvent, Connective,
+                                            Formula, Gate)
+    from canopy_tpu_torch.mef.expr.constant import ConstantExpression
+    events = []
+    for i in range(300):
+        e = BasicEvent(f"c{i:03d}")
+        e.expression = ConstantExpression(0.4)
+        events.append(e)
+    wide, always, top = Gate("wide"), Gate("always"), Gate("top")
+    wide.formula = Formula(Connective.CARDINALITY,
+                           [Arg(e, complement=i % 5 == 4)
+                            for i, e in enumerate(events)],
+                           min_number=130, max_number=140)
+    always.formula = Formula(Connective.CARDINALITY,
+                             [Arg(e) for e in events[:12]], min_number=0,
+                             max_number=12)
+    top.formula = Formula(Connective.AND, [Arg(wide), Arg(always)])
+    tree = compile_gates([top])
+    tree.top_index = tree.gate_index["top"]
+    return tree
+
+
+def ring_cases():
+    """(label, encoded program, inputs) of programs with every read kind:
+    the thrash schedule, one whose log reads follow their evictions
+    closely (pads), a resident tier, a house/pair/count tree and wide
+    count gates."""
+    from test_stream_kernel import mixed_tree
+    cases = []
+    _j, prog, tree = both(**THRASH)
+    cases.append(("thrash", tsk.encode_replay(prog),
+                  uniform((16, tree.n_basic), 0), ()))
+    tree = synthetic_compiled_tree(n_basic=96, n_gates=300, fanin=4,
+                                   n_levels=10, seed=107)
+    cases.append(("pads", tsk.encode_replay(build_replay_schedule(
+        tree, **PADS)), uniform((16, tree.n_basic), 3), ()))
+    _j, prog, tree = both(resident_tiles=16, **THRASH)
+    cases.append(("resident", tsk.encode_replay(prog),
+                  uniform((16, tree.n_basic), 1), ()))
+    jtree = mixed_tree(n_house=2)
+    config = dict(brs_chunk=4, brs_bufs=3, grs_chunk=8, grs_bufs=2,
+                  slab_bufs=2, slab_tiles=2, max_ops_per_segment=3,
+                  pool_slots=8, hoist_events=4, n_refill_sems=4,
+                  n_flush_sems=2)
+    cases.append(("mixed", tsk.encode_replay(jax_build(jtree, **config)),
+                  uniform((16, jtree.n_basic), 2, hi=0.5),
+                  jtree.house_state_vector()))
+    tree = wide_count_tree()
+    p = np.random.default_rng(4).uniform(0.35, 0.55, (4, tree.n_basic))
+    cases.append(("wide", tsk.encode_replay(tsk.compile_replay_stream(
+        tree, grs_chunk=512)), p.astype(np.float32), ()))
+    return cases
+
+
+@pytest.mark.parametrize("depth", tsk.REPLAY_RING_DEPTHS)
+def test_ring_walk_equals_plain(depth):
+    """The kernel's walk of :func:`replay_ring_stream` (every ring depth
+    it is built for) is bit-equal to ``replay_forward_plain``, value log
+    included, on every read kind; no eviction-log row is fetched before
+    its EVICT."""
+    for label, enc, p, house in ring_cases():
+        ring = tsk.replay_ring_stream(enc, depth)
+        staged = tsk.stage_replay(enc, torch.from_numpy(p))
+        h = tsk.house_tensor(enc, house, "cpu")
+        top, vlog = walk_ring(enc, ring, staged, h, True)
+        want_top, want_log = tsk.replay_forward_plain(enc, staged, h, True)
+        assert torch.equal(top, want_top), (label, depth)
+        assert torch.equal(vlog, want_log), (label, depth)
+
+
+def test_ring_stream_reads_the_program_in_order():
+    """The ring's fetch list is the program's reads in order: each
+    basic-stream argument's row, each eviction-log argument's row and each
+    REFILL's row (the refill prefetch list), with pads (fetching nothing)
+    only where a read follows its EVICT by fewer than ``depth - 1``
+    entries; every op fits its chunk, and the headers carry each gate's
+    ring reads and each REFILL's fetch."""
+    _label, enc, _p, _h = ring_cases()[1]
+    assert enc.n_evicted and (enc.ops[:, 0] == tsk.REFILL).any()
+    shared_rows = enc.pool_slots + enc.res_rows
+    want, refills = [], []
+    for kind, _slot, b, e, aux0, _a1, _row in enc.ops.tolist():
+        if kind == tsk.REFILL:
+            want.append(tsk._RING_EVLOG + aux0)
+            refills.append(want[-1])
+        elif kind != tsk.EVICT:
+            for src, idx, *_r in enc.args[b:e].tolist():
+                if src == tsk.STAGED:
+                    want.append(idx + 1)
+                elif src == tsk.POOL and idx >= shared_rows:
+                    want.append(tsk._RING_EVLOG + idx - shared_rows)
+    for depth in tsk.REPLAY_RING_DEPTHS:
+        ring = tsk.replay_ring_stream(enc, depth)
+        fetches = ring.fetches.tolist()
+        assert [f for f in fetches if f] == want
+        assert fetches.count(0) == ring.n_pads
+        staged_rows = [f - 1 for f in want if f < tsk._RING_EVLOG]
+        assert staged_rows == sorted(set(staged_rows))
+        words = ring.words.reshape(ring.n_chunks, ring.chunk_words)
+        got_refills = []
+        for chunk in words.tolist():
+            w = 0
+            while chunk[w] >= 0:
+                kind, b, e, extra = chunk[w], chunk[w + 2], chunk[w + 3], \
+                    chunk[w + 7]
+                assert b == w + 8 and e < ring.chunk_words
+                if kind == tsk.REFILL:
+                    got_refills.append(extra)
+                elif kind != tsk.EVICT:
+                    assert extra == sum((x & 0xFFFFFFFF) >> 30 == tsk._W_RING
+                                        for x in chunk[b:e])
+                w = e
+        # Each REFILL issues the entry depth - 1 ahead of its own.
+        at = [i for i, f in enumerate(fetches) if f in set(refills)]
+        assert len(at) == len(refills)
+        padded = fetches + [0] * depth
+        assert got_refills == [padded[i + depth - 1] for i in at]
+        assert ring.n_pads > 0
+
+
+def test_ring_plan_derives_from_the_program():
+    """Block width and ring depth come from ``pool_slots + res_rows``:
+    the ring is the shallowest depth whose rows hold
+    ``REPLAY_RING_BYTES`` (else the deepest), the block the widest power
+    of two that fits shared memory with its ring and spreads the trials
+    over 132 SMs (below a warp only where a warp does not fit, as 1,200
+    float64 slots); more slots, narrower blocks."""
+    tree = synthetic_compiled_tree(seed=0, **TREE)
+    depths = tsk.REPLAY_RING_DEPTHS
+
+    def ring_for(width, s):
+        return next((d for d in depths
+                     if d * width * s >= tsk.REPLAY_RING_BYTES), depths[-1])
+    widths = {}
+    for pool in (12, 113, 400, 1200):
+        enc = tsk.encode_replay(tsk.compile_replay_stream(
+            tree, pool_slots=pool))
+        slots = enc.pool_slots + enc.res_rows
+        for dtype, s in ((torch.float32, 4), (torch.float64, 8)):
+            for n_trials in (1, 1024, 65_536):
+                plan = tsk.replay_plan(enc, dtype, n_trials)
+
+                def shared(width, depth):
+                    return 16 + 8 * plan.chunk_words + \
+                        (slots + depth) * width * s
+                assert plan.shared_bytes == shared(plan.width, plan.depth)
+                assert plan.shared_bytes <= tsk.SMEM_BYTES
+                assert plan.depth == max(
+                    d for d in depths if d <= ring_for(plan.width, s)
+                    and shared(plan.width, d) <= tsk.SMEM_BYTES)
+                spread = max(32, 1 << (-(-n_trials // 132)).bit_length() - 1)
+                assert plan.width & (plan.width - 1) == 0
+                assert plan.width <= spread
+                wider = 2 * plan.width
+                assert wider > spread or wider > 1024 or \
+                    shared(wider, ring_for(wider, s)) > tsk.SMEM_BYTES
+                widths[pool, s, n_trials] = plan.width
+    assert widths[12, 4, 65_536] >= widths[113, 4, 65_536] \
+        >= widths[400, 4, 65_536] >= widths[1200, 4, 65_536]
+    enc = tsk.encode_replay(tsk.compile_replay_stream(tree))
+    assert enc.pool_slots == 56
+    for dtype, n_trials, shape in ((torch.float32, 65_536, (256, 32)),
+                                   (torch.float64, 65_536, (256, 16)),
+                                   (torch.float32, 1024, (32, 64)),
+                                   (torch.float64, 1, (32, 64))):
+        plan = tsk.replay_plan(enc, dtype, n_trials)
+        assert (plan.width, plan.depth) == shape

@@ -16,7 +16,12 @@ Tolerances:
   gradient, the port running float64 throughout;
 * importance through ``_make_replay_importance_fn`` (float64, one trial)
   against the JAX package's float64 gather autodiff: every measure within
-  1e-12 relative (MIF relative to the largest).
+  1e-12 relative (MIF relative to the largest); its MIF against the
+  port's stream adjoint within ``REPLAY_MIF_RTOL`` (1e-12, both f64), and
+  against the JAX package's own replay importance (float32 kernels in
+  interpret mode, 1,024 lanes) within 1e-4 relative of the largest;
+* the level form of the backward (the kernel's gather order) against the
+  sequential walk: bit-equal (``torch.equal``).
 """
 
 import jax
@@ -27,6 +32,7 @@ import torch
 
 from canopy_tpu.compiler.replay_adjoint import \
     build_replay_adjoint as jax_build_adjoint
+import canopy_tpu.engine.importance as jax_importance_module
 from canopy_tpu.engine.importance import \
     importance_measures as jax_importance
 from canopy_tpu.ops.replay_adjoint_kernel import \
@@ -36,7 +42,8 @@ from canopy_tpu.utils.synthetic import \
     synthetic_compiled_tree as jax_synthetic
 from canopy_tpu_torch.compiler.replay_adjoint import simulate_replay_adjoint
 from canopy_tpu_torch.engine.importance import (_make_replay_importance_fn,
-                                                importance_measures)
+                                                importance_measures,
+                                                make_stream_importance_fn)
 from canopy_tpu_torch.engine.propagate import make_propagator
 from canopy_tpu_torch.errors import LogicError
 from canopy_tpu_torch.ops import replay_adjoint_kernel as trk
@@ -217,4 +224,116 @@ def test_adjoint_refuses_a_resident_tier():
         trk.replay_adjoint_backward(enc, staged, [], vlog, top)
     aprog = trk.compile_replay_adjoint(tree, resident_tiles=16)
     assert aprog.base.res_tiles == 0
-    assert aprog.base.pool_slots == 113
+    assert aprog.base.pool_slots == 56
+
+
+#: chip_smoke.py's replay-adjoint tree (16,384 gates, 9,044 in the top
+#: cone) and its forced small schedule's pool; the MIF tolerance of the
+#: replay importance against the stream adjoint's.
+ADJOINT_TREE = dict(n_basic=8192, n_gates=16384, fanin=4, n_levels=14,
+                    seed=0)
+SMALL_POOL = 256
+REPLAY_MIF_RTOL = 1e-12
+
+
+def level_cases():
+    """(label, adjoint program, dtype, trials): the 16k tree's default
+    program, its small schedule (evictions, slab, intra-segment and
+    inter-segment reads, refills) and the thrash schedule."""
+    tree16 = synthetic_compiled_tree(**ADJOINT_TREE)
+    thrash = synthetic_compiled_tree(n_basic=96, n_gates=900, fanin=4,
+                                     n_levels=10, seed=0)
+    return [
+        ("16k", trk.compile_replay_adjoint(tree16, max_ops_per_segment=2048),
+         torch.float64, 3),
+        ("16k-small", trk.compile_replay_adjoint(
+            tree16, pool_slots=SMALL_POOL, max_ops_per_segment=2048),
+         torch.float32, 2),
+        ("thrash", trk.compile_replay_adjoint(thrash, **ATHRASH),
+         torch.float32, 8)]
+
+
+def test_level_backward_equals_the_sequential_walk():
+    """The level-parallel backward's plain version (levels in reverse,
+    edge slots, each adjoint the fold of its consumers' edges, EVICT and
+    REFILL as copy ops) is bit-equal to the sequential walk."""
+    for label, aprog, dtype, n in level_cases():
+        base = aprog.base
+        if label == "16k-small":
+            assert all((base.n_evicted, base.n_slab_reads, base.n_intra,
+                        base.n_inter))
+        enc = tsk.encode_replay(base)
+        p = np.random.default_rng(n).uniform(0.0, 0.05, (n, enc.n_columns))
+        staged = tsk.stage_replay(enc, torch.from_numpy(p), dtype)
+        h = torch.zeros(1, dtype=dtype)
+        _top, vlog = tsk.replay_forward_plain(enc, staged, h, True)
+        ct = torch.linspace(0.5, 1.5, n, dtype=dtype)
+        want = trk.replay_backward_plain(enc, staged, h, vlog, ct)
+        got = trk.replay_backward_levels_plain(enc, staged, h, vlog, ct)
+        assert torch.equal(got, want), label
+
+
+def test_replay_level_schedule():
+    """The host level schedule of the replay backward: every pool and
+    eviction-log argument (and each EVICT/REFILL copy's one argument) has
+    exactly one producer, every basic-stream argument one gradient row,
+    levels rise strictly along every edge, the top op writes the top
+    slot last, and the 16k tree keeps a short critical path."""
+    for label, aprog, _dtype, _n in level_cases():
+        enc = tsk.encode_replay(aprog.base)
+        prog = trk.replay_level_program(enc)
+        sched = tsk.level_schedule(prog)
+        ops, args = prog.ops, prog.args
+        op_of = np.repeat(np.arange(len(ops)), ops[:, 3] - ops[:, 2])
+        level = np.empty(len(ops), dtype=np.int64)
+        for lv in range(sched.n_levels):
+            level[sched.order[sched.level_ptr[lv]:sched.level_ptr[lv + 1]]] \
+                = lv
+        producer = np.full(len(args), -1)
+        for o in range(len(ops)):
+            rows = sched.cons[sched.cons_ptr[o]:sched.cons_ptr[o + 1]]
+            assert (producer[rows] == -1).all(), label
+            producer[rows] = o
+        pooled = args[:, 0] == tsk.POOL
+        assert (producer[pooled] >= 0).all() and \
+            (producer[~pooled] == -1).all(), label
+        assert (level[producer[pooled]] < level[op_of[pooled]]).all()
+        staged = np.flatnonzero(args[:, 0] == tsk.STAGED)
+        np.testing.assert_array_equal(np.sort(sched.stage_cons), staged)
+        # Each basic-stream row is read once: one edge per gradient row.
+        assert (np.diff(sched.stage_ptr) <= 1).all()
+        kinds = enc.ops[:, 0]
+        assert (ops[(kinds == tsk.EVICT) | (kinds == tsk.REFILL), 0]
+                == tsk.SPILL).all()
+        writes = np.flatnonzero((enc.ops[:, 1] == enc.top_slot)
+                                & (kinds != tsk.EVICT))
+        assert sched.top_op == writes[-1]
+        if label.startswith("16k"):   # 14 tree levels, and copies
+            assert sched.n_levels <= 32, label
+
+
+def test_replay_importance_matches_stream_and_jax():
+    """One f64 trial through the replay adjoint: MIF within
+    ``REPLAY_MIF_RTOL`` of the stream adjoint's, and within 1e-4 of the
+    JAX package's ``_make_replay_importance_fn`` (float32 lanes, its
+    kernels in interpret mode)."""
+    tree = synthetic_compiled_tree(**KTREE)
+    jtree = jax_synthetic(**KTREE)
+    p = uniform(tree.n_basic, KSEED)
+    got = importance_measures(tree, torch.from_numpy(p),
+                              top_fn=_make_replay_importance_fn(tree, None,
+                                                                "cpu"))
+    stream = importance_measures(tree, torch.from_numpy(p),
+                                 top_fn=make_stream_importance_fn(
+                                     tree, None, "cpu"))
+    big = np.abs(stream.mif).max()
+    assert np.abs(got.mif - stream.mif).max() <= REPLAY_MIF_RTOL * big
+    house = np.zeros(0, np.float32)
+    jfn = jax_importance_module._make_replay_importance_fn(
+        jtree, house, interpret=True)
+    want = jax_importance(jtree, jnp.asarray(p, jnp.float32),
+                          jnp.asarray(house), top_fn=jfn)
+    mif = np.asarray(want.mif, dtype=np.float64)
+    assert np.abs(got.mif - mif).max() <= 1e-4 * np.abs(mif).max()
+    assert got.top_probability == pytest.approx(want.top_probability,
+                                                rel=1e-5)

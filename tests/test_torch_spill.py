@@ -200,10 +200,10 @@ def test_card_sizing():
     tree = jax_synthetic(n_basic=256, n_gates=2048, fanin=4, n_levels=8,
                          seed=3)
     prog = tsk.compile_spill_stream(tree)
-    assert prog.pool_slots == tsk.SMEM_BYTES // (4 * tsk.REPLAY_TRIALS)
+    assert prog.pool_slots == tsk.SMEM_BYTES // (4 * tsk.SPILL_TRIALS)
     assert prog.n_chunks == 1     # every basic a staged row
     with pytest.raises(LogicError, match="shared memory"):
-        tsk.compile_spill_stream(tree, pool_slots=tsk.REPLAY_SLOTS + 1)
+        tsk.compile_spill_stream(tree, pool_slots=tsk.SPILL_SLOTS + 1)
     with pytest.raises(LogicError, match="fan-in"):
         tsk.compile_spill_stream(mixed_tree(), pool_slots=3)
 

@@ -1,10 +1,11 @@
 """The replay kernel against the stream kernel, by replay pool size.
 
-The replay kernel keeps its pool and resident tier in shared memory, so
-the slots it is given set how many trials an SM holds (232,448 B over
-slots x 4 B); fewer slots hold more trials but evict more values to the
-device-memory log.  This script runs ``bench.py``'s 65,536-gate replay
-tree (``synthetic_compiled_tree(n_basic=8192, n_gates=65536, fanin=4,
+The replay kernel keeps its pool, resident tier and prefetch ring in
+shared memory, so the slots it is given set how many trials an SM holds
+(``stream_kernel.replay_plan``: block width and ring depth); fewer slots
+hold more trials but evict more values to the device-memory log.  This
+script runs ``bench.py``'s 65,536-gate replay tree
+(``synthetic_compiled_tree(n_basic=8192, n_gates=65536, fanin=4,
 n_levels=14, seed=0)``) on uniform(0, 0.05) float32 inputs drawn by numpy
 (seed 20263, as ``chip_smoke.py`` phase 8) under several replay sizings,
 checks each against the stream kernel bit for bit, and times both with
@@ -36,10 +37,10 @@ from chip_smoke import (REPLAY_SEED, REPLAY_TREE, cuda_ms,  # noqa: E402
                         nvidia_smi, replay_inputs)
 
 #: (pool slots, resident tiles requested) of each sizing: the default,
-#: then pools without a resident tier at 32 to 1,024 trials per block,
-#: and two with a 256-slot resident tier.
-SIZINGS = [(None, None), (1816, 0), (908, 0), (454, 0), (227, 0), (113, 0),
-           (56, 0), (198, 256), (652, 256)]
+#: then pools without a resident tier from the most one warp's block
+#: holds down to 14, and one with a 256-slot resident tier.
+SIZINGS = [(None, None), (1743, 0), (454, 0), (227, 0), (113, 0), (56, 0),
+           (28, 0), (14, 0), (198, 256)]
 
 
 def main() -> int:
@@ -51,9 +52,8 @@ def main() -> int:
         print("replay_occupancy: needs a CUDA device", file=sys.stderr)
         return 1
     from canopy_tpu_torch.ops.stream_kernel import (
-        _replay_block_trials, compile_replay_stream, encode_replay,
-        replay_forward, stage_basic, stage_replay, stream_forward,
-        tree_stream_encoding)
+        compile_replay_stream, encode_replay, replay_forward, replay_plan,
+        stage_basic, stage_replay, stream_forward, tree_stream_encoding)
     from canopy_tpu_torch.utils.synthetic import synthetic_compiled_tree
     device = torch.device("cuda")
     card = nvidia_smi()
@@ -78,9 +78,9 @@ def main() -> int:
         got, _ = replay_forward(enc, staged, [])
         check = torch.equal(got, want)
         ms = cuda_ms(lambda: replay_forward(enc, staged, []), args.reps)
-        slots = prog.pool_slots + prog.res_tiles
+        plan = replay_plan(enc, torch.float32, args.trials)
         row = dict(pool=prog.pool_slots, resident=prog.res_tiles,
-                   block_trials=_replay_block_trials(slots, torch.float32),
+                   block_trials=plan.width, ring_depth=plan.depth,
                    evictions=prog.n_evicted, inter=prog.n_inter,
                    intra=prog.n_intra, slab=prog.n_slab_reads,
                    stream_rows=prog.brs_len_pad, ms=ms,
