@@ -1,6 +1,9 @@
-// Replay programs on the H100: the forward kernel body, with or without
-// the value log, shared by replay.cu (forward) and replay_adjoint.cu
-// (taped forward).
+// Ring programs on the H100: the forward kernel body shared by replay.cu
+// (forward), replay_adjoint.cu (taped forward, with the value log),
+// spill.cu (spill programs: no resident tier, the scratch rows in the
+// eviction log's place, the staged input in the basic stream's) and
+// fused.cu (a whole tree's live-row program: no eviction, its rows in
+// device memory).
 //
 // The host encoder (ops/stream_kernel.py, encode_replay) flattens every
 // segment of a canopy_tpu_torch/compiler/replay.py ReplayProgram into one
@@ -48,7 +51,12 @@
 // shared-memory reads and issues (header, argument words, values, the
 // next fetches, the store), and an SM runs as many chains at once as it
 // holds trials: that, not bytes, is what the kernel's time follows
-// (PERF.md; the ring's waits do not stall).
+// (PERF.md; the ring's waits do not stall).  fused.cu runs the same body
+// with the rows in device memory (ring_forward's DEVICE: one column per
+// thread of a (rows, gridDim.x * W) array): a whole tree's live set is a
+// few hundred rows, which in shared memory would hold an SM to 64-256
+// trials, while in device memory its recent rows stay in L1 and the SM
+// keeps 64 warps' chains in flight.
 //
 // Op stream words: a chunk holds whole ops, then -1.  An op is an 8-word
 // header {kind, slot, b, e, aux0, aux1, log_row, extra} and its argument
@@ -135,6 +143,27 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar,
   }
 }
 
+// The thread's column of the pool and resident tier: row r at
+// base[r * stride].  In shared memory the stride is the block width; in
+// device memory (DEVICE) the rows are a (rows, gridDim.x * W) array, one
+// column per launched thread.
+template <typename V, bool DEVICE>
+struct Column {
+  V* base;
+  int stride;
+  __device__ __forceinline__ V& operator[](int r) const {
+    return base[r * stride];
+  }
+};
+template <typename V>
+struct Column<V, true> {
+  V* base;
+  long long stride;
+  __device__ __forceinline__ V& operator[](int r) const {
+    return base[(long long)r * stride];
+  }
+};
+
 // A thread's prefetch ring: D shared-memory values (stride W), entry e in
 // slot e % D; k counts the entries consumed.
 template <typename V, int D>
@@ -175,11 +204,10 @@ struct Ring {
 
 // Forward reads of a gate: argument word j of the chunk; a ring read
 // takes the next entry and issues the fetch code of its payload.
-template <typename V, int D>
+template <typename V, int D, typename Col>
 struct RingArgs {
   const int* words;
-  const V* column;  // shared values + lane
-  int W;
+  Col column;
   const V* house;
   Ring<V, D>* ring;
   __device__ __forceinline__ V operator()(int j) const {
@@ -188,7 +216,7 @@ struct RingArgs {
     const int payload = word & kPayload;
     V v;
     if (kind == W_SHARED) {
-      v = column[payload * W];
+      v = column[payload];
     } else if (kind == W_RING) {
       v = ring->take(payload);
     } else {
@@ -199,15 +227,16 @@ struct RingArgs {
 };
 
 // Shared memory: two mbarriers, two chunks of chunk_words ints, the
-// (P + R, W) pool and resident tier, the (D, W) ring.  With WITH_LOG
-// every gate's output also goes to its value-log row op[6].
-template <typename V, bool WITH_LOG, int D>
-__global__ void replay_forward_kernel(
+// (P + R, W) pool and resident tier (DEVICE: in device memory, gpool
+// (P + R, gridDim.x * W)), the (D, W) ring.  With WITH_LOG every gate's
+// output also goes to its value-log row op[6].
+template <typename V, bool WITH_LOG, int D, bool DEVICE>
+__device__ __forceinline__ void ring_forward(
     const int* __restrict__ words, int n_chunks, int chunk_words,
     const int* __restrict__ head, const V* __restrict__ staged,
     const V* __restrict__ house, V* evlog, V* __restrict__ vlog,
     V* __restrict__ top, long long T, int pool_slots, int res_rows,
-    int top_slot, V* dp_base) {
+    int top_slot, V* gpool, V* dp_base) {
   extern __shared__ __align__(16) unsigned char smem[];
   auto* bar = reinterpret_cast<unsigned long long*>(smem);
   int* chunks = reinterpret_cast<int*>(smem + 16);
@@ -216,7 +245,15 @@ __global__ void replay_forward_kernel(
   const long long t = (long long)blockIdx.x * W + lane;
   const bool valid = t < T;
   const int chunk_bytes = chunk_words * (int)sizeof(int);
-  V* column = shared + lane;
+  using Col = Column<V, DEVICE>;
+  Col column;
+  V* ring_base = shared + lane;
+  if constexpr (DEVICE) {
+    column = Col{gpool + t, (long long)gridDim.x * W};
+  } else {
+    column = Col{shared + lane, W};
+    ring_base += (pool_slots + res_rows) * W;
+  }
   const DpScratch<V> dp = dp_scratch(dp_base);
   if (lane == 0) {
     mbar_init(&bar[0]);
@@ -226,9 +263,8 @@ __global__ void replay_forward_kernel(
   __syncthreads();
   if (lane == 0) bulk_load(chunks, words, chunk_bytes, &bar[0]);
   for (int i = 0; i < res_rows; ++i)
-    column[(pool_slots + i) * W] = valid ? staged[at(i, T, t)] : V(0);
-  Ring<V, D> ring{shared + (pool_slots + res_rows) * W + lane, W, 0, staged,
-                  evlog, T, t, valid};
+    column[pool_slots + i] = valid ? staged[at(i, T, t)] : V(0);
+  Ring<V, D> ring{ring_base, W, 0, staged, evlog, T, t, valid};
   for (int e = 0; e < D - 1; ++e) ring.issue_into(e, head[e]);
   for (int c = 0; c < n_chunks; ++c) {
     if (lane == 0 && c + 1 < n_chunks)
@@ -242,13 +278,13 @@ __global__ void replay_forward_kernel(
       const int kind = op[0];
       if (kind < 0) break;  // the chunk's end mark
       if (kind == EVICT) {
-        if (valid) evlog[at(op[4], T, t)] = column[op[1] * W];
+        if (valid) evlog[at(op[4], T, t)] = column[op[1]];
         for (int j = op[2]; j < op[3]; ++j) ring.skip(cw[j] & kPayload);
       } else if (kind == REFILL) {
-        column[op[1] * W] = ring.take(op[7]);
+        column[op[1]] = ring.take(op[7]);
       } else {
         const int k0 = ring.k;
-        const RingArgs<V, D> x{cw, column, W, house, &ring};
+        const RingArgs<V, D, Col> x{cw, column, house, &ring};
         const V v = eval_op_with(op, V(0), x, dp);
         // A count window that is always true (cap 0) reads no argument:
         // its ring reads still pass, as pads.
@@ -260,7 +296,7 @@ __global__ void replay_forward_kernel(
             ring.skip(cw[j] & kPayload);
           }
         }
-        column[op[1] * W] = v;
+        column[op[1]] = v;
         if (WITH_LOG && valid) vlog[at(op[6], T, t)] = v;
       }
       w = op[3];
@@ -268,7 +304,42 @@ __global__ void replay_forward_kernel(
     __syncthreads();  // every thread is done with chunk c's buffer
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
-  if (valid) top[t] = column[top_slot * W];
+  if (valid) top[t] = column[top_slot];
+}
+
+// The replay and spill forward: pool and resident tier in shared memory.
+template <typename V, bool WITH_LOG, int D>
+__global__ void replay_forward_kernel(
+    const int* __restrict__ words, int n_chunks, int chunk_words,
+    const int* __restrict__ head, const V* __restrict__ staged,
+    const V* __restrict__ house, V* evlog, V* __restrict__ vlog,
+    V* __restrict__ top, long long T, int pool_slots, int res_rows,
+    int top_slot, V* dp_base) {
+  ring_forward<V, WITH_LOG, D, false>(
+      words, n_chunks, chunk_words, head, staged, house, evlog, vlog, top, T,
+      pool_slots, res_rows, top_slot, nullptr, dp_base);
+}
+
+// Dynamic shared memory of a ring kernel block: the barriers, two chunks,
+// `shared_rows` rows of W values and the (D, W) ring.
+template <typename V>
+size_t ring_shared_bytes(int chunk_words, int shared_rows, int depth,
+                         int W) {
+  return 16 + (size_t)2 * chunk_words * sizeof(int) +
+         (size_t)(shared_rows + depth) * W * sizeof(V);
+}
+
+// Set `kernel`'s dynamic shared memory and launch it over ceil(T / W)
+// blocks of W threads; the CUDA error code (0 on success).
+template <typename Kernel, typename... Args>
+int launch_ring(Kernel kernel, size_t smem, long long T, int W,
+                cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (T + W - 1) / W;
+  kernel<<<(unsigned)blocks, W, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 template <typename V, bool WITH_LOG, int D>
@@ -277,17 +348,11 @@ int launch_replay_depth(const int* words, int n_chunks, int chunk_words,
                         V* evlog, V* vlog, V* top, long long T,
                         int pool_slots, int res_rows, int top_slot, int W,
                         V* dp, cudaStream_t stream) {
-  const size_t smem = 16 + (size_t)2 * chunk_words * sizeof(int) +
-                      (size_t)(pool_slots + res_rows + D) * W * sizeof(V);
-  auto kernel = replay_forward_kernel<V, WITH_LOG, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (T + W - 1) / W;
-  kernel<<<(unsigned)blocks, W, smem, stream>>>(
-      words, n_chunks, chunk_words, head, staged, house, evlog, vlog, top, T,
-      pool_slots, res_rows, top_slot, dp);
-  return (int)cudaGetLastError();
+  return launch_ring(
+      replay_forward_kernel<V, WITH_LOG, D>,
+      ring_shared_bytes<V>(chunk_words, pool_slots + res_rows, D, W), T, W,
+      stream, words, n_chunks, chunk_words, head, staged, house, evlog, vlog,
+      top, T, pool_slots, res_rows, top_slot, dp);
 }
 
 // words (n_chunks * chunk_words,) and head (depth - 1,) from

@@ -7,110 +7,62 @@
 // to an HBM scratch array, single-tile refill DMAs bring values back, and
 // at each segment boundary the whole pool is dumped to scratch and
 // reloaded.  The host encoder (ops/stream_kernel.py, encode_spill)
-// resolves that choreography once into the op table of stream_ops.cuh:
-// gate arguments read a pool slot, a staged row or a house constant; a
-// SPILL op copies a staged row into a slot (staging-buffer spills and
-// refills from the staged array); EVICT stores a slot to the scratch row
-// its flush names and REFILL loads one back.  One launch runs every
-// segment, and the pool never leaves shared memory, so the dump and load
-// have no counterpart.
+// resolves that choreography once into one op table: gate arguments read
+// a pool slot, a staged row or a house constant; a SPILL op copies a
+// staged row into a slot (staging-buffer spills and refills from the
+// staged array); EVICT stores a slot to the scratch row its flush names
+// and REFILL loads one back.  The pool never leaves shared memory, so
+// the dump and load have no counterpart.
 //
-// Layout: each thread owns one trial and W = blockDim.x trials share a
-// block, whose pool is a (pool_slots, W) array in dynamic shared memory;
-// the scratch array is (n_scratch, T) in device memory, trials contiguous
-// (n_blocks x n_scratch rows of W trials).  A thread reads and writes only
-// its own trial's column, in shared memory and in scratch alike, so a
-// store to a scratch row followed by a refill of that row needs no
-// barrier: program order within the thread is enough.
+// A spill program has a replay program's shape, so it runs replay_ops.cuh's
+// ring kernel (replay.cu's body): the pool in shared memory and no
+// resident tier, the scratch rows in the eviction log's place and the
+// staged (n_basic, T) input in the basic stream's.  Every staged read
+// (gate argument or SPILL) and every REFILL takes the next entry of a
+// per-thread cp.async prefetch ring, issued D - 1 entries ahead, and the
+// op stream (ops/stream_kernel.replay_ring_stream) arrives in TMA-loaded
+// shared-memory chunks.  Block width and ring depth come from the pool
+// (ops/stream_kernel.replay_plan).
 //
 // What bounds it on an H100: the staged rows it reads, the scratch rows
 // it stores and reloads, and the top; against them it does a few
-// operations per byte, so it is bytes-bound on paper.  In practice, as for
-// replay.cu, each op is a serial chain of dependent loads, and the pool's
-// shared memory sets how many trials an SM holds (113 slots x 512 trials x
-// 4 B by default): the kernel is latency-bound.
+// operations per byte, so it is bytes-bound on paper.  In practice each
+// op is a chain of dependent shared-memory reads and issues, and an SM
+// runs as many chains as the pool lets it hold trials (PERF.md).
 //
-// Built with --fmad=false: eval_op rounds as the plain PyTorch version
-// and the stream kernel do, so all three agree bit for bit.
-#include "stream_ops.cuh"
+// Built with --fmad=false: each op's arithmetic is stream_ops.cuh's
+// eval_op_with in the plain PyTorch version's order, so kernel, plain
+// version and the stream kernel on the same tree agree bit for bit.
+#include "replay_ops.cuh"
 
 using namespace canopy;
 
-namespace {
-
-template <typename V>
-__global__ void spill_forward_kernel(const int* __restrict__ ops,
-                                     const int* __restrict__ args, int n_ops,
-                                     const V* __restrict__ staged,
-                                     const V* __restrict__ house, V* scratch,
-                                     V* __restrict__ top, long long T,
-                                     int top_slot, V* dp_base) {
-  extern __shared__ __align__(16) unsigned char smem_bytes[];
-  V* shared = reinterpret_cast<V*>(smem_bytes);
-  const int W = blockDim.x, lane = threadIdx.x;
-  const long long t = (long long)blockIdx.x * W + lane;
-  if (t >= T) return;
-  V* column = shared + lane;
-  const SharedRows<V> pool{column, W};
-  const DpScratch<V> dp = dp_scratch(dp_base);
-  for (int o = 0; o < n_ops; ++o) {
-    const int* op = ops + (long long)o * OP_COLS;
-    const int kind = op[0];
-    if (kind == EVICT) {
-      scratch[at(op[4], T, t)] = column[op[1] * W];
-    } else if (kind == REFILL) {
-      column[op[1] * W] = scratch[at(op[4], T, t)];
-    } else {  // a gate, or SPILL: a staged row into the pool
-      column[op[1] * W] =
-          eval_op(op, o, nullptr, args, staged, house, pool, T, t, dp);
-    }
-  }
-  top[t] = column[top_slot * W];
-}
-
-template <typename V>
-int launch_spill_forward(const int* ops, const int* args, int n_ops,
-                         const V* staged, const V* house, V* scratch, V* top,
-                         long long T, int pool_slots, int top_slot, int W,
-                         V* dp, void* stream) {
-  const size_t smem = (size_t)pool_slots * W * sizeof(V);
-  cudaError_t err = cudaFuncSetAttribute(
-      spill_forward_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (T + W - 1) / W;
-  spill_forward_kernel<V>
-      <<<(unsigned)blocks, W, smem, static_cast<cudaStream_t>(stream)>>>(
-          ops, args, n_ops, staged, house, scratch, top, T, top_slot, dp);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
 extern "C" {
 
-// staged (n_basic, T), house (n_house + 1,), scratch (max(n_scratch, 1), T),
-// top (T,); W trials per block with pool_slots * W * sizeof(V) bytes of
-// dynamic shared memory; dp the count-DP scratch (states, blocks * W) or
-// null.
-int canopy_spill_forward_f32(const int* ops, const int* args, int n_ops,
+// words (n_chunks * chunk_words,) and head (depth - 1,) from
+// replay_ring_stream; staged (n_basic, T), house (n_house + 1,), scratch
+// (max(n_scratch, 1), T), top (T,); W trials per block, ring depth 8, 16,
+// 32 or 64; dp the count-DP scratch (states, blocks * W) or null.
+int canopy_spill_forward_f32(const int* words, int n_chunks,
+                             int chunk_words, const int* head,
                              const float* staged, const float* house,
                              float* scratch, float* top, long long T,
-                             int pool_slots, int top_slot, int W, float* dp,
-                             void* stream) {
-  return launch_spill_forward<float>(ops, args, n_ops, staged, house,
-                                     scratch, top, T, pool_slots, top_slot, W,
-                                     dp, stream);
+                             int pool_slots, int top_slot, int W, int depth,
+                             float* dp, void* stream) {
+  return launch_replay_forward<float, false>(
+      words, n_chunks, chunk_words, head, staged, house, scratch, nullptr,
+      top, T, pool_slots, 0, top_slot, W, depth, dp, stream);
 }
 
-int canopy_spill_forward_f64(const int* ops, const int* args, int n_ops,
+int canopy_spill_forward_f64(const int* words, int n_chunks,
+                             int chunk_words, const int* head,
                              const double* staged, const double* house,
                              double* scratch, double* top, long long T,
-                             int pool_slots, int top_slot, int W, double* dp,
-                             void* stream) {
-  return launch_spill_forward<double>(ops, args, n_ops, staged, house,
-                                      scratch, top, T, pool_slots, top_slot,
-                                      W, dp, stream);
+                             int pool_slots, int top_slot, int W, int depth,
+                             double* dp, void* stream) {
+  return launch_replay_forward<double, false>(
+      words, n_chunks, chunk_words, head, staged, house, scratch, nullptr,
+      top, T, pool_slots, 0, top_slot, W, depth, dp, stream);
 }
 
 }  // extern "C"

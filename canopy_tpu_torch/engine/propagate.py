@@ -200,9 +200,11 @@ def _build_house(tree: CompiledTree,
 def _auto_engine(tree: CompiledTree, device: torch.device,
                  output: str) -> str:
     """The engine ``engine="auto"`` runs: on CUDA with an anchored top the
-    uncapped tree stream, which measured 7-10x faster on the card than
-    the fused kernels on the trees they fit (``PERF.md``); gather on the
-    CPU, for ``output="all"`` and for a tree without an anchored top."""
+    uncapped tree stream, which serves every tree (the fused kernel
+    measured faster than it on two trees and slower on a third, each
+    within about a tenth, ``PERF.md``; no benchmark cell has chosen
+    between them yet); gather on the CPU, for ``output="all"`` and for a
+    tree without an anchored top."""
     if device.type != "cuda" or output != "top" or tree.top_index is None:
         return "gather"
     return "stream"

@@ -76,14 +76,14 @@ def _build() -> str:
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))
         reports = []
-        for cmd, proc in procs:
+        for name, (cmd, proc) in zip(_SOURCES, procs):
             _out, err = proc.communicate()
             if proc.returncode != 0:
                 for _c, other in procs:
                     other.kill()
                 raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                    f"{' '.join(cmd)}\n{err}")
-            reports.append(err)
+            reports.append(f"nvcc: {name}\n{err}")
         tmp_lib = os.path.join(tmp, "lib.so")
         link = [nvcc, "-shared", NVCC_FLAGS[0], NVCC_FLAGS[1], "-o",
                 tmp_lib, *objects]
@@ -129,13 +129,16 @@ def load_library() -> ctypes.CDLL:
                             i32, i32, i32, i32, vp, vp]
             fwd.restype = i32
         fwd = getattr(lib, f"canopy_spill_forward_{suffix}")
-        fwd.argtypes = [vp, vp, i32, vp, vp, vp, vp, i64, i32, i32, i32, vp,
-                        vp]
+        fwd.argtypes = [vp, i32, i32, vp, vp, vp, vp, vp, i64, i32, i32, i32,
+                        i32, vp, vp]
         fwd.restype = i32
-    lib.canopy_fused_forward_f32.argtypes = [vp, vp, i32, vp, vp, vp, i64,
-                                             i32, i32, i32, vp, vp]
+    lib.canopy_fused_forward_f32.argtypes = [vp, i32, i32, vp, vp, vp, vp,
+                                             vp, i64, i32, i32, i32, i32, vp,
+                                             vp]
     lib.canopy_fused_forward_f32.restype = i32
     lib.canopy_fused_max_smem_bytes.restype = i32
+    lib.canopy_fused_blocks_per_sm.argtypes = [i32]
+    lib.canopy_fused_blocks_per_sm.restype = i32
     lib.canopy_packed_bernoulli.argtypes = [vp, i64, i64, i64, ctypes.c_uint,
                                             ctypes.c_uint, vp, vp]
     lib.canopy_packed_bernoulli.restype = i32
@@ -156,5 +159,6 @@ def load_library() -> ctypes.CDLL:
 def build_info() -> dict:
     """Library path, whether this process compiled it, the seconds the
     build took, its nvcc commands (one per line) and nvcc's ptxas report
-    (registers, spills)."""
+    (registers, spills; each source's part after a line ``nvcc:
+    <source>``)."""
     return dict(_info)

@@ -43,9 +43,11 @@ same format, and :func:`replay_forward` runs it through ``csrc/replay.cu``
 Spill programs.  :func:`compile_spill_stream` sizes
 ``compiler/spill.py``'s Belady schedule for shared memory,
 :func:`encode_spill` flattens it into the same op-table format, and
-:func:`spill_forward` runs it through ``csrc/spill.cu`` or
-:func:`spill_forward_plain`.  Their staged input is ``(n_basic, n_trials)``
-in the program's staging order, as for stream programs.
+:func:`spill_forward` runs it through ``csrc/spill.cu`` (the replay
+forward's ring kernel: :func:`replay_ring_stream` and :func:`replay_plan`
+take a spill program too) or :func:`spill_forward_plain`.  Their staged
+input is ``(n_basic, n_trials)`` in the program's staging order, as for
+stream programs.
 
 Dispatch.  A wrapper runs the plain version for a CPU tensor and the
 kernel for a CUDA tensor; it never catches a build or launch failure and
@@ -156,9 +158,9 @@ _REPLAY_BARRIER_BYTES = 16
 #: and the op-stream chunks.
 REPLAY_SLOTS = (SMEM_BYTES - _REPLAY_BARRIER_BYTES - 8 * REPLAY_CHUNK_WORDS
                 ) // (32 * 4) - REPLAY_RING_DEPTHS[0]
-#: The most pool slots a spill program may have: what one block of one
-#: warp (32 float32 trials) holds in shared memory.
-SPILL_SLOTS = SMEM_BYTES // (32 * 4)
+#: The most pool slots a spill program may have: the ring kernel's
+#: bound, as for replay (a spill program has no resident tier).
+SPILL_SLOTS = REPLAY_SLOTS
 #: Sizes the default replay pool: ``SMEM_BYTES // (4 * REPLAY_TRIALS)`` =
 #: 56 slots.  The ring kernel's time follows the trials an SM holds, and
 #: a 56-slot pool lets two 256-trial blocks share an SM at 65,536 trials:
@@ -166,10 +168,12 @@ SPILL_SLOTS = SMEM_BYTES // (32 * 4)
 #: faster than any larger pool (``tools/replay_occupancy.py``,
 #: ``PERF.md``).
 REPLAY_TRIALS = 1024
-#: Sizes the default spill pool: ``SMEM_BYTES // (4 * SPILL_TRIALS)`` =
-#: 113 slots, a block of 512 float32 trials, the fastest block of the
-#: first replay kernel, whose one-trial-per-thread design spill shares.
-SPILL_TRIALS = 512
+#: Sizes the default spill pool: ``SMEM_BYTES // (4 * SPILL_TRIALS)``
+#: slots.  Spill runs the replay forward's ring kernel, whose time follows
+#: the trials an SM holds; the value is the fastest of
+#: ``tools/replay_occupancy.py --spill``'s sweep on the 65k tree
+#: (``PERF.md``).
+SPILL_TRIALS = 1024
 #: Streaming multiprocessors of an H100 SXM: the replay forward narrows
 #: its blocks until the trials spread over all of them.
 _SMS = 132
@@ -618,7 +622,7 @@ def _plain_value(op, fill_value: float, args, load, staged: torch.Tensor):
     if kind == FILL:
         return torch.full((T,), fill_value, dtype=torch.float32,
                           device=device).to(dtype)
-    return staged[args[b][1]]   # SPILL
+    return load(args[b])   # SPILL: its one staged argument
 
 
 def stream_forward_plain(enc: EncodedStream, staged: torch.Tensor,
@@ -1332,22 +1336,6 @@ def replay_forward_plain(enc: EncodedReplay, staged: torch.Tensor,
     return shared[enc.top_slot], (torch.stack(vlog) if with_log else None)
 
 
-def _spill_block_trials(slots: int, dtype: torch.dtype) -> int:
-    """Trials per spill block: the widest power of two up to 1,024 (a
-    block's most threads) whose ``slots`` rows of ``dtype`` fit one
-    block's shared memory (32 in float32 and 16 in float64 at
-    ``SPILL_SLOTS``, 512 and 256 at the default 113).  An SM holds one
-    such block, so fewer slots hold more trials at once."""
-    size = torch.finfo(dtype).bits // 8
-    width = 1024
-    while width > 1 and slots * width * size > SMEM_BYTES:
-        width //= 2
-    if slots * width * size > SMEM_BYTES:
-        raise LogicError(f"{slots} spill slots of {dtype} exceed one "
-                         f"block's {SMEM_BYTES} B of shared memory")
-    return width
-
-
 # The replay forward's op stream (csrc/replay_ops.cuh): word kinds in
 # bits 30-31 of an argument word, the complement flag in bit 29, the
 # payload below; a fetch code names the row a ring entry copies (0: none,
@@ -1370,7 +1358,17 @@ class ReplayPlan:
     shared_bytes: int   # dynamic shared memory per block
 
 
-def _chunk_words(enc: EncodedReplay) -> int:
+def _ring_rows(enc: EncodedStream) -> tuple[int, int]:
+    """``(shared rows, eviction-log rows)`` of a program the ring kernel
+    runs: a replay program's pool and resident tier and its eviction log;
+    a spill program's pool and its scratch rows (its SPILL ops and staged
+    refills read the staged input as replay reads the basic stream)."""
+    if isinstance(enc, EncodedReplay):
+        return enc.pool_slots + enc.res_rows, enc.n_evicted
+    return enc.pool_slots, enc.n_scratch
+
+
+def _chunk_words(enc: EncodedStream) -> int:
     """Op-stream chunk words: ``REPLAY_CHUNK_WORDS``, or the power of two
     that holds the longest op (header, arguments or ring pads, and the
     end mark)."""
@@ -1382,10 +1380,11 @@ def _chunk_words(enc: EncodedReplay) -> int:
     return words
 
 
-def replay_plan(enc: EncodedReplay, dtype: torch.dtype,
+def replay_plan(enc: EncodedStream, dtype: torch.dtype,
                 n_trials: int) -> ReplayPlan:
-    """Block width and ring depth of the replay forward, from the
-    program's ``pool_slots + res_rows``.
+    """Block width and ring depth of the ring kernel, from the program's
+    shared rows: a replay program's ``pool_slots + res_rows``, a spill
+    program's ``pool_slots``.
 
     A block of ``width`` trials holds ``(pool_slots + res_rows + depth) *
     width`` values and two op-stream chunks in shared memory.  The ring
@@ -1398,7 +1397,7 @@ def replay_plan(enc: EncodedReplay, dtype: torch.dtype,
     block does not fit.
     """
     size = torch.finfo(dtype).bits // 8
-    slots = enc.pool_slots + enc.res_rows
+    slots = _ring_rows(enc)[0]
     chunk = _chunk_words(enc)
 
     def shared(width: int, depth: int) -> int:
@@ -1418,7 +1417,7 @@ def replay_plan(enc: EncodedReplay, dtype: torch.dtype,
     depths = [d for d in REPLAY_RING_DEPTHS if d <= depth_for(width)
               and shared(width, d) <= SMEM_BYTES]
     if not depths:
-        raise LogicError(f"{slots} replay slots of {dtype} and the "
+        raise LogicError(f"{slots} pool slots of {dtype} and the "
                          f"shallowest ring exceed one block's {SMEM_BYTES} "
                          f"B of shared memory")
     return ReplayPlan(width, depths[-1], chunk, shared(width, depths[-1]))
@@ -1426,7 +1425,7 @@ def replay_plan(enc: EncodedReplay, dtype: torch.dtype,
 
 @dataclasses.dataclass
 class RingStream:
-    """A replay program as the ring kernel's op stream
+    """A replay or spill program as the ring kernel's op stream
     (:func:`replay_ring_stream`)."""
 
     words: np.ndarray   # (n_chunks * chunk_words,) int32
@@ -1447,22 +1446,34 @@ class RingStream:
         return self._cache[key]
 
 
-def _ring_fetches(enc: EncodedReplay, depth: int):
+def _ring_fetches(enc: EncodedStream, depth: int):
     """The fetch codes of every ring consumption in program order, and
     the pads each op consumes.
 
-    Each basic-stream argument, eviction-log argument and REFILL consumes
-    the next ring entry; the kernel issues entry ``k + depth - 1`` when it
-    consumes entry ``k``.  An eviction-log entry must be issued after the
-    EVICT that stores its row, so where the program reads a row back
-    sooner than that, pad entries (fetching nothing) are consumed at the
-    EVICT, after its store, until the read's issue falls at or after them.
+    Each staged argument (a basic-stream row of a replay program, a staged
+    row of a spill program, a SPILL op's one argument), eviction-log
+    argument and REFILL consumes the next ring entry; the kernel issues
+    entry ``k + depth - 1`` when it consumes entry ``k``.  An eviction-log
+    entry must be issued after the EVICT that stores the value it reads,
+    so where the program reads a row back sooner than that, pad entries
+    (fetching nothing) are consumed at the EVICT, after its store, until
+    the read's issue falls at or after them.  A row stored twice (a
+    scratch row a spill schedule reuses) is read from its latest EVICT
+    before the read: the fetch is issued after that store and, being
+    consumed by the read, completes before the next store to the row.
     """
-    shared_rows = enc.pool_slots + enc.res_rows
+    shared_rows = _ring_rows(enc)[0]
     codes: list = []
-    evict_op: dict[int, int] = {}
-    reads: list = []            # (op, position in its op, log row)
+    evict_op: dict[int, int] = {}   # log row -> its latest EVICT so far
+    reads: list = []            # (op, position in its op, that EVICT)
     args = enc.args.tolist()
+
+    def stored(row: int) -> int:
+        if row not in evict_op:
+            raise LogicError(f"op reads eviction-log row {row} before any "
+                             f"EVICT stores it")
+        return evict_op[row]
+
     for o, (kind, _slot, b, e, aux0, _a1, _row) in enumerate(
             enc.ops.tolist()):
         if kind == EVICT:
@@ -1470,7 +1481,7 @@ def _ring_fetches(enc: EncodedReplay, depth: int):
             codes.append([])
             continue
         if kind == REFILL:
-            reads.append((o, 0, aux0))
+            reads.append((o, 0, stored(aux0)))
             codes.append([_RING_EVLOG + aux0])
             continue
         op_codes = []
@@ -1478,14 +1489,13 @@ def _ring_fetches(enc: EncodedReplay, depth: int):
             if src == STAGED:
                 op_codes.append(idx + 1)
             elif src == POOL and idx >= shared_rows:
-                reads.append((o, len(op_codes), idx - shared_rows))
+                reads.append((o, len(op_codes), stored(idx - shared_rows)))
                 op_codes.append(_RING_EVLOG + idx - shared_rows)
         codes.append(op_codes)
     counts = np.array([len(c) for c in codes], dtype=np.int64)
     pads = np.zeros(len(codes), dtype=np.int64)
     if reads:
-        r_op, r_pos, r_row = (np.array(c) for c in zip(*reads))
-        r_evict = np.array([evict_op[r] for r in r_row.tolist()])
+        r_op, r_pos, r_evict = (np.array(c) for c in zip(*reads))
         while True:
             first = np.cumsum(counts + pads) - counts - pads
             need = first[r_evict] + depth - 1 - (first[r_op] + r_pos)
@@ -1496,9 +1506,9 @@ def _ring_fetches(enc: EncodedReplay, depth: int):
     return codes, pads
 
 
-def replay_ring_stream(enc: EncodedReplay, depth: int) -> RingStream:
-    """The program ``enc`` as the ring kernel's op stream for a ring of
-    ``depth`` rows (cached on ``enc``).
+def replay_ring_stream(enc: EncodedStream, depth: int) -> RingStream:
+    """The replay or spill program ``enc`` as the ring kernel's op
+    stream for a ring of ``depth`` rows (cached on ``enc``).
 
     Ops keep their order, in chunks of ``_chunk_words(enc)`` int32 words
     that hold whole ops (an end mark, -1, after the last).  An op is an
@@ -1509,7 +1519,8 @@ def replay_ring_stream(enc: EncodedReplay, depth: int) -> RingStream:
     a ring read whose payload is the fetch code the kernel issues when it
     consumes it (the entry ``depth - 1`` ahead).  ``extra``: a gate's
     count of ring reads, a REFILL's fetch code to issue; an EVICT's words
-    are its pads, each a fetch code to issue.
+    are its pads, each a fetch code to issue.  A SPILL op is a
+    one-argument op: its staged row is one ring read.
     """
     key = f"ring:{depth}"
     if key in enc._cache:
@@ -1519,13 +1530,13 @@ def replay_ring_stream(enc: EncodedReplay, depth: int) -> RingStream:
     for o, op_codes in enumerate(codes):
         seq += [0] * int(pads[o]) + op_codes
     fetches = np.asarray(seq, dtype=np.int64)
+    shared_rows, log_rows = _ring_rows(enc)
     if len(fetches) and (fetches.max() >= _PAYLOAD or max(
-            enc.n_basic, enc.n_evicted) >= _RING_EVLOG):
-        raise LogicError("replay program too large for the ring's 28-bit "
-                         "row codes")
+            enc.n_basic, log_rows) >= _RING_EVLOG):
+        raise LogicError("program too large for the ring's 28-bit row "
+                         "codes")
     ahead = np.concatenate([fetches, np.zeros(depth, np.int64)])
     chunk = _chunk_words(enc)
-    shared_rows = enc.pool_slots + enc.res_rows
     words: list = []
     pos = 0
     k = depth - 1        # the fetch issued by the next consumption
@@ -1585,30 +1596,45 @@ def replay_forward(enc: EncodedReplay, staged: torch.Tensor, house,
     house_t = house_tensor(enc, house, device, dtype)
     if device.type != "cuda":
         return replay_forward_plain(enc, staged, house_t, with_log)
+    T = staged.shape[1]
+    vlog = torch.empty((enc.n_log, T), dtype=dtype, device=device) \
+        if with_log else None
+    name = "replay_tape_forward" if with_log else "replay_forward"
+    top = _ring_launch(enc, staged, house_t, name,
+                       "replay_tape" if with_log else "replay",
+                       (_ptr(vlog),), (enc.pool_slots, enc.res_rows))
+    return top, vlog
+
+
+def _ring_launch(enc: EncodedStream, staged: torch.Tensor,
+                 house_t: torch.Tensor, entry: str, launch_key: str,
+                 after_log: tuple, slots: tuple) -> torch.Tensor:
+    """Launch the ring kernel entry ``canopy_{entry}_{f32|f64}`` on the
+    CUDA tensor ``staged`` in the :func:`replay_plan` shape (which raises
+    before any launch when the program does not fit a block): its
+    arguments after the eviction log (or scratch) are ``after_log``, its
+    pool arguments ``slots``.  Returns the top ``(n_trials,)``."""
     from ._build import load_library
     lib = load_library()
+    device, dtype = staged.device, staged.dtype
     staged = staged.contiguous()
     _check_cuda(dtype, staged)
     T = staged.shape[1]
     plan = replay_plan(enc, dtype, T)
     ring = replay_ring_stream(enc, plan.depth)
     words, head = ring.tables(device)
-    evlog = torch.empty((max(enc.n_evicted, 1), T), dtype=dtype,
+    evlog = torch.empty((max(_ring_rows(enc)[1], 1), T), dtype=dtype,
                         device=device)
     top = torch.empty(T, dtype=dtype, device=device)
-    vlog = torch.empty((enc.n_log, T), dtype=dtype, device=device) \
-        if with_log else None
     dp = _dp_scratch(enc, -(-T // plan.width), plan.width, staged)
-    LAUNCHES["replay_tape" if with_log else "replay"] += 1
-    name = "replay_tape_forward" if with_log else "replay_forward"
-    code = getattr(lib, f"canopy_{name}_{_SUFFIX[dtype]}")(
+    LAUNCHES[launch_key] += 1
+    code = getattr(lib, f"canopy_{entry}_{_SUFFIX[dtype]}")(
         words.data_ptr(), ring.n_chunks, ring.chunk_words, head.data_ptr(),
-        staged.data_ptr(), house_t.data_ptr(), evlog.data_ptr(),
-        _ptr(vlog), top.data_ptr(), T, enc.pool_slots, enc.res_rows,
-        enc.top_slot, plan.width, plan.depth, _ptr(dp),
-        torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(lib, code, "replay forward")
-    return top, vlog
+        staged.data_ptr(), house_t.data_ptr(), evlog.data_ptr(), *after_log,
+        top.data_ptr(), T, *slots, enc.top_slot, plan.width, plan.depth,
+        _ptr(dp), torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(lib, code, entry.replace("_", " "))
+    return top
 
 
 def replay_propagate_staged(enc: EncodedReplay, staged: torch.Tensor,
@@ -1631,12 +1657,14 @@ def replay_propagate(enc: EncodedReplay, basic_p: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _check_spill_fits(pool_slots: int) -> None:
-    """A spill block holds its pool in shared memory: at most
-    ``SPILL_SLOTS`` slots (one warp of float32 trials)."""
+    """A spill block holds its pool in shared memory beside the ring
+    kernel's prefetch ring and op-stream chunks: at most ``SPILL_SLOTS``
+    slots (one warp of float32 trials, :func:`replay_plan`)."""
     if pool_slots > SPILL_SLOTS:
         raise LogicError(
             f"spill program needs {pool_slots} pool slots; one block holds "
-            f"{SPILL_SLOTS} at 32 trials ({SMEM_BYTES} B of shared memory)")
+            f"{SPILL_SLOTS} at 32 trials beside its ring ({SMEM_BYTES} B "
+            f"of shared memory)")
 
 
 def compile_spill_stream(tree: CompiledTree, **kwargs):
@@ -1645,13 +1673,13 @@ def compile_spill_stream(tree: CompiledTree, **kwargs):
 
     The JAX package sizes the pool from the TPU's 13 MiB of VMEM (minus a
     staging ring of chunks and two slab buffers).  Here the pool is what
-    one block keeps in shared memory: by default 113 slots (blocks of
-    ``SPILL_TRIALS`` = 512 float32 trials), or the widest gate's working
-    set if that is more; every basic event sits in one staging chunk
-    (the card reads any staged row straight from device memory, so no
+    one block of the ring kernel keeps in shared memory: by default
+    ``SMEM_BYTES // (4 * SPILL_TRIALS)`` slots (56), or the widest gate's
+    working set if that is more; every basic event sits in one staging
+    chunk (the card fetches any staged row from device memory, so no
     basic needs a pool slot); and no TPU VMEM budget.  Any builder keyword
     may be given.  The built program's pool is checked: beyond
-    ``SPILL_SLOTS`` (1,816) it raises ``LogicError``, as does a gate
+    ``SPILL_SLOTS`` (1,743) it raises ``LogicError``, as does a gate
     wider than an explicitly given pool (the builder's own check).
     """
     from ..compiler.schedule import _emit_gate_ops
@@ -1674,10 +1702,11 @@ class EncodedSpill(EncodedStream):
     """A spill program as one flat op table (``csrc/spill.cu``).
 
     Pool arguments index the shared-memory pool; EVICT and REFILL ops
-    move a slot to or from a scratch row in device memory (``aux0``);
-    SPILL ops copy a staged row into a slot (the TPU's staging-buffer
-    spills and its refills from the staged array).  ``n_log`` counts
-    gates; ``counts`` the ops of each kind the TPU schedule had.
+    move a slot to or from a scratch row in device memory (``aux0``; a
+    row may be stored more than once); SPILL ops copy a staged row into a
+    slot (the TPU's staging-buffer spills and its refills from the staged
+    array).  ``n_log`` counts gates; ``counts`` the ops of each kind the
+    TPU schedule had.
     """
 
     n_scratch: int         # scratch rows (evicted values)
@@ -1842,8 +1871,9 @@ def spill_forward(enc: EncodedSpill, staged: torch.Tensor,
                   house) -> torch.Tensor:
     """Run a spill program on staged ``(n_basic, n_trials)`` input;
     returns the top ``(n_trials,)``.  CPU tensors run
-    :func:`spill_forward_plain`; CUDA tensors launch ``csrc/spill.cu`` or
-    raise (a pool beyond one block's shared memory raises before any
+    :func:`spill_forward_plain`; CUDA tensors launch ``csrc/spill.cu`` on
+    :func:`replay_ring_stream` in the :func:`replay_plan` shape, or raise
+    (a pool beyond one block's shared memory raises before any
     launch)."""
     _check_staged(enc, staged)
     device, dtype = staged.device, staged.dtype
@@ -1851,25 +1881,8 @@ def spill_forward(enc: EncodedSpill, staged: torch.Tensor,
     if device.type != "cuda":
         return spill_forward_plain(enc, staged, house_t)
     _check_spill_fits(enc.pool_slots)
-    from ._build import load_library
-    lib = load_library()
-    staged = staged.contiguous()
-    _check_cuda(dtype, staged)
-    width = _spill_block_trials(enc.pool_slots, dtype)
-    T = staged.shape[1]
-    ops, args, _fill = enc.tables(device)
-    scratch = torch.empty((max(enc.n_scratch, 1), T), dtype=dtype,
-                          device=device)
-    top = torch.empty(T, dtype=dtype, device=device)
-    dp = _dp_scratch(enc, -(-T // width), width, staged)
-    LAUNCHES["spill"] += 1
-    code = getattr(lib, f"canopy_spill_forward_{_SUFFIX[dtype]}")(
-        ops.data_ptr(), args.data_ptr(), enc.n_ops, staged.data_ptr(),
-        house_t.data_ptr(), scratch.data_ptr(), top.data_ptr(), T,
-        enc.pool_slots, enc.top_slot, width, _ptr(dp),
-        torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(lib, code, "spill forward")
-    return top
+    return _ring_launch(enc, staged, house_t, "spill_forward", "spill", (),
+                        (enc.pool_slots,))
 
 
 def spill_propagate_staged(enc: EncodedSpill, staged: torch.Tensor,

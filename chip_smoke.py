@@ -20,12 +20,15 @@ false or the package is missing).  Phases, each raising on failure:
    CUDA-event times of kernel and plain, the level kernels beside a
    critical-path model (levels x ``SMEM_ROUND_TRIP`` cycles); each
    kernel instantiation's ptxas registers, stack and spills;
-4. the fused whole-tree kernels (``csrc/fused.cu``) against their plain
-   version, bit-equal at 1,048,576 and 100,003 trials: the tiled
+4. the fused whole-tree kernel (``csrc/fused.cu``: the ring body on the
+   tree's live-row program, rows in device memory) against its plain
+   version, bit-equal at 1,048,576 and 100,003 trials: as the tiled
    counterpart on the slice tree and on ``demo_plant`` (a house event),
-   the lane-row one on ``aralia_like_large`` and
-   ``aralia_like_nested_count`` (count gates up to 33 DP states);
-   CUDA-event times of kernel and plain;
+   as the lane-row one on ``aralia_like_large`` and
+   ``aralia_like_nested_count`` (count gates up to 33 DP states); each
+   plan logged (block width, ring depth, live rows, blocks per SM,
+   shared bytes); CUDA-event times of kernel and plain, and of the
+   stream kernel on the same inputs (all but ``demo_plant``);
 5. dispatch: ``make_propagator(engine="auto")`` picks the uncapped tree
    stream on the slice tree, on ``aralia_like_large`` and on the
    9,363-gate hierarchical tree of ``bench.py``'s importance section
@@ -91,10 +94,13 @@ false or the package is missing).  Phases, each raising on failure:
    ``mc_trials`` (within ``mc_4sigma`` of its exact probability), (d)
    ``plant_hier_9363`` through ``packed_top_probability`` at 10,002,432
    trials, chunked (within its ``mc_4sigma``); the path ``spill``: (e)
-   ``make_propagator(engine="spill")`` on the 65k replay tree at 65,536
-   trials, bit-equal to plain and to the stream kernel, 2,048 trials
-   within ``TOP_RTOL`` of the f64 gather engine; (f) a forced small
-   schedule on the 16k tree with every spill op kind, bit-equal to plain;
+   ``make_propagator(engine="spill")`` (the ring kernel of
+   ``csrc/replay_ops.cuh``) on the 65k replay tree at 65,536 trials,
+   bit-equal to plain, to the stream kernel and to the replay kernel,
+   2,048 trials within ``TOP_RTOL`` of the f64 gather engine, its ring
+   plan logged (block width, depth, pool, pads) and timed beside replay
+   and the stream; (f) a forced small schedule on the 16k tree with every
+   spill op kind through the ring, bit-equal to plain;
 10. the locality-reordered big tree (``csrc/block_gather.cu``,
    ``csrc/gather.cu``): ``plant_hier_9363``'s tree through
    ``random_shuffle(seed=1)`` and ``locality_reorder(hot_first=True)``
@@ -366,13 +372,22 @@ def read_counts(record: dict, path: str, kernels) -> dict:
 def ptxas_table(report: str) -> dict:
     """nvcc's ``-Xptxas -v`` report as {kernel: {registers, stack,
     spill_stores, spill_loads, shared}} (``shared``: static bytes; the
-    level kernels' shared-memory logs are dynamic, sized per launch)."""
+    level kernels' shared-memory logs are dynamic, sized per launch).  An
+    instantiation a later source compiles again (``spill.cu`` runs
+    ``replay.cu``'s ring kernel) is keyed ``name@source``."""
     table: dict = {}
-    name = None
+    name = source = None
+    first: dict = {}
     for line in report.splitlines():
+        m = re.match(r"nvcc: (\S+)", line)
+        if m:
+            source = m.group(1)
+            continue
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
+            if first.setdefault(name, source) != source:
+                name = f"{name}@{source}"
             table[name] = {"registers": None, "stack": 0, "spill_stores": 0,
                            "spill_loads": 0, "shared": 0}
             continue
@@ -395,22 +410,28 @@ def ptxas_table(report: str) -> dict:
 def short_name(mangled: str) -> str:
     """``stream_level_forward_kernel<f32,1>`` from an instantiation's
     mangled name (value type, then the integer and bool template
-    arguments in order)."""
+    arguments in order; ``@source`` kept), or the base name of a kernel
+    that is no template."""
+    mangled, _at, source = mangled.partition("@")
+    suffix = f"@{source}" if source else ""
     for base in PTXAS_KERNELS:
         at = mangled.find(base + "I")
         if at >= 0:
             args = mangled[at + len(base) + 1:]
             vtype = {"f": "f32", "d": "f64"}[args[0]]
             rest = re.findall(r"L[ib](\d+)E", args.split("EEv")[0])
-            return f"{base}<{','.join([vtype, *rest])}>"
-    return mangled
+            return f"{base}<{','.join([vtype, *rest])}>{suffix}"
+        if base + "E" in mangled:
+            return base + suffix
+    return mangled + suffix
 
 
 #: The redesigned kernels' base names, as the ptxas report's mangled
 #: names hold them.
 PTXAS_KERNELS = ("stream_steps_kernel", "stream_ops_kernel",
                  "stream_level_forward_kernel",
-                 "stream_level_backward_kernel", "replay_forward_kernel")
+                 "stream_level_backward_kernel", "replay_forward_kernel",
+                 "fused_forward_kernel")
 
 
 def phase_build(record: dict) -> None:
@@ -716,54 +737,65 @@ def phase_slice(device, record: dict) -> None:
 
 
 def phase_fused(device, record: dict) -> None:
-    """(a) Each fused kernel against its plain version, bit-equal."""
-    from canopy_tpu_torch.ops.fused_kernel import (LANE_TRIALS, TILED_TRIALS,
-                                                   encode_fused,
+    """(a) The fused kernel against its plain version, bit-equal, through
+    both entry points; each tree's plan logged, the stream kernel timed
+    on the same inputs."""
+    from canopy_tpu_torch.ops._build import load_library
+    from canopy_tpu_torch.ops.fused_kernel import (encode_fused,
                                                    fused_forward,
                                                    fused_forward_plain,
+                                                   fused_plan,
                                                    fused_supported,
                                                    fused_tiled_supported)
     from canopy_tpu_torch.ops.stream_kernel import (house_tensor,
                                                     stream_forward,
                                                     tree_stream_encoding)
+    lib = load_library()
     gen = torch.Generator(device=device)
     gen.manual_seed(20261)
     cases = [("torch_slice_plant", "fused_tiled"),
              ("demo_plant", "fused_tiled"),
              ("aralia_like_large", "fused"),
              ("aralia_like_nested_count", "fused")]
+    plans = record.setdefault("fused_plans", {})
     for name, kernel in cases:
         tree = load_tree(name)
         tiled = kernel == "fused_tiled"
         check(fused_tiled_supported(tree) == tiled and
               fused_supported(tree), f"{name}: not a {kernel} tree")
-        width = TILED_TRIALS if tiled else LANE_TRIALS
         enc = encode_fused(tree)
+        live, plan = fused_plan(enc)
+        plans[name] = {"block_trials": plan.width, "ring_depth": plan.depth,
+                       "live_rows": live.pool_slots, "gates": enc.n_ops,
+                       "blocks_per_sm": lib.canopy_fused_blocks_per_sm(
+                           plan.shared_bytes),
+                       "shared_bytes": plan.shared_bytes,
+                       "chunk_words": plan.chunk_words}
+        log(f"[fused] {name}: plan {json.dumps(plans[name])}")
         house = tree.house_state_vector()
         h32 = house_tensor(enc, house, device)
         for n in (SLICE_TRIALS, RAGGED_TRIALS):
             staged = (torch.rand((enc.n_basic, n), generator=gen,
                                  device=device, dtype=torch.float64)
                       * 0.02).to(torch.float32)
-            top = fused_forward(enc, staged, house, width)
+            top = fused_forward(enc, staged, house, tiled)
             plain = fused_forward_plain(enc, staged, h32)
             torch.cuda.synchronize()
             err = float((top - plain).abs().max())
             check(err == 0.0, f"{name}: {kernel} differs from plain at "
                               f"{n} trials ({err})")
-            ms = cuda_ms(lambda: fused_forward(enc, staged, house, width),
+            ms = cuda_ms(lambda: fused_forward(enc, staged, house, tiled),
                          5)
             plain_ms = cuda_ms(lambda: fused_forward_plain(enc, staged,
                                                            h32), 1)
-            log(f"[fused] {name}: {kernel}, {tree.n_gates} gates x {width} "
-                f"trials per block, {enc.n_basic} basics, {n} trials: "
-                f"bit-equal to plain; kernel {ms:.3f} ms, plain "
+            log(f"[fused] {name}: {kernel}, {tree.n_gates} gates on "
+                f"{live.pool_slots} live rows, {enc.n_basic} basics, {n} "
+                f"trials: bit-equal to plain; kernel {ms:.3f} ms, plain "
                 f"{plain_ms:.3f} ms")
-            main = name in ("torch_slice_plant", "aralia_like_large")
-            if main and n == SLICE_TRIALS:
+            if name != "demo_plant" and n == SLICE_TRIALS:
                 # The stream kernel on the same tree and inputs (its
-                # uncapped program, pool in device memory), for dispatch:
-                # every gate runs the same arithmetic in either order.
+                # uncapped program, pool in device memory): every gate
+                # runs the same arithmetic in either order.
                 senc = tree_stream_encoding(tree)
                 sstaged = staged[torch.from_numpy(senc.staged_cols)
                                  .to(device)]
@@ -773,9 +805,12 @@ def phase_fused(device, record: dict) -> None:
                     senc, sstaged, house)[0], 5)
                 log(f"[fused] {name}: the stream kernel on the same "
                     f"inputs ({senc.n_ops} ops, pool {senc.pool_slots}): "
-                    f"{stream_ms:.3f} ms")
-                record[f"{kernel}_vs_stream_ms"] = stream_ms
+                    f"{stream_ms:.3f} ms; fused {ms:.3f} ms")
+                plans[name].update(ms=ms, stream_ms=stream_ms)
                 del sstaged
+            if name in ("torch_slice_plant", "aralia_like_large") and \
+                    n == SLICE_TRIALS:
+                record[f"{kernel}_vs_stream_ms"] = plans[name]["stream_ms"]
                 record[kernel].update(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     shape=f"{name}, {tree.n_gates} gates x {n} trials, "
@@ -1635,13 +1670,25 @@ def spill_bound(enc, n_trials: int) -> dict:
 
 
 def phase_spill(device, record: dict) -> None:
-    """(9e-f) The spill engine on the 65k replay tree, and a forced small
-    schedule with every op kind."""
+    """(9e-f) The spill engine (the ring kernel) on the 65k replay tree
+    beside the replay and stream kernels on the same inputs, and a forced
+    small schedule with every op kind."""
     from canopy_tpu_torch.engine.propagate import make_propagator
     from canopy_tpu_torch.ops.stream_kernel import (
-        compile_spill_stream, encode_spill, house_tensor, spill_forward,
-        spill_forward_plain, stage_basic, stream_forward,
-        tree_stream_encoding)
+        compile_replay_stream, compile_spill_stream, encode_replay,
+        encode_spill, house_tensor, replay_forward, replay_plan,
+        replay_ring_stream, spill_forward, spill_forward_plain, stage_basic,
+        stage_replay, stream_forward, tree_stream_encoding)
+
+    def ring_plan(enc, n_trials: int) -> dict:
+        plan = replay_plan(enc, torch.float32, n_trials)
+        ring = replay_ring_stream(enc, plan.depth)
+        return {"block_trials": plan.width, "ring_depth": plan.depth,
+                "pool": enc.pool_slots, "shared_bytes": plan.shared_bytes,
+                "chunks": ring.n_chunks, "ring_pads": ring.n_pads,
+                "ring_reads": len(ring.fetches) - ring.n_pads,
+                "ptxas": record.get("ptxas", {}).get(
+                    f"replay_forward_kernel<f32,0,{plan.depth}>@spill.cu")}
     from canopy_tpu_torch.utils.synthetic import synthetic_compiled_tree
 
     tree = synthetic_compiled_tree(**REPLAY_TREE)
@@ -1666,6 +1713,8 @@ def phase_spill(device, record: dict) -> None:
              "scratch_rows": enc.n_scratch, **enc.counts,
              "scratch_gb": enc.n_scratch * T * 4 / 1e9}
     log(f"[spill] 65k tree program: {json.dumps(sizes)}")
+    plan = ring_plan(enc, T)
+    log(f"[spill] 65k tree ring plan at {T} f32 trials: {json.dumps(plan)}")
     staged = stage_basic(enc, p)
     h32 = house_tensor(enc, house, device)
     plain = spill_forward_plain(enc, staged, h32)
@@ -1684,17 +1733,28 @@ def phase_spill(device, record: dict) -> None:
     ms = cuda_ms(lambda: spill_forward(enc, staged, house), 3)
     stream_ms = cuda_ms(lambda: stream_forward(senc, sstaged, house), 3)
     plain_ms = cuda_ms(lambda: spill_forward_plain(enc, staged, h32), 1)
+    del sstaged, stops
+    # The replay kernel on the same tree and inputs (its default program).
+    renc = encode_replay(compile_replay_stream(tree))
+    rstaged = stage_replay(renc, p)
+    check(torch.equal(replay_forward(renc, rstaged, house)[0], tops),
+          "replay and spill tops differ")
+    replay_ms = cuda_ms(lambda: replay_forward(renc, rstaged, house), 3)
+    del rstaged
     b = spill_bound(enc, T)
-    log(f"[spill] 65k tree, {T} trials: spill kernel bit-equal to plain and "
-        f"to the stream kernel; {REPLAY_AGREE} trials vs f64 gather max rel "
-        f"err {rel:.3e} (limit {TOP_RTOL}); spill {ms:.3f} ms, stream "
-        f"{stream_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{b['bound_ms']:.3f} ms ({b['bound_by']})")
+    log(f"[spill] 65k tree, {T} trials: spill kernel bit-equal to plain, "
+        f"to the stream kernel and to the replay kernel; {REPLAY_AGREE} "
+        f"trials vs f64 gather max rel err {rel:.3e} (limit {TOP_RTOL}); "
+        f"spill {ms:.3f} ms, replay {replay_ms:.3f} ms ({renc.n_ops} ops, "
+        f"pool {renc.pool_slots}), stream {stream_ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
     record["spill"].update(
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
         shape=f"65k tree, {enc.n_log} gates x {T} trials, f32", **b)
-    record["spill_65k"] = dict(sizes, stream_ms=stream_ms, build_s=build_s)
-    del staged, sstaged, plain, stops, tops, p, ref
+    record["spill_65k"] = dict(sizes, stream_ms=stream_ms,
+                               replay_ms=replay_ms, build_s=build_s,
+                               plan=plan)
+    del staged, plain, tops, p, ref
     torch.cuda.empty_cache()
 
     # (f) Every op kind, under a forced small schedule.
@@ -1708,11 +1768,14 @@ def phase_spill(device, record: dict) -> None:
     check(torch.equal(spill_forward(small, s16, house), spill_forward_plain(
         small, s16, house_tensor(small, house, device))),
           "small-schedule spill differs from plain")
+    small_plan = ring_plan(small, ADJOINT_TRIALS)
     log(f"[spill] 16k tree, small schedule {SPILL_SMALL} ({small.n_ops} "
-        f"ops, {json.dumps(small.counts)}, {small.n_scratch} scratch rows): "
-        f"kernel bit-equal to plain at {ADJOINT_TRIALS} trials")
+        f"ops, {json.dumps(small.counts)}, {small.n_scratch} scratch rows; "
+        f"ring plan {json.dumps(small_plan)}): kernel bit-equal to plain at "
+        f"{ADJOINT_TRIALS} trials")
     record["spill_small"] = dict(small.counts, ops=small.n_ops,
-                                 scratch_rows=small.n_scratch)
+                                 scratch_rows=small.n_scratch,
+                                 plan=small_plan)
 
 
 def gather_f32(tree, p: torch.Tensor) -> torch.Tensor:

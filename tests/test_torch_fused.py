@@ -17,7 +17,13 @@
 * The op table follows the JAX kernels' gate order; the two ``*_supported``
   predicates sit at the shared-memory limits (454 and 1,816 gates); the
   wrappers take any trial count and refuse wrong inputs.
+* The kernel's live-row program (``fused_program``): no row holds two
+  live values, and the ring kernel's walk of its op stream
+  (``torch_parity.walk_ring``) is bit-equal to the plain version and
+  within the tolerance above of the JAX kernels in interpret mode.
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,10 +37,12 @@ from canopy_tpu_torch.compiler.graph import compile_gates
 from canopy_tpu_torch.compiler.schedule import _emit_gate_ops
 from canopy_tpu_torch.errors import LogicError
 from canopy_tpu_torch.ops import fused_kernel as tfk
-from canopy_tpu_torch.ops.stream_kernel import LAUNCHES
+from canopy_tpu_torch.ops.stream_kernel import (LAUNCHES, POOL,
+                                                house_tensor,
+                                                replay_ring_stream)
 from canopy_tpu_torch.utils.synthetic import synthetic_mef_tree
 
-from torch_parity import load_tree
+from torch_parity import load_tree, walk_ring
 
 RTOL = 1e-6
 ATOL = 2.0 ** -24
@@ -168,6 +176,13 @@ def test_supported_predicates(name, tiled, lane):
 
 
 def test_supported_limits_are_the_shared_memory():
+    """The predicates name the TPU counterpart by the gates one block's
+    shared memory holds at its row width (454 at 128 trials, 1,816 at
+    32).  The kernel's own sizing comes from the program
+    (``fused_plan``): its rows live in device memory and a block's shared
+    memory holds two op-stream chunks and the ring, so the plan fits a
+    tree of any size, and its rows are the peak live set, not the
+    gates."""
     assert tfk.SMEM_BYTES // (tfk.TILED_TRIALS * 4) == 454
     assert tfk.SMEM_BYTES // (tfk.LANE_TRIALS * 4) == 1816
     _jt, tt = trees("aralia_like_ccf")
@@ -176,6 +191,15 @@ def test_supported_limits_are_the_shared_memory():
         tt.n_gates = n_gates
         assert tfk.fused_tiled_supported(tt) is tiled
         assert tfk.fused_supported(tt) is lane
+    for name in ("aralia_like_ccf", "aralia_like_nested_count"):
+        enc = tfk.encode_fused(trees(name)[1])
+        live, plan = tfk.fused_plan(enc)
+        ring_rows = plan.depth if plan.depth > 1 else 0
+        assert plan.width == tfk.FUSED_BLOCK_TRIALS
+        assert plan.shared_bytes == 16 + 8 * plan.chunk_words + \
+            ring_rows * plan.width * 4 <= tfk.SMEM_BYTES
+        assert live.pool_slots < enc.pool_slots
+        assert plan.chunk_words * 4 * 2 + 16 < tfk.SMEM_BYTES
 
 
 def test_wrappers_refuse_and_count_nothing_on_the_cpu():
@@ -186,8 +210,73 @@ def test_wrappers_refuse_and_count_nothing_on_the_cpu():
     assert tfk.fused_propagate(tt, p, []).shape == (3,)
     assert dict(LAUNCHES) == before
     with pytest.raises(LogicError):
-        tfk.fused_forward(enc, tfk.tile_trials(p).double(), [], 32)
+        tfk.fused_forward(enc, tfk.tile_trials(p).double(), [])
     with pytest.raises(LogicError):
-        tfk.fused_forward(enc, tfk.tile_trials(p)[1:], [], 32)
-    with pytest.raises(LogicError):
-        tfk.fused_forward(enc, tfk.tile_trials(p), [], 4096)
+        tfk.fused_forward(enc, tfk.tile_trials(p)[1:], [], tiled=True)
+    with pytest.raises(LogicError, match="top"):
+        tfk.fused_forward(dataclasses.replace(enc, top_slot=-1),
+                          tfk.tile_trials(p), [])
+
+
+LIVE_TREES = TREES + ["torch_slice_plant", "aralia_like_large",
+                      "aralia_like_nested_count"]
+
+
+def port_tree(name: str):
+    if name in TREES:
+        return trees(name)[1]
+    tree_name = "slice" if name == "torch_slice_plant" else None
+    return load_tree("canopy_tpu_torch", name, tree_name=tree_name)[1]
+
+
+@pytest.mark.parametrize("name", LIVE_TREES)
+def test_no_two_live_values_share_a_row(name):
+    """Walking the live-row program, every gate argument finds in its row
+    the very gate the JAX-order table names (no later gate wrote the row
+    while that value was live), the top's row holds the top at the end,
+    the ops keep their order and arithmetic, and the rows are the peak
+    live set (fewer than the gates)."""
+    enc = tfk.encode_fused(port_tree(name))
+    live = tfk.fused_program(enc)
+    assert tfk.fused_program(enc) is live       # cached on the table
+    np.testing.assert_array_equal(live.ops[:, [0, 2, 3, 4, 5]],
+                                  enc.ops[:, [0, 2, 3, 4, 5]])
+    np.testing.assert_array_equal(live.args[:, [0, 2]], enc.args[:, [0, 2]])
+    pool = enc.args[:, 0] == POOL
+    np.testing.assert_array_equal(live.args[~pool], enc.args[~pool])
+    holds: dict = {}          # live row -> gate (old row) whose value
+    peak = 0
+    for (b, e), gate, row in zip(enc.ops[:, 2:4].tolist(),
+                                 enc.ops[:, 1].tolist(),
+                                 live.ops[:, 1].tolist()):
+        for j in range(b, e):
+            if enc.args[j, 0] == POOL:
+                assert holds[int(live.args[j, 1])] == enc.args[j, 1]
+        holds[row] = gate
+        peak = max(peak, len(holds))
+    assert holds[live.top_slot] == enc.top_slot
+    assert live.pool_slots == peak <= enc.pool_slots
+    if enc.n_ops > 100:
+        assert live.pool_slots < enc.pool_slots
+
+
+@pytest.mark.parametrize("name", TREES)
+def test_live_program_walk_matches_plain_and_jax(name):
+    """The ring kernel's walk of the live-row program's op stream, at the
+    plan's ring depth, bit-equal to ``fused_forward_plain`` on the
+    JAX-order table, and within the tolerance above of the JAX tiled
+    kernel (1,024 trials) and lane-row kernel (200 trials) in interpret
+    mode."""
+    jt, tt = trees(name)
+    enc = tfk.encode_fused(tt)
+    live, plan = tfk.fused_plan(enc)
+    ring = replay_ring_stream(live, plan.depth)
+    house = tt.house_state_vector()
+    h32 = house_tensor(enc, house, "cpu")
+    for n, jax_fn, seed in ((1024, jpk.fused_propagate_tiled, 16),
+                            (200, jpk.fused_propagate, 17)):
+        p = inputs(tt.n_basic, n, seed)
+        staged = tfk.tile_trials(torch.from_numpy(p))
+        got, _ = walk_ring(live, ring, staged, h32)
+        assert torch.equal(got, tfk.fused_forward_plain(enc, staged, h32))
+        assert_close(got, jax_fn(jt, jnp.asarray(p), house, interpret=True))

@@ -132,21 +132,23 @@ def test_uncertainty_streams_on_cuda(cuda_device):  # noqa: F811
     ("aralia_like_nested_count", None), ("demo_plant", "Cooling")])
 def test_fused_kernels_match_plain(cuda_device, name,  # noqa: F811
                                    tree_name):
+    """The fused kernel (live rows in device memory, the ring kernel) on
+    ``chip_smoke.py`` phase 4's four trees, at 2^20, 100,003 and one
+    trial and a ragged 4,099, through both entry points, bit-equal to
+    plain."""
     _m, tree = load_tree("canopy_tpu_torch", name, tree_name=tree_name)
     enc = tfk.encode_fused(tree)
     house = tree.house_state_vector()
     h32 = tsk.house_tensor(enc, house, cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(4)
-    for n in (1, 1000, 4099):
+    for n in (1 << 20, 100_003, 4099, 1):
         staged = torch.rand((tree.n_basic, n), generator=gen,
                             device=cuda_device) * 0.3
         want = tfk.fused_forward_plain(enc, staged, h32)
-        widths = [tfk.LANE_TRIALS] + (
-            [tfk.TILED_TRIALS] if tfk.fused_tiled_supported(tree) else [])
-        for width in widths:
-            got = tfk.fused_forward(enc, staged, house, width)
+        for tiled in (False, True):
+            got = tfk.fused_forward(enc, staged, house, tiled)
             torch.cuda.synchronize()
-            assert torch.equal(got, want), (name, n, width)
+            assert torch.equal(got, want), (name, n, tiled)
 
 
 def test_propagator_dispatch_on_cuda(cuda_device):  # noqa: F811
@@ -330,6 +332,45 @@ def test_spill_kernel_matches_plain(cuda_device):  # noqa: F811
     p = p.float()
     assert torch.equal(tsk.spill_propagate(enc, p, []),
                        tsk.stream_propagate(senc, p, []))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_spill_kernel_on_the_65k_shape(cuda_device, dtype):  # noqa: F811
+    """The spill kernel (the ring kernel) on ``bench.py``'s 65k replay
+    tree at its default sizing, 65,536 trials, bit-equal to plain and to
+    the stream kernel; and ``chip_smoke.py``'s forced small schedule on
+    the 16k tree (every op kind, ring pads at every depth), bit-equal to
+    plain; float32 and float64."""
+    from canopy_tpu_torch.utils.synthetic import synthetic_compiled_tree
+    tree = synthetic_compiled_tree(n_basic=8192, n_gates=65536, fanin=4,
+                                   n_levels=14, seed=0)
+    enc = tsk.encode_spill(tsk.compile_spill_stream(tree))
+    assert enc.counts["evictions"] and enc.counts["scratch_refills"]
+    gen = torch.Generator(device=cuda_device).manual_seed(65)
+    p = (torch.rand((65_536, tree.n_basic), generator=gen,
+                    device=cuda_device, dtype=torch.float64)
+         * 0.05).to(dtype)
+    staged = tsk.stage_basic(enc, p, dtype)
+    h = tsk.house_tensor(enc, [], cuda_device, dtype)
+    top = tsk.spill_forward(enc, staged, [])
+    assert torch.equal(top, tsk.spill_forward_plain(enc, staged, h))
+    senc = tsk.tree_stream_encoding(tree)
+    assert torch.equal(top, tsk.stream_forward(
+        senc, tsk.stage_basic(senc, p, dtype), [])[0])
+    del staged, p
+    tree16 = synthetic_compiled_tree(n_basic=8192, n_gates=16384, fanin=4,
+                                     n_levels=14, seed=0)
+    small = tsk.encode_spill(tsk.compile_spill_stream(
+        tree16, pool_slots=16, chunk_tiles=256, slab_tiles=8,
+        max_ops_per_segment=2048, hoist_events=16))
+    assert all(small.counts.values()), small.counts
+    p = (torch.rand((1024, tree16.n_basic), generator=gen,
+                    device=cuda_device, dtype=torch.float64)
+         * 0.05).to(dtype)
+    staged = tsk.stage_basic(small, p, dtype)
+    assert torch.equal(tsk.spill_forward(small, staged, []),
+                       tsk.spill_forward_plain(small, staged, h))
 
 
 def test_spill_engine_on_cuda(cuda_device):  # noqa: F811
@@ -676,9 +717,9 @@ def test_residual_window_kernels_match_plain(cuda_device):  # noqa: F811
         if dtype == torch.float32:
             fstaged = tfk.tile_trials(p)
             want = tfk.fused_forward_plain(fenc, fstaged, h)
-            for width in (tfk.TILED_TRIALS, tfk.LANE_TRIALS):
+            for tiled in (True, False):
                 assert torch.equal(tfk.fused_forward(fenc, fstaged, [],
-                                                     width), want)
+                                                     tiled), want)
         rstaged = tsk.stage_replay(renc, p, dtype)
         assert torch.equal(tsk.replay_forward(renc, rstaged, [])[0],
                            tsk.replay_forward_plain(renc, rstaged, h)[0])

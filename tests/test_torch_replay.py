@@ -42,7 +42,7 @@ from canopy_tpu_torch.errors import LogicError
 from canopy_tpu_torch.ops import stream_kernel as tsk
 from canopy_tpu_torch.utils.synthetic import synthetic_compiled_tree
 
-from torch_parity import load_tree
+from torch_parity import load_tree, walk_ring
 
 #: The JAX tests' thrash-shaped schedule (tests/test_replay.py): a tiny
 #: pool and short segments force evictions, slab reads, gate-stream reads
@@ -356,79 +356,6 @@ def test_make_propagator_replay_engine():
 # ---------------------------------------------------------------------------
 # The ring kernel's host plan and op stream (csrc/replay_ops.cuh).
 # ---------------------------------------------------------------------------
-
-def walk_ring(enc, ring, staged: torch.Tensor, house: torch.Tensor,
-              with_log: bool = False):
-    """The ring kernel's walk of its op stream, in plain torch: chunk by
-    chunk, each header and argument word decoded as the kernel decodes
-    it, every ring read taken from the slot its entry was issued into
-    (``depth - 1`` consumptions earlier, the fetch read at issue time, so
-    an eviction-log row fetched before its EVICT raises ``KeyError``).
-    Returns ``(top, value log or None)``."""
-    D, T = ring.depth, staged.shape[1]
-    P, R = enc.pool_slots, enc.res_rows
-    shared: list = [None] * P + [staged[i] for i in range(R)]
-    evlog: dict = {}
-    vlog: list = [None] * enc.n_log
-    slots: list = [None] * D
-    state = {"k": 0}
-
-    def fetch(code):
-        if code == 0:
-            return None
-        if code < tsk._RING_EVLOG:
-            return staged[code - 1]
-        return evlog[code - tsk._RING_EVLOG]
-
-    def issue(code):
-        """Consume entry k: issue entry k + D - 1 into the slot of k - 1."""
-        entry = state["k"] + D - 1
-        slots[entry % D] = (entry, fetch(code))
-        state["k"] += 1
-
-    def take(code):
-        entry, value = slots[state["k"] % D]
-        assert entry == state["k"] and value is not None
-        issue(code)
-        return value
-
-    for e in range(D - 1):
-        slots[e] = (e, fetch(int(ring.head[e])))
-    words = ring.words.tolist()
-    cw_len = ring.chunk_words
-    for c in range(ring.n_chunks):
-        cw = words[c * cw_len:(c + 1) * cw_len]
-        w = 0
-        while w < cw_len and cw[w] >= 0:
-            kind, slot, b, e, aux0, _aux1, row, extra = cw[w:w + 8]
-            if kind == tsk.EVICT:
-                evlog[aux0] = shared[slot]
-                for j in range(b, e):
-                    issue(cw[j] & tsk._PAYLOAD)
-            elif kind == tsk.REFILL:
-                shared[slot] = take(extra)
-            else:
-                k0 = state["k"]
-
-                def load(word):
-                    payload = word & tsk._PAYLOAD
-                    src = (word & 0xFFFFFFFF) >> 30
-                    v = shared[payload] if src == tsk._W_SHARED else \
-                        take(payload) if src == tsk._W_RING else \
-                        house[payload].expand(T)
-                    return 1.0 - v if (word >> 29) & 1 else v
-                v = tsk._plain_value(cw[w:w + 7], 0.0, cw, load, staged)
-                # A count DP that reads nothing (cap 0) passes its ring
-                # reads on as pads.
-                ring_words = [x for x in cw[b:e]
-                              if (x & 0xFFFFFFFF) >> 30 == tsk._W_RING]
-                for x in ring_words[state["k"] - k0:extra]:
-                    issue(x & tsk._PAYLOAD)
-                shared[slot] = v
-                vlog[row] = v
-            w = e
-    return shared[enc.top_slot], (torch.stack(vlog) if with_log else None)
-
 
 #: A seven-slot schedule that reads rows of the eviction log back within
 #: a few ring entries of their EVICT: its ring needs pads at every depth.

@@ -35,7 +35,7 @@ from canopy_tpu_torch.errors import LogicError
 from canopy_tpu_torch.ops import stream_kernel as tsk
 
 from test_stream_kernel import mixed_tree
-from torch_parity import load_tree
+from torch_parity import load_tree, walk_ring
 
 F32_ATOL = 2.0 ** -24
 TOP_RTOL = 1e-5
@@ -197,11 +197,34 @@ def test_refill_of_the_dump_region_is_refused():
 
 
 def test_card_sizing():
+    """The default pool (``SPILL_TRIALS``, from the card's sweep) and the
+    ring kernel's shape: ``replay_plan`` sizes a spill block from its
+    pool alone (no resident tier); the widest pool is the ring kernel's
+    ``REPLAY_SLOTS`` (a one-warp block fits it beside the shallowest
+    ring), and one slot more is refused by the sizing (the wrapper checks
+    it too, before any launch: ``tests/test_torch_gpu.py``)."""
     tree = jax_synthetic(n_basic=256, n_gates=2048, fanin=4, n_levels=8,
                          seed=3)
     prog = tsk.compile_spill_stream(tree)
     assert prog.pool_slots == tsk.SMEM_BYTES // (4 * tsk.SPILL_TRIALS)
     assert prog.n_chunks == 1     # every basic a staged row
+    enc = tsk.encode_spill(prog)
+    for dtype, size in ((torch.float32, 4), (torch.float64, 8)):
+        plan = tsk.replay_plan(enc, dtype, 65_536)
+        assert plan.shared_bytes == 16 + 8 * plan.chunk_words + (
+            prog.pool_slots + plan.depth) * plan.width * size
+        assert plan.shared_bytes <= tsk.SMEM_BYTES
+    assert tsk.SPILL_SLOTS == tsk.REPLAY_SLOTS
+    widest = tsk.encode_spill(tsk.compile_spill_stream(
+        tree, pool_slots=tsk.SPILL_SLOTS))
+    plan = tsk.replay_plan(widest, torch.float32, 65_536)
+    assert plan.width <= 32 and plan.shared_bytes <= tsk.SMEM_BYTES
+    # The plan narrows a block below a warp before it gives up.
+    over = tsk.encode_spill(build_spill_schedule(
+        tree, pool_slots=tsk.SMEM_BYTES // 4, chunk_tiles=tree.n_basic,
+        vmem_budget=1 << 62))
+    with pytest.raises(LogicError, match="shared memory"):
+        tsk.replay_plan(over, torch.float32, 65_536)
     with pytest.raises(LogicError, match="shared memory"):
         tsk.compile_spill_stream(tree, pool_slots=tsk.SPILL_SLOTS + 1)
     with pytest.raises(LogicError, match="fan-in"):
@@ -273,3 +296,170 @@ def test_building_for_cuda_touches_no_card():
     fn = make_propagator(tree, torch.device("cuda"), engine="spill")
     assert fn.engine == "spill"
     assert not torch.cuda.is_initialized()
+
+
+# ---------------------------------------------------------------------------
+# The ring kernel's op stream of a spill program (csrc/spill.cu runs
+# csrc/replay_ops.cuh's ring kernel).
+# ---------------------------------------------------------------------------
+
+#: ``chip_smoke.py``'s forced small schedule (``SPILL_SMALL``) on the 16k
+#: tree: staging spills, evictions, refills from the staged input and
+#: from scratch, five segments, and scratch rows read back within a few
+#: ring entries of their EVICT.
+SPILL_SMALL = dict(pool_slots=16, chunk_tiles=256, slab_tiles=8,
+                   max_ops_per_segment=2048, hoist_events=16)
+_RING_CASES: dict = {}
+
+
+def ring_case(label: str):
+    """(encoded spill program, staged input, house) of a ring case."""
+    if label not in _RING_CASES:
+        if label == "small-16k":
+            tree = jax_synthetic(n_basic=8192, n_gates=16384, fanin=4,
+                                 n_levels=14, seed=0)
+            enc = tsk.encode_spill(tsk.compile_spill_stream(tree,
+                                                            **SPILL_SMALL))
+        elif label == "reused-rows":
+            enc = reuse_scratch_rows(ring_case("small-16k")[0])
+        else:
+            tree = jax_synthetic(n_basic=256, n_gates=2048, fanin=4,
+                                 n_levels=8, seed=3)
+            enc = tsk.encode_spill(tsk.compile_spill_stream(tree))
+        p = torch.from_numpy(uniform((8, len(enc.staged_cols)), 21,
+                                     hi=0.05))
+        _RING_CASES[label] = (enc, tsk.stage_basic(enc, p),
+                              tsk.house_tensor(enc, [], "cpu"))
+    return _RING_CASES[label]
+
+
+def reuse_scratch_rows(enc):
+    """``enc`` with its scratch rows reassigned as registers are: an
+    EVICT takes a row whose last REFILL came before it, so rows are
+    stored more than once (the Belady builder does not promise one store
+    per row)."""
+    ops = enc.ops.copy()
+    last_read: dict[int, int] = {}
+    for o, (kind, _s, _b, _e, row, _a, _r) in enumerate(ops.tolist()):
+        if kind == tsk.REFILL:
+            last_read[row] = o
+    new_row: dict[int, int] = {}
+    free_at: list = []          # (op after which the row is free, row)
+    n_rows = 0
+    for o, (kind, _s, _b, _e, row, _a, _r) in enumerate(ops.tolist()):
+        if kind == tsk.EVICT:
+            free = [r for end, r in free_at if end < o]
+            if free:
+                new_row[row] = free[0]
+                free_at = [(end, r) for end, r in free_at if r != free[0]]
+            else:
+                new_row[row], n_rows = n_rows, n_rows + 1
+            free_at.append((last_read.get(row, o), new_row[row]))
+            ops[o, 4] = new_row[row]
+        elif kind == tsk.REFILL:
+            ops[o, 4] = new_row[row]
+    return tsk.EncodedSpill(
+        ops=ops, args=enc.args, fill=enc.fill, n_log=enc.n_log,
+        n_basic=enc.n_basic, n_house=enc.n_house, pool_slots=enc.pool_slots,
+        top_slot=enc.top_slot, max_count_states=enc.max_count_states,
+        staged_cols=enc.staged_cols, n_scratch=n_rows, counts=enc.counts)
+
+
+def issue_order(enc, ring):
+    """Walk the ring stream's words as the kernel does; returns the
+    consumption index at which each EVICT stores (its pads follow it)
+    and, for every eviction-log fetch, (its issue index, its entry index,
+    its row)."""
+    D = ring.depth
+    assert all(c < tsk._RING_EVLOG for c in ring.head.tolist())
+    stores, fetches = [], []
+    k = 0
+    words = ring.words.reshape(ring.n_chunks, ring.chunk_words).tolist()
+
+    def consume(code):
+        nonlocal k
+        if code >= tsk._RING_EVLOG:
+            fetches.append((k, k + D - 1, code - tsk._RING_EVLOG))
+        k += 1
+    for chunk in words:
+        w = 0
+        while chunk[w] >= 0:
+            kind, b, e, aux0, extra = chunk[w], chunk[w + 2], chunk[w + 3], \
+                chunk[w + 4], chunk[w + 7]
+            if kind == tsk.EVICT:
+                stores.append((k, aux0))
+                for j in range(b, e):
+                    consume(chunk[j] & tsk._PAYLOAD)
+            elif kind == tsk.REFILL:
+                consume(extra)
+            else:
+                for x in chunk[b:e]:
+                    if (x & 0xFFFFFFFF) >> 30 == tsk._W_RING:
+                        consume(x & tsk._PAYLOAD)
+            w = e
+    return stores, fetches
+
+
+@pytest.mark.parametrize("depth", tsk.REPLAY_RING_DEPTHS)
+@pytest.mark.parametrize("label", ["small-16k", "default-2k",
+                                   "reused-rows"])
+def test_ring_walk_equals_plain(label, depth):
+    """The kernel's walk of the spill program's ring stream, at every
+    ring depth the kernel is built for, bit-equal to
+    ``spill_forward_plain``: the forced small schedule (every op kind
+    through the ring, pads at every depth), a 2,048-gate tree at the
+    default sizing, and the small schedule with its scratch rows reused."""
+    enc, staged, house = ring_case(label)
+    if label == "small-16k":
+        assert all(enc.counts.values()), enc.counts
+        kinds = set(enc.ops[:, 0].tolist())
+        assert {tsk.SPILL, tsk.EVICT, tsk.REFILL, tsk.PROD} <= kinds
+    ring = tsk.replay_ring_stream(enc, depth)
+    if label != "default-2k":
+        assert ring.n_pads > 0
+    top, _ = walk_ring(enc, ring, staged, house)
+    assert torch.equal(top, tsk.spill_forward_plain(enc, staged, house))
+
+
+@pytest.mark.parametrize("label", ["small-16k", "reused-rows"])
+def test_scratch_fetches_follow_their_evict(label):
+    """Every scratch fetch is issued at or after the EVICT that stores the
+    value its read takes (the latest store of its row before the read),
+    and no other store to that row falls between the issue and the
+    read; the ring's reads are the program's SPILL, staged-argument and
+    REFILL reads in order."""
+    enc, _staged, _house = ring_case(label)
+    rows = enc.ops[enc.ops[:, 0] == tsk.EVICT, 4]
+    if label == "reused-rows":
+        assert len(np.unique(rows)) < len(rows)   # rows stored twice
+    else:
+        assert len(np.unique(rows)) == len(rows)
+    want = []
+    for kind, _slot, b, e, aux0, _a1, _row in enc.ops.tolist():
+        if kind == tsk.REFILL:
+            want.append(tsk._RING_EVLOG + aux0)
+        elif kind != tsk.EVICT:
+            want += [idx + 1 for src, idx, *_r in enc.args[b:e].tolist()
+                     if src == tsk.STAGED]
+    for depth in tsk.REPLAY_RING_DEPTHS:
+        ring = tsk.replay_ring_stream(enc, depth)
+        assert [f for f in ring.fetches.tolist() if f] == want
+        stores, fetches = issue_order(enc, ring)
+        for issue, entry, row in fetches:
+            before = [at for at, r in stores if r == row and at <= entry]
+            assert before and before[-1] <= issue, (depth, row)
+
+
+def test_a_read_before_any_store_is_refused():
+    enc, _staged, _house = ring_case("small-16k")
+    ops = enc.ops.copy()
+    first = int(np.flatnonzero(ops[:, 0] == tsk.REFILL)[0])
+    ops[first, 4] = enc.n_scratch - 1     # the last row, stored later
+    bad = tsk.EncodedSpill(
+        ops=ops, args=enc.args, fill=enc.fill, n_log=enc.n_log,
+        n_basic=enc.n_basic, n_house=enc.n_house, pool_slots=enc.pool_slots,
+        top_slot=enc.top_slot, max_count_states=enc.max_count_states,
+        staged_cols=enc.staged_cols, n_scratch=enc.n_scratch,
+        counts=enc.counts)
+    with pytest.raises(LogicError, match="before any EVICT"):
+        tsk.replay_ring_stream(bad, 8)
