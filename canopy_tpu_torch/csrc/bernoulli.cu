@@ -13,12 +13,14 @@
 // the same bits.
 //
 // What bounds it on an H100: the integer work.  A word costs 8 Philox
-// calls x 10 rounds x 2 wide 32-bit multiplies (160) plus 32 compares,
-// against 4 bytes written; at 64 int32 lanes per SM that is about 190
-// times the time of the store, so the kernel is operations-bound and its
-// design is only to keep every value in registers (no shared memory, one
-// coalesced 4-byte store per thread, threads of a warp on consecutive
-// words of one event).
+// calls x 10 rounds x (2 wide 32-bit multiplies on the FMA pipe and 2
+// three-input XORs on the ALU pipe), plus 32 compares, against 4 bytes
+// written; at 64 lanes per pipe and SM the ALU pipe's 192 operations take
+// about ten times the time of the store at 3.35 TB/s, so the kernel is
+// operations-bound and its design is only to keep every value in
+// registers (no shared memory, one coalesced 4-byte store per thread,
+// threads of a warp on consecutive words of one event).
+// tools/philox_rate.cu measures the rate the card reaches on this work.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

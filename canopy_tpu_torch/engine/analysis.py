@@ -1,6 +1,6 @@
 """Risk analysis: Settings x Model -> Report, on a torch device.
 
-``canopy_tpu/engine/analysis.py`` for fault trees: per top event,
+``canopy_tpu/engine/analysis.py`` ported.  Per fault-tree top event:
 
 * **probability** — exact over the modular BDD (f64 level evaluation),
   direct propagation (the f64 gather engine) when the BDD blows up or the
@@ -16,13 +16,23 @@
 * **Monte Carlo approximation** — the bit-packed engine
   (``ops/bitpack.packed_top_probability``), its states drawn by the
   Philox kernel on CUDA (``ops/bernoulli_kernel.py``), with the normal
-  standard error of the estimate.
+  standard error of the estimate;
+* **SIL and time curves** — one batched tape evaluation over the time
+  points, one batched quantification, PFD/PFH averages and the IEC 61508
+  bands;
+* **alignment phases** — per phase, the phase's house states at the
+  phase's share of the mission time: all phases in one batched pass
+  (grouped by house vector) under the default exact configuration, else
+  one re-analysis per phase;
+
+and per initiating event, the event-tree walk with every sequence
+quantified over one multi-root compiled tree (one BDD forest per distinct
+house vector, or one batched direct propagation when the forest blows
+up), with per-sequence uncertainty (on CUDA the stream kernel, one launch
+per sequence root).
 
 The device is named by the caller.  Where the JAX package asks whether
 its backend is a TPU, this module asks whether the device is CUDA.
-
-Not ported yet, each raising ``NotImplementedError`` with its
-``ROADMAP.md`` item: event trees, alignment phases, SIL and time curves.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import time
+import zlib
 from typing import Any, Optional
 
 import numpy as np
@@ -39,25 +50,26 @@ from .._device import resolve_device
 from ..compiler.bdd import BddBlowupError, build_bdd
 from ..compiler.cutsets import CutSetGenerator, Product
 from ..compiler.expr_tape import ExpressionTape
-from ..compiler.graph import CompiledTree, compile_fault_tree
+from ..compiler.graph import CompiledTree, compile_fault_tree, compile_gates
 from ..errors import LogicError
 from ..mef.event import BasicEvent, Gate
 from ..mef.model import Model
 from ..settings import Algorithm, Approximation, Settings
-from .bdd_eval import make_modular_evaluator
+from .bdd_eval import (bdd_probability, make_bdd_evaluator,
+                       make_modular_evaluator)
 from .cutset_quantify import (build_cutset_matrix, mcub,
                               product_probabilities, rare_event)
+from .event_tree_walk import walk_event_tree
 from .importance import (importance_measures, make_stream_importance_fn,
                          occurrence_counts)
-from .propagate import top_event_probability
+from .propagate import propagate_probability, top_event_probability
 from .uncertainty import uncertainty_analysis
 
 __all__ = ["RiskAnalysis", "Report", "FaultTreeResult", "SequenceResult"]
 
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to canopy_tpu_torch yet (ROADMAP.md, {item})")
+#: IEC 61508 SIL bands for average probability of failure on demand.
+_SIL_PFD_BANDS = [(1e-5, 1e-4, 4), (1e-4, 1e-3, 3), (1e-3, 1e-2, 2),
+                  (1e-2, 1e-1, 1)]
 
 
 @dataclasses.dataclass
@@ -154,32 +166,32 @@ class RiskAnalysis:
                           fault_trees=results, sequences=[],
                           timings=dict(self._timings))
 
-        if any(i.event_tree is not None
-               for i in self.model.initiating_events):
-            raise _not_ported("event-tree analysis", "Queue 1 item 6")
-        if self.model.alignments:
-            raise _not_ported("alignment-phase analysis", "Queue 1 item 6")
-        if self.settings.safety_integrity_levels() or (
-                self.settings.time_step() > 0
-                and self.settings.probability_analysis()):
-            raise _not_ported("SIL and time-curve analysis",
-                              "Queue 1 item 6")
-
+        sequences: list[SequenceResult] = []
         for fault_tree in self.model.fault_trees:
             if not fault_tree.top_events:
                 fault_tree.collect_top_events()
             for top in fault_tree.top_events:
-                results.append(self._analyze_top(fault_tree.name, top))
+                results.extend(self._analyze_top(fault_tree.name, top))
+
+        for initiating in self.model.initiating_events:
+            if initiating.event_tree is not None:
+                sequences.extend(self._analyze_event_tree(initiating))
 
         self._timings["total"] = time.perf_counter() - t0
         return Report(model=self.model.name,
                       settings=self.settings.to_dict(),
-                      fault_trees=results, sequences=[],
+                      fault_trees=results, sequences=sequences,
                       timings=dict(self._timings))
 
     # -- fault trees -------------------------------------------------------
 
-    def _analyze_top(self, tree_name: str, top: Gate) -> FaultTreeResult:
+    def _analyze_top(self, tree_name: str, top: Gate,
+                     house_overrides: dict[str, bool] | None = None,
+                     mission_time: float | None = None,
+                     tag: tuple[str, str] | None = None
+                     ) -> list[FaultTreeResult]:
+        """The results of ``top``: its own, then (at the root call of a
+        model with alignments) one per alignment phase."""
         settings = self.settings
         device = self.device
         on_cuda = device.type == "cuda"
@@ -189,17 +201,23 @@ class RiskAnalysis:
             use_ccf=settings.ccf_analysis())
         self._timings[f"compile:{top.id}"] = time.perf_counter() - t0
 
-        mission = settings.mission_time()
+        mission = (settings.mission_time() if mission_time is None
+                   else mission_time)
         self.model.mission_time.set_value(mission)
         tape = ExpressionTape.build(
             [e.expression for e in tree.basic_events])
         mean_p = torch.clamp(tape.evaluate_mean(mission, device), 0.0, 1.0)
         house = tree.house_state_vector()
+        for event_id, state in (house_overrides or {}).items():
+            slot = tree.house_index.get(event_id)
+            if slot is not None:
+                house[slot - tree.n_basic] = 1.0 if state else 0.0
         house_t = torch.as_tensor(house, device=device)
 
-        # Exact (BDD) evaluator: the default algorithm.  Modular
-        # decomposition (Dutuit-Rauzy) keeps per-module BDDs small; a tree
-        # with no modules degenerates to one monolithic BDD.
+        # Exact (BDD) evaluator: the default algorithm.  House states fold
+        # into the BDD structure, so it is built after overrides apply.
+        # Modular decomposition (Dutuit-Rauzy) keeps per-module BDDs
+        # small; a tree with no modules degenerates to one monolithic BDD.
         top_fn = None
         modular_bdd = None
         method = self._method_name()
@@ -218,6 +236,8 @@ class RiskAnalysis:
 
         result = FaultTreeResult(
             fault_tree=tree_name, top_event=top.id, method=method)
+        if tag:
+            result.alignment, result.phase = tag
         mean_np = mean_p.cpu().numpy()
 
         # Products (qualitative analysis).
@@ -378,7 +398,154 @@ class RiskAnalysis:
                 result.uncertainty["method"] = unc_method
             self._timings[f"uncertainty:{top.id}"] = time.perf_counter() - t0
 
-        return result
+        if settings.safety_integrity_levels():
+            result.sil, result.time_curve = self._sil_analysis(
+                tree, tape, house_t, mission, top_fn=top_fn)
+        elif settings.time_step() > 0 and settings.probability_analysis():
+            # Time-stepped probability curve without the SIL metrics.
+            _, result.time_curve = self._sil_analysis(
+                tree, tape, house_t, mission, top_fn=top_fn)
+
+        out = [result]
+
+        # Alignment phases (only at the root call): one compile and one
+        # batched evaluation for all phases in the default BDD-exact
+        # configuration; analyses that give per-phase artifacts
+        # (importance, uncertainty, SIL, time curves, approximations,
+        # prime implicants) re-analyse each phase.
+        if house_overrides is None and tag is None and \
+                self.model.alignments:
+            batched_ok = (
+                settings.algorithm() == Algorithm.BDD
+                and settings.approximation() == Approximation.NONE
+                and not settings.prime_implicants()
+                and not settings.importance_analysis()
+                and not settings.uncertainty_analysis()
+                and not settings.safety_integrity_levels()
+                and settings.time_step() <= 0)
+            if batched_ok:
+                out.extend(self._analyze_phases_batched(
+                    tree_name, top, tree, tape, mission))
+            else:
+                for alignment in self.model.alignments:
+                    for phase in alignment.phases:
+                        overrides = {inst.name: inst.state
+                                     for inst in phase.instructions}
+                        out.extend(self._analyze_top(
+                            tree_name, top, house_overrides=overrides,
+                            mission_time=mission * phase.time_fraction,
+                            tag=(alignment.name, phase.name)))
+        return out
+
+    def _analyze_phases_batched(self, tree_name: str, top: Gate,
+                                tree: CompiledTree, tape: ExpressionTape,
+                                mission: float) -> list[FaultTreeResult]:
+        """All alignment phases of ``top`` in one batched pass.
+
+        Reuses the root analysis' compiled tree and expression tape; the
+        phases' mean probabilities come from one batched tape evaluation
+        over the phase mission times.  Phases group by house vector: each
+        group shares one modular BDD and one products run
+        (mission-independent at approximation NONE) and quantifies all
+        its phases in one batched evaluation.
+        """
+        settings = self.settings
+        device = self.device
+        t0 = time.perf_counter()
+        house_rows, times, tags = [], [], []
+        for alignment in self.model.alignments:
+            for phase in alignment.phases:
+                house = tree.house_state_vector()
+                for inst in phase.instructions:
+                    slot = tree.house_index.get(inst.name)
+                    if slot is not None:
+                        house[slot - tree.n_basic] = \
+                            1.0 if inst.state else 0.0
+                house_rows.append(house)
+                times.append(mission * phase.time_fraction)
+                tags.append((alignment.name, phase.name))
+        p_batch = torch.clamp(tape.evaluate_mean(np.asarray(times), device),
+                              0.0, 1.0)
+        results: list[FaultTreeResult | None] = [None] * len(tags)
+        by_house: dict[bytes, list[int]] = {}
+        for i, h in enumerate(house_rows):
+            by_house.setdefault(h.tobytes(), []).append(i)
+        for ks in by_house.values():
+            house = house_rows[ks[0]]
+            method = self._method_name()
+            top_fn = None
+            try:
+                from ..compiler.modules import (build_modular_bdd,
+                                                modular_probability)
+                modular = build_modular_bdd(tree, house_states=house)
+                top_fn = lambda p, m=modular: modular_probability(m, p)  # noqa: E731
+            except BddBlowupError:
+                method = "bdd-fallback/direct-propagation"
+            products = None
+            truncated = None
+            if not settings.skip_products():
+                generator = CutSetGenerator(
+                    tree, limit_order=settings.limit_order(), cut_off=0.0,
+                    probabilities=p_batch[ks[0]].cpu().numpy())
+                if top_fn is not None:
+                    try:
+                        from ..compiler.zbdd import bdd_minimal_cut_sets
+                        bdd = build_bdd(tree, house_states=house)
+                        products, truncated = bdd_minimal_cut_sets(
+                            bdd, limit_order=settings.limit_order(),
+                            with_truncation=True)
+                    except BddBlowupError:
+                        products = None
+                if products is None:
+                    products = generator.generate(top)
+                    truncated = generator.truncated
+                products = CutSetGenerator._minimize(
+                    frozenset(lit for lit in p if not lit[1])
+                    for p in products)
+                products = self._apply_substitutions(tree, products)
+            # One batched quantification across this group's phases.
+            group_p = p_batch[torch.as_tensor(ks, device=device)]
+            probs = None
+            if settings.probability_analysis():
+                if top_fn is not None:
+                    probs = top_fn(group_p).cpu().numpy()
+                else:
+                    probs = top_event_probability(
+                        tree, group_p,
+                        torch.as_tensor(house, device=device)).cpu().numpy()
+            prod_probs = None
+            if products:
+                prod_probs = product_probabilities(
+                    build_cutset_matrix(products, tree.n_basic),
+                    group_p).cpu().numpy()
+            for j, k in enumerate(ks):
+                result = FaultTreeResult(
+                    fault_tree=tree_name, top_event=top.id, method=method)
+                result.alignment, result.phase = tags[k]
+                if probs is not None:
+                    result.probability = float(probs[j])
+                if products is not None:
+                    result.n_products = len(products)
+                    result.products_truncated = truncated
+                    qs = prod_probs[j] if prod_probs is not None \
+                        else np.zeros(0)
+                    listed = sorted(zip(products, qs),
+                                    key=lambda pair: -pair[1])
+                    result.products = [
+                        (len(p), float(q), sorted(
+                            self._literal_name(tree, slot, neg)
+                            for slot, neg in p))
+                        for p, q in listed[:1000]]
+                results[k] = result
+        self._timings[f"phases:{top.id}"] = time.perf_counter() - t0
+        return [r for r in results if r is not None]
+
+    def _stamp(self, key: str, t0: float) -> None:
+        """Record the wall time since ``t0`` under ``key``, after the
+        device's queued work has finished."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._timings[key] = time.perf_counter() - t0
 
     def _method_name(self) -> str:
         algo = self.settings.algorithm().name.lower()
@@ -401,6 +568,41 @@ class RiskAnalysis:
         if event_id is None:
             return f"slot{slot}"
         return f"not {event_id}" if neg else event_id
+
+    # -- SIL ---------------------------------------------------------------
+
+    def _sil_analysis(self, tree: CompiledTree, tape: ExpressionTape,
+                      house: torch.Tensor, mission: float, top_fn=None):
+        """(SIL metrics, time curve): the tape evaluated once over every
+        time point, the whole sweep quantified in one batched call."""
+        step = self.settings.time_step()
+        times = np.arange(step, mission + step / 2, step)
+        if len(times) == 0:
+            times = np.array([mission])
+        p_t = torch.clamp(tape.evaluate_mean(times, self.device), 0.0, 1.0)
+        if top_fn is not None:
+            curve_t = top_fn(p_t)
+        else:
+            curve_t = top_event_probability(tree, p_t, house)
+        curve_arr = curve_t.detach().cpu().numpy().astype(np.float64)
+        pfd_avg = float(curve_arr.mean())
+        # Average failure frequency (PFH): mean d/dt of the curve.
+        pfh_avg = float(np.gradient(curve_arr, times).mean()) \
+            if len(times) > 1 else pfd_avg / float(times[0])
+        sil_level = 0
+        for lo, hi, level in _SIL_PFD_BANDS:
+            if lo <= pfd_avg < hi:
+                sil_level = level
+                break
+        # Fraction of time in each band (SCRAM-style SIL fractions).
+        fractions = {}
+        for lo, hi, level in _SIL_PFD_BANDS:
+            fractions[f"SIL{level}"] = float(
+                np.mean((curve_arr >= lo) & (curve_arr < hi)))
+        sil = {"pfd_avg": pfd_avg, "pfh_avg": pfh_avg,
+               "sil_level": sil_level, "pfd_fractions": fractions}
+        time_curve = list(zip(times.tolist(), curve_arr.tolist()))
+        return sil, time_curve
 
     # -- substitutions -----------------------------------------------------
 
@@ -453,6 +655,230 @@ class RiskAnalysis:
             out = new_products
         # Re-minimize after rewriting.
         return CutSetGenerator._minimize(out)
+
+    # -- event trees -------------------------------------------------------
+
+    def _analyze_event_tree(self, initiating) -> list[SequenceResult]:
+        """All sequences quantified over one shared compiled structure.
+
+        The sequences' path conditions compile together as one multi-root
+        gate DAG, so shared subtrees appear once.  On the BDD path one
+        forest per distinct house vector memoizes across the roots
+        (``build_bdd_multi``); when a forest blows up, one batched direct
+        propagation evaluates every root with row ``k`` on house vector
+        ``k``.  A sequence's probability is its root's times the
+        initiating event's and the collected expressions' values.
+        """
+        settings = self.settings
+        device = self.device
+        name = initiating.name
+        t_start = time.perf_counter()
+        outcomes = walk_event_tree(self.model, initiating)
+        self._stamp(f"walk:{name}", t_start)
+        mission = settings.mission_time()
+
+        gates = [outcome.conjoined_gate(f"__seq{i}__")
+                 for i, outcome in enumerate(outcomes)]
+        roots = [g for g in gates if g is not None]
+        values: dict[int, float] | None = {}
+        tree = house_rows = root_bdds = None
+        uniform_house = False
+        if roots:
+            t0 = time.perf_counter()
+            tree = compile_gates(roots, use_ccf=settings.ccf_analysis())
+            tape = ExpressionTape.build(
+                [e.expression for e in tree.basic_events])
+            mean_p = torch.clamp(tape.evaluate_mean(mission, device),
+                                 0.0, 1.0)
+            root_slots = [tree.gate_index[g.id] for g in roots]
+            # House states may differ per outcome (path-local flips), so
+            # each root carries its own house vector.
+            house_rows = []
+            for outcome, gate in zip(outcomes, gates):
+                if gate is None:
+                    continue
+                house = tree.house_state_vector()
+                for event_id, state in outcome.house_states.items():
+                    slot = tree.house_index.get(event_id)
+                    if slot is not None:
+                        house[slot - tree.n_basic] = 1.0 if state else 0.0
+                house_rows.append(house)
+            uniform_house = all((h == house_rows[0]).all()
+                                for h in house_rows)
+            self._stamp(f"compile:{name}", t0)
+            values = None
+            if settings.algorithm() == Algorithm.BDD:
+                # One forest per distinct house configuration (usually
+                # one): its ITE memo tables are shared by every root.
+                from ..compiler.bdd import build_bdd_multi
+                t0 = time.perf_counter()
+                try:
+                    root_bdds = [None] * len(roots)
+                    values = {}
+                    by_house: dict[bytes, list[int]] = {}
+                    for k, h in enumerate(house_rows):
+                        by_house.setdefault(h.tobytes(), []).append(k)
+                    for ks in by_house.values():
+                        bdds = build_bdd_multi(
+                            tree, [root_slots[k] for k in ks],
+                            house_states=house_rows[ks[0]])
+                        for k, bdd in zip(ks, bdds):
+                            root_bdds[k] = bdd
+                            values[k] = float(bdd_probability(bdd, mean_p))
+                except BddBlowupError:
+                    values = None
+                    root_bdds = None
+                self._stamp(f"bdd-forest:{name}", t0)
+            if values is None:
+                # One batched propagation: row k uses house vector k (the
+                # means broadcast to every row, also without house events).
+                t0 = time.perf_counter()
+                house_batch = torch.as_tensor(np.stack(house_rows),
+                                              device=device)
+                all_vals = propagate_probability(
+                    tree, mean_p.expand(len(house_rows), -1), house_batch)
+                rows = torch.arange(len(root_slots), device=device)
+                tops = all_vals[rows, torch.as_tensor(root_slots,
+                                                      device=device)]
+                values = dict(enumerate(tops.cpu().tolist()))
+                del all_vals
+                self._stamp(f"propagation:{name}", t0)
+
+        seq_unc = None
+        if roots and settings.uncertainty_analysis():
+            seq_unc = self._sequence_uncertainty(
+                initiating, outcomes, gates, tree, house_rows,
+                uniform_house, mission, root_bdds)
+
+        results = []
+        cursor = 0
+        for k, (outcome, gate) in enumerate(zip(outcomes, gates)):
+            probability = 1.0
+            if getattr(initiating, "expression", None) is not None:
+                probability *= initiating.expression.value()
+            for expression in outcome.expressions:
+                probability *= expression.value()
+            if gate is not None:
+                probability *= values[cursor]
+                cursor += 1
+            results.append(SequenceResult(
+                initiating_event=name,
+                event_tree=initiating.event_tree.name,
+                sequence=outcome.sequence.name,
+                states=outcome.states,
+                probability=probability,
+                linked_trees=outcome.linked_trees,
+                uncertainty=seq_unc.get(k) if seq_unc else None))
+        self._stamp(f"event-tree:{name}", t_start)
+        return results
+
+    def _sequence_uncertainty(self, initiating, outcomes, gates,
+                              tree: CompiledTree, house_rows, uniform_house,
+                              mission: float, root_bdds=None
+                              ) -> dict[int, dict] | None:
+        """Per-sequence epistemic uncertainty over the shared structure.
+
+        One expression tape covers the basic events, the initiating
+        event's expression and every collected expression, so a shared
+        parameter is sampled once per trial.  Its key is ``(seed,
+        crc32(initiating name) & 0x7FFFFFFF)`` through the port's
+        per-slot generators; the JAX package folds the same crc32 into a
+        JAX key, so the two packages' draws agree in distribution only.
+
+        Sequence roots evaluate over the BDDs the point values built
+        (``root_bdds``): on CUDA each root through the stream kernel
+        (``make_bdd_evaluator``: one launch per root, f32; the method tag
+        says ``bdd-stream-f32``), on the CPU by the f64 level evaluation.
+        Without BDDs, by direct propagation: one call when the house rows
+        are uniform, else one per root.  Each sequence's dict carries
+        ``method`` (``"expression"`` for a sequence with no gate), so a
+        demotion is never silent.
+        """
+        settings = self.settings
+        device = self.device
+        name = initiating.name
+        init_expr = getattr(initiating, "expression", None)
+        extras = ([init_expr] if init_expr is not None else []) + \
+            [e for outcome in outcomes for e in outcome.expressions]
+        tape_u = ExpressionTape.build(
+            [e.expression for e in tree.basic_events] + extras)
+        if not tape_u.n_deviates:
+            return None
+        n_trials = settings.num_trials()
+        t0 = time.perf_counter()
+        key = (settings.seed(), zlib.crc32(name.encode()) & 0x7FFFFFFF)
+        samples = tape_u.sample(key, n_trials, mission, device)
+        basic_s = torch.clamp(samples[:, :tree.n_basic], 0.0, 1.0)
+        self._stamp(f"sampling:{name}", t0)
+        col = tree.n_basic
+        init_s = None
+        if init_expr is not None:
+            init_s = samples[:, col]
+            col += 1
+
+        t0 = time.perf_counter()
+        live_gates = [g for g in gates if g is not None]
+        root_slots = [tree.gate_index[g.id] for g in live_gates]
+        top_trials: dict[int, torch.Tensor] = {}
+        method = "bdd"
+        with torch.no_grad():
+            if root_bdds is not None:
+                for k, bdd in enumerate(root_bdds):
+                    evaluator = make_bdd_evaluator(bdd, device)
+                    top_trials[k] = evaluator(basic_s)
+                    per_call = evaluator.method_for(n_trials)
+                    if per_call != "bdd":
+                        method = per_call
+            else:
+                method = "direct-propagation"
+                if uniform_house:
+                    vals = propagate_probability(
+                        tree, basic_s,
+                        torch.as_tensor(house_rows[0], device=device))
+                    tops = vals[:, torch.as_tensor(root_slots,
+                                                   device=device)]
+                    del vals
+                    for k in range(len(root_slots)):
+                        top_trials[k] = tops[:, k]
+                else:
+                    for k, (slot, hrow) in enumerate(zip(root_slots,
+                                                         house_rows)):
+                        vals = propagate_probability(
+                            tree, basic_s,
+                            torch.as_tensor(hrow, device=device))
+                        top_trials[k] = vals[:, slot].clone()
+                        del vals
+
+        out: dict[int, dict] = {}
+        cursor = 0
+        for k, (outcome, gate) in enumerate(zip(outcomes, gates)):
+            trial = torch.ones((n_trials,), dtype=torch.float64,
+                               device=device)
+            if init_s is not None:
+                trial = trial * init_s
+            for _expr in outcome.expressions:
+                trial = trial * samples[:, col]
+                col += 1
+            if gate is not None:
+                trial = trial * top_trials[cursor]
+                cursor += 1
+            out[k] = _summary_stats(trial.cpu().numpy())
+            out[k]["method"] = method if gate is not None \
+                else "expression"
+        self._stamp(f"sequence-evaluation:{name}", t0)
+        return out
+
+
+def _summary_stats(arr: np.ndarray) -> dict:
+    lo, hi = (np.quantile(arr, [0.025, 0.975]) if len(arr) > 1
+              else (arr[0], arr[0]))
+    median = float(np.median(arr))
+    p95 = float(np.quantile(arr, 0.95))
+    return {"mean": float(arr.mean()),
+            "std": float(arr.std(ddof=1)) if len(arr) > 1 else 0.0,
+            "ci95": [float(lo), float(hi)],
+            "error_factor": (p95 / median if median > 0 else float("inf")),
+            "n_trials": int(len(arr))}
 
 
 class _FaultTreeView:

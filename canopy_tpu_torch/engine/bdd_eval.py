@@ -11,10 +11,14 @@ differentiable by autograd for exact Birnbaum importances (the top
 probability is multilinear in p, so reverse mode through this evaluator
 *is* the exact partial-derivative vector).
 
-On CUDA, BDDs of at least ``_STREAM_MIN_NODES`` nodes run as stream
-programs through the hand-written kernels of ``ops/`` (f32 or f64, any
-trial count); the level evaluation keeps the input dtype (f64 by
-default).
+On CUDA every BDD whose root is not a constant runs as a stream program
+through the hand-written kernels of ``ops/`` (f32 or f64, any trial
+count); the level evaluation, which keeps the input dtype (f64 by
+default), serves the CPU and single points.  The JAX package streams
+only BDDs of at least 256 nodes on its TPU grid; on the card the stream
+wins at any size: 64 sequence BDDs of 13 nodes at 2^20 trials took
+52.077 ms through the stream kernel against 516.011 ms by the f64 level
+evaluation (``chip_smoke.py`` phase 11; NVIDIA H100 80GB HBM3, 700 W).
 """
 
 from __future__ import annotations
@@ -26,11 +30,6 @@ from ..compiler.bdd import CompiledBdd
 
 __all__ = ["bdd_probability", "make_bdd_evaluator",
            "make_modular_evaluator"]
-
-#: Below this node count the level-scheduled evaluation is already cheap
-#: (the JAX package's threshold, kept so both take the same path).
-_STREAM_MIN_NODES = 256
-
 
 def _tagged(fn, method: str, streams: bool = False):
     """Wrap an evaluator with ``.method`` naming the compute path (and
@@ -105,9 +104,9 @@ def make_bdd_evaluator(bdd: CompiledBdd, device, engine: str = "auto",
                        dtype: torch.dtype = torch.float32):
     """An exact evaluator ``f(basic_p) -> top probability``.
 
-    On CUDA a BDD of at least ``_STREAM_MIN_NODES`` nodes runs
-    (n_trials, n_basic) batches through the stream kernel
-    (``ops/stream_kernel.py``); every other input takes the
+    On CUDA a BDD whose root is not a constant runs (n_trials, n_basic)
+    batches through the stream kernel (``ops/stream_kernel.py``); every
+    other input takes the
     level-scheduled evaluation above.  ``differentiable=True`` routes the
     stream path through the adjoint kernel so autograd through the
     evaluator runs the backward kernel.  ``dtype`` (float32 or float64)
@@ -115,8 +114,7 @@ def make_bdd_evaluator(bdd: CompiledBdd, device, engine: str = "auto",
     """
     device = torch.device(device)
     call = None
-    if _streams_on(device, engine) and bdd.resolved_root() > 1 and \
-            (bdd.n_nodes >= _STREAM_MIN_NODES or engine == "stream"):
+    if _streams_on(device, engine) and bdd.resolved_root() > 1:
         call = _stream_call(bdd, differentiable, dtype)
 
     def fn(basic_p):
@@ -134,11 +132,10 @@ def make_modular_evaluator(modular, device, engine: str = "auto",
 
     Like :func:`make_bdd_evaluator` but for
     :class:`~canopy_tpu_torch.compiler.modules.ModularBdd`: on CUDA each
-    module of at least ``_STREAM_MIN_NODES`` nodes runs as its own
-    stream-kernel program, reading the decision variables it needs
-    (basics + collapsed inner-module outputs) from the growing value
-    matrix.  Constant modules fold to their value, smaller modules take
-    the level evaluation.  The streaming chain runs in ``dtype``.
+    module runs as its own stream-kernel program, reading the decision
+    variables it needs (basics + collapsed inner-module outputs) from the
+    growing value matrix.  Constant modules fold to their value.  The
+    streaming chain runs in ``dtype``.
     """
     from ..compiler.modules import modular_probability
 
@@ -150,8 +147,6 @@ def make_modular_evaluator(modular, device, engine: str = "auto",
             root = bdd.resolved_root()
             if root <= 1:
                 steps.append((float(root), out_slot))
-            elif bdd.n_nodes < _STREAM_MIN_NODES and engine != "stream":
-                steps.append((bdd, out_slot))
             else:
                 steps.append((_stream_call(bdd, differentiable, dtype),
                               out_slot))
@@ -168,8 +163,6 @@ def make_modular_evaluator(modular, device, engine: str = "auto",
         for step, out_slot in steps:
             if isinstance(step, float):
                 value = vals.new_full((n_trials,), step)
-            elif isinstance(step, CompiledBdd):
-                value = bdd_probability(step, vals)
             else:
                 value = step(vals)
             if out_slot == modular.top_index:

@@ -7,7 +7,11 @@ non-zero, printing no result, where ``torch.cuda.is_available()`` is
 false or the package is missing).  Phases, each raising on failure:
 
 1. the device: ``nvidia-smi`` name and power limit;
-2. the kernel build (``nvcc`` for ``sm_90a`` from ``canopy_tpu_torch/csrc``);
+2. the kernel build (``nvcc`` for ``sm_90a`` from ``canopy_tpu_torch/csrc``,
+   and beside it the Philox rate probe ``tools/philox_rate.cu``), and the
+   SASS per packed word of the Philox kernel and of the probe's loop,
+   counted by instruction kind (``cuobjdump -sass``, where the toolkit
+   has it);
 3. every kernel against its plain PyTorch version on the card: the
    forward bit-equal at 1,048,576 trials on the slice's big BDD module (in
    its batched schedule), on the slice tree's uncapped stream program
@@ -86,7 +90,9 @@ false or the package is missing).  Phases, each raising on failure:
 9. Monte Carlo and the spill engine (``csrc/bernoulli.cu``,
    ``csrc/spill.cu``): (a) the Philox kernel bit-equal to its plain
    version on the slice's 263 events x 312,500 words (10^7 trials) and
-   on the plant tree's 65,536 events x one 32,768-word chunk; the path
+   on the plant tree's 65,536 events x one 32,768-word chunk, then the
+   rate probe's words, operations and SASS instructions per clock and SM
+   (the kernel's integer work alone, no loads or division); the path
    ``mc``: (b) the slice through the CLI in-process with
    ``--monte-carlo --num-trials 10000000`` (the estimate within 6 sigma +
    1e-4 of the slice's exact probability, its standard error the
@@ -116,9 +122,33 @@ false or the package is missing).  Phases, each raising on failure:
    ``gather``: ``gather_propagate`` on that tree and on a ragged product
    tree, each bit-equal to plain and to the float32 gather engine.
 
-Each path (5's two, 6, 7, 8, 9's two and 10's two) runs with the launch counts
-set to 0 just before it and read just after; a kernel of the path that never
-launched fails the run.  Long output goes to ``chiprun_out/``.  The last lines are the
+11. event trees, alignment phases and SIL (``RiskAnalysis.run()``
+   through the CLI in-process, ``--device cuda``): (a) ``hand_event_tree``,
+   ``demo_plant``, ``station_blackout`` and ``aralia_like_alignment``
+   (default Settings, ``--probability``), every sequence and fault-tree
+   or phase probability within ``PROB_RTOL`` of the JAX values frozen in
+   ``tests/fixtures/torch_event_tree_golden.json``, and the slice plant
+   under ``--sil --time-step 100`` (PFD/PFH averages, SIL level, band
+   fractions, the 88-point curve); the path ``et``: (b) the 64-sequence
+   scale model (``utils/scale_models.event_tree_scale_xml(deviates=True)``)
+   with ``--uncertainty`` at ``ET_TRIALS`` trials on the BDD forest path:
+   the stream kernel launched once per sequence root, every sequence's
+   method ``bdd-stream-f32``, root 0's kernel tops on the redrawn samples
+   bit-equal to the stream's plain version and averaging to the reported
+   mean, every root's tops within ``TOP_RTOL`` of the f64 level
+   evaluation; (c) the plant-width event tree
+   (``tests/fixtures/torch_event_tree_plant.xml``, loaded after the slice
+   plant: six systems over it, 64 sequences) with ``--uncertainty`` at
+   ``ET_TRIALS`` trials: its forest exceeds 2,000,000 nodes, so it runs
+   the direct-propagation fallback, and its sequence probabilities stay within ``PROB_RTOL`` of
+   the golden values.  Host times from the reports' timings (walk,
+   compile, forest or propagation, sampling, per-sequence evaluation);
+   device times of sampling, the per-sequence kernels and the fallback's
+   propagation by CUDA events, redone on the same inputs.
+
+Each path (5's two, 6, 7, 8, 9's two, 10's two and 11's ``et``) runs with the
+launch counts set to 0 just before it and read just after; a kernel of the
+path that never launched fails the run.  Long output goes to ``chiprun_out/``.  The last lines are the
 kernels' JSON record (with each kernel's bound: the larger of its bytes
 over the card's memory rate and its operations over its peak rate), the
 card's ``nvidia-smi`` line, and the contract line
@@ -144,6 +174,16 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 SLICE_MODEL = os.path.join(FIXTURES, "torch_slice_plant.xml")
 SLICE_GOLDEN = os.path.join(FIXTURES, "torch_slice_golden.json")
 PDAG_GOLDEN = os.path.join(FIXTURES, "torch_pdag_golden.json")
+#: The plant-width event tree: the slice plant, then what the event tree
+#: adds to it.
+ET_PLANT = [SLICE_MODEL,
+            os.path.join(FIXTURES, "torch_event_tree_plant.xml")]
+ET_GOLDEN = os.path.join(FIXTURES, "torch_event_tree_golden.json")
+PHILOX_PROBE_SRC = os.path.join(ROOT, "tools", "philox_rate.cu")
+PHILOX_PROBE_LIB = os.path.join(OUT_DIR, "philox_rate.so")
+#: The event-tree path's trials and seed (phase 11).
+ET_TRIALS = 1 << 20
+ET_SEED = 7
 SLICE_TRIALS = 1 << 20
 RAGGED_TRIALS = 100_003
 SLICE_SEED = 7
@@ -225,18 +265,46 @@ RAGGED_TREE = dict(n_basic=32, n_gates=40, fanin=4, seed=3)
 #: peak rates outside the tensor cores by value size (float32, float64).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {4: 67e12, 8: 34e12}
-#: int32 lanes of the card (132 SMs x 64), at the SM clock nvidia-smi
-#: reports, for the Philox kernel's integer work.
-INT32_LANES = 132 * 64
+#: SMs of the card and its integer rates per SM and clock (CUDA C++
+#: Programming Guide, arithmetic instruction throughput, compute
+#: capability 9.0): 64 results of 32-bit integer multiply on the FMA
+#: pipe, so 32 wide 32 x 32 -> 64-bit products (two results each); 64
+#: logical operations and compares on the ALU pipe, which issues beside
+#: it; 128 thread-instructions issued (four schedulers).  The pipe probe
+#: of ``tools/philox_rate.cu`` measures them (phase 9a).  At the SM clock
+#: nvidia-smi reports, for the Philox kernel's integer work.
+N_SMS = 132
+WIDE_PRODUCTS_PER_CLOCK = 32
+ALU_LANES = 64
+ISSUE_LANES = 128
 #: Special-function units of the card (132 SMs x 16 per clock), for the
 #: block-gather log kernel's logs and exps.
 SFU_LANES = 132 * 16
 #: Cycles of one dependent shared-memory round trip (load, use, store),
 #: for the level-parallel kernels' critical-path model.
 SMEM_ROUND_TRIP = 30
-#: Integer operations of one packed word: 8 Philox calls x 10 rounds x 2
-#: wide multiplies, and 32 compares.
-BERN_OPS_PER_WORD = 8 * 10 * 2 + 32
+#: Integer operations of one packed word, by pipe.  8 Philox calls x 10
+#: rounds x 2 wide products, less the 28 that repeat across a word's
+#: eight calls (their first rounds' counter words are equal: 14 in round
+#: 0, 7 in each of rounds 1 and 2), is 132 on the FMA pipe (the built
+#: kernel's SASS has 132 ``IMAD.WIDE.U32``).  8 x 10 x 2 three-input
+#: XORs, less the 14 that repeat, and 32 compares, 178 on the ALU pipe.
+#: The key schedule and the bit packing are left out.  The pipes overlap,
+#: so the larger share bounds a word: the products, 132 at 32 per clock.
+BERN_PRODUCTS_PER_WORD = 8 * 10 * 2 - 28
+BERN_ALU_OPS_PER_WORD = 8 * 10 * 2 - 14 + 32
+#: SM clocks per packed word and SM.
+BERN_CLOCKS_PER_WORD = max(
+    BERN_PRODUCTS_PER_WORD / WIDE_PRODUCTS_PER_CLOCK,
+    BERN_ALU_OPS_PER_WORD / ALU_LANES,
+    (BERN_PRODUCTS_PER_WORD + BERN_ALU_OPS_PER_WORD) / ISSUE_LANES)
+#: The probe's launch: blocks x threads, each making PHILOX_PROBE_REPS
+#: words (about 1.4e8 words); the pipe probe's, each thread making
+#: PIPE_PROBE_REPS loop trips of 32 steps of each kind it runs.
+PHILOX_PROBE_SHAPE = (132 * 64, 256)
+PHILOX_PROBE_REPS = 64
+PIPE_PROBE_SHAPE = (132 * 16, 256)
+PIPE_PROBE_REPS = 128
 
 KERNELS = {
     "stream": ("canopy_tpu_torch/csrc/stream.cu",
@@ -435,10 +503,20 @@ PTXAS_KERNELS = ("stream_steps_kernel", "stream_ops_kernel",
 
 
 def phase_build(record: dict) -> None:
-    from canopy_tpu_torch.ops._build import build_info, load_library
+    from canopy_tpu_torch.ops._build import (NVCC_FLAGS, build_info,
+                                             load_library)
     t0 = time.perf_counter()
+    # The Philox rate probe builds beside the package, in parallel.
+    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    probe_cmd = [nvcc if os.path.exists(nvcc) else "nvcc", *NVCC_FLAGS,
+                 "-shared", "-o", PHILOX_PROBE_LIB, PHILOX_PROBE_SRC]
+    probe = subprocess.Popen(probe_cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
     lib = load_library()
     info = build_info()
+    _out, err = probe.communicate(timeout=600)
+    check(probe.returncode == 0, f"{' '.join(probe_cmd)} failed:\n{err}")
     log(f"[build] {time.perf_counter() - t0:.3f} s (nvcc "
         f"{info['seconds']:.3f} s, built={info['built']}): {info['path']}")
     for line in info.get("cmd", "").splitlines():
@@ -453,6 +531,30 @@ def phase_build(record: dict) -> None:
     for name, row in table.items():
         log(f"[build] {name}: {json.dumps(row)}")
     record["ptxas"] = table
+    # The Philox kernel's SASS per packed word, and the probe's per word
+    # of its loop, by kind.
+    sass = {"kernel": kernel_sass(info["path"], "packed_bernoulli_kernel"),
+            "probe": kernel_sass(PHILOX_PROBE_LIB, "philox_rate_kernel")}
+    for mode in range(3):
+        sass[f"pipe{mode}"] = kernel_sass(PHILOX_PROBE_LIB,
+                                          f"pipe_rate_kernelILi{mode}E")
+        if sass[f"pipe{mode}"] is not None:
+            log(f"[build] pipe probe mode {mode} SASS per loop trip: "
+                f"{json.dumps(sass[f'pipe{mode}']['ops'])}")
+    for name in ("kernel", "probe"):
+        counts = sass[name]
+        if counts is None:
+            log(f"[build] Philox {name} SASS: no cuobjdump here")
+            continue
+        log(f"[build] Philox {name} SASS per packed word: "
+            f"{counts['per_word_total']} instructions "
+            f"{json.dumps(counts['per_word'])}; the bound counts "
+            f"{BERN_PRODUCTS_PER_WORD} wide products and "
+            f"{BERN_ALU_OPS_PER_WORD} ALU-pipe operations per word, "
+            f"{BERN_CLOCKS_PER_WORD} SM clocks per word and SM")
+        log(f"[build] Philox {name} SASS opcodes per word: "
+            f"{json.dumps(counts['ops'])}")
+    record["bernoulli_sass"] = sass
     from canopy_tpu_torch.ops.stream_kernel import (MAX_COUNT_STATES,
                                                     REC_CHUNK)
     check(lib.canopy_max_count_states() == MAX_COUNT_STATES,
@@ -465,6 +567,68 @@ def phase_build(record: dict) -> None:
         f"kernels assume {SMEM_BYTES})")
     check(smem >= SMEM_BYTES, "less shared memory than the fused kernels "
                               "assume")
+
+
+def kernel_sass(lib_path: str, kernel: str) -> dict | None:
+    """Instructions of ``kernel`` in a built library by kind
+    (``cuobjdump -sass``), or None where the toolkit has no
+    ``cuobjdump``.  Per packed word: a kernel with a loop (the probe)
+    counts the loop, from the target of its last backward branch to that
+    branch; one without (``packed_bernoulli_kernel``, unrolled, one word
+    per thread) counts its body up to its last ``EXIT``, leaving out
+    what follows (the 64-bit division's slow path)."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    if tool is None:
+        return None
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    code: list[tuple[int, str, int | None]] = []  # (address, op, target)
+    inside = False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)(.*)", line)
+        if inside and m:
+            t = re.match(r"\s+0x([0-9a-f]+)", m.group(3))
+            code.append((int(m.group(1), 16), m.group(2),
+                         int(t.group(1), 16) if t and
+                         m.group(2).startswith("BRA") else None))
+    if not code:
+        return None
+    exits = [i for i, (_a, op, _t) in enumerate(code) if op == "EXIT"]
+    rets = [i for i, (_a, op, _t) in enumerate(code) if op.startswith("RET")]
+    end = max([i for i in exits if not rets or i < rets[0]] or
+              [len(code) - 1]) + 1
+    back = [(t, a) for a, _op, t in code[:end] if t is not None and t < a]
+    if back:
+        lo, hi = back[-1]
+        ops = [op for a, op, _t in code if lo <= a <= hi]
+    else:
+        ops = [op for _a, op, _t in code[:end]]
+
+    def kind(op: str) -> str:
+        for prefix, name in (("IMAD.WIDE", "IMAD.WIDE"),
+                             ("IMAD.HI", "IMAD.HI"), ("LOP3", "LOP3"),
+                             ("ISETP", "ISETP"), ("IADD3", "IADD3"),
+                             ("IMAD", "IMAD (other)"), ("I2F", "division"),
+                             ("F2I", "division"), ("MUFU", "division"),
+                             ("CALL", "division"), ("NOP", "NOP")):
+            if op.startswith(prefix):
+                return name
+        return "other"
+    per_word: dict = {}
+    for op in ops:
+        per_word[kind(op)] = per_word.get(kind(op), 0) + 1
+    return {"per_word": dict(sorted(per_word.items())),
+            "per_word_total": len(ops), "loop": bool(back),
+            "total": len(code),
+            "ops": dict(sorted({op: ops.count(op)
+                                for op in set(ops)}.items()))}
 
 
 def module_bdd(label: str):
@@ -1490,11 +1654,88 @@ def bernoulli_bound(n_events: int, n_words: int, clock_hz: float) -> dict:
     int32 lanes at the SM clock, against the words written (and the
     thresholds read) over the memory rate."""
     t_bytes = (n_events * n_words + n_events) * 4 / HBM_BYTES_PER_S * 1e3
-    t_ops = n_events * n_words * BERN_OPS_PER_WORD \
-        / (INT32_LANES * clock_hz) * 1e3
+    t_ops = n_events * n_words * BERN_CLOCKS_PER_WORD \
+        / (N_SMS * clock_hz) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None}
+
+
+def philox_probe(device, clock_hz: float, slice_words: int,
+                 record: dict) -> None:
+    """Time ``tools/philox_rate.cu`` (built in phase 2): the rate the card
+    reaches on the Philox kernel's integer work alone, in words, source
+    operations and SASS instructions per clock and SM, and the time of
+    the slice shape's words at that rate beside the kernel's and the
+    bound's."""
+    import ctypes
+    lib = ctypes.CDLL(PHILOX_PROBE_LIB)
+    u32, i32, vp = ctypes.c_uint, ctypes.c_int, ctypes.c_void_p
+    lib.canopy_philox_rate.argtypes = [u32, u32, u32, i32, i32, i32, vp, vp]
+    lib.canopy_philox_rate.restype = i32
+    blocks, threads = PHILOX_PROBE_SHAPE
+    words = blocks * threads * PHILOX_PROBE_REPS
+    folded = torch.empty(blocks * threads, dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def run():
+        code = lib.canopy_philox_rate(
+            0x80000000, MC_SEED & 0xFFFFFFFF, MC_SEED >> 32,
+            PHILOX_PROBE_REPS, blocks, threads, folded.data_ptr(), stream)
+        check(code == 0, f"Philox probe: CUDA error {code}")
+    ms = cuda_ms(run, 5)
+    per_clock = words / (ms * 1e-3 * clock_hz * N_SMS)
+    sass = record["bernoulli_sass"]["probe"]
+    rates = {"words": per_clock,
+             "source_ops": per_clock * (BERN_PRODUCTS_PER_WORD +
+                                        BERN_ALU_OPS_PER_WORD)}
+    if sass is not None:
+        rates["sass_instructions"] = per_clock * sass["per_word_total"]
+        for kind in ("IMAD.WIDE", "LOP3", "ISETP"):
+            rates[kind] = per_clock * sass["per_word"].get(kind, 0)
+    at_rate_ms = slice_words / words * ms
+    # Each pipe alone, then both: instructions per clock and SM.
+    lib.canopy_pipe_rate.argtypes = [i32, i32, i32, i32, vp, vp]
+    lib.canopy_pipe_rate.restype = i32
+    p_blocks, p_threads = PIPE_PROBE_SHAPE
+    pipe_out = torch.empty(p_blocks * p_threads, dtype=torch.int32,
+                           device=device)
+    pipes = {}
+    for mode, label in enumerate(("IMAD.WIDE alone", "LOP3 alone",
+                                  "IMAD.WIDE + LOP3")):
+        def run_pipe(mode=mode):
+            code = lib.canopy_pipe_rate(mode, PIPE_PROBE_REPS, p_blocks,
+                                        p_threads, pipe_out.data_ptr(),
+                                        stream)
+            check(code == 0, f"pipe probe {mode}: CUDA error {code}")
+        pipe_ms = cuda_ms(run_pipe, 5)
+        n_ops = p_blocks * p_threads * PIPE_PROBE_REPS * 32 * \
+            (2 if mode == 2 else 1)
+        pipes[label] = {"ms": pipe_ms, "instructions": n_ops,
+                        "per_clock_per_sm": n_ops / (pipe_ms * 1e-3 *
+                                                     clock_hz * N_SMS)}
+    # The bound's rates may not be below what the card reaches.
+    check(pipes["IMAD.WIDE alone"]["per_clock_per_sm"] <=
+          WIDE_PRODUCTS_PER_CLOCK and
+          pipes["LOP3 alone"]["per_clock_per_sm"] <= ALU_LANES and
+          at_rate_ms >= record["bernoulli"]["bound_ms"],
+          f"the Philox bound's rates are below the card's: {pipes}, "
+          f"{at_rate_ms} ms at the probe's rate")
+    pipe_rates = {k: round(v["per_clock_per_sm"], 3)
+                  for k, v in pipes.items()}
+    log(f"[mc] pipe probe ({p_blocks} x {p_threads} threads x "
+        f"{PIPE_PROBE_REPS} trips), instructions per clock and SM: "
+        f"{json.dumps(pipe_rates)}")
+    log(f"[mc] Philox probe ({blocks} x {threads} threads x "
+        f"{PHILOX_PROBE_REPS} words): {ms:.3f} ms for {words} words; per "
+        f"clock and SM at {clock_hz / 1e6:.0f} MHz: "
+        f"{json.dumps({k: round(v, 3) for k, v in rates.items()})}; the "
+        f"slice shape's {slice_words} words at this rate {at_rate_ms:.3f} "
+        f"ms, the kernel {record['bernoulli']['ms']:.3f} ms, the bound "
+        f"{record['bernoulli']['bound_ms']:.3f} ms")
+    record.setdefault("timings", {})["philox probe"] = {
+        "ms": ms, "words": words, "per_clock_per_sm": rates,
+        "slice_words_at_probe_rate_ms": at_rate_ms, "pipes": pipes}
 
 
 def mean_probabilities(tree, device) -> torch.Tensor:
@@ -1566,6 +1807,7 @@ def phase_mc(device, record: dict) -> None:
                       f"({n} trials)", **b)
         del got, want
     torch.cuda.empty_cache()
+    philox_probe(device, clock, len(slice_p) * BERN_SLICE_WORDS, record)
 
     # The path: (b) the CLI, (c) the golden anchors, (d) the plant tree.
     reset_counts()
@@ -2005,6 +2247,260 @@ def phase_block(device, record: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def _rel(got: float, want: float) -> float:
+    return 0.0 if got == want else abs(got - want) / abs(want)
+
+
+def _fault_tree_values(report: dict) -> dict:
+    """A report's fault-tree probabilities keyed as
+    ``torch_event_tree_golden.json`` keys them."""
+    return {(r["top_event"] if "phase" not in r else
+             f"{r['top_event']}@{r['alignment']}/{r['phase']}"):
+            r["probability"] for r in report["fault_trees"]}
+
+
+def _run_cli(argv: list, label: str) -> tuple[dict, float]:
+    """(JSON report, wall seconds) of the CLI in-process on ``argv``."""
+    from canopy_tpu_torch.cli import main as cli_main
+    path = os.path.join(OUT_DIR, f"et_{label}.json")
+    t0 = time.perf_counter()
+    rc = cli_main([*argv, "-o", path])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(rc == 0, f"{label}: CLI exited {rc}")
+    with open(path) as fh:
+        return json.load(fh), seconds
+
+
+def _event_tree_inputs(paths: list):
+    """(compiled tree, root slots in sequence order, sampling tape, its
+    key, mission time) of a model's one event tree, rebuilt as the
+    analysis builds them."""
+    import zlib
+
+    from canopy_tpu_torch.compiler.expr_tape import ExpressionTape
+    from canopy_tpu_torch.compiler.graph import compile_gates
+    from canopy_tpu_torch.engine.event_tree_walk import walk_event_tree
+    from canopy_tpu_torch.mef import Initializer
+    from canopy_tpu_torch.settings import Settings
+    settings = Settings()
+    model = Initializer(paths, settings).model
+    (ie,) = model.initiating_events
+    outcomes = walk_event_tree(model, ie)
+    gates = [g for g in (o.conjoined_gate(f"__seq{i}__")
+                         for i, o in enumerate(outcomes)) if g is not None]
+    tree = compile_gates(gates, use_ccf=settings.ccf_analysis())
+    tape = ExpressionTape.build(
+        [e.expression for e in tree.basic_events] +
+        [e for o in outcomes for e in o.expressions])
+    key = (ET_SEED, zlib.crc32(ie.name.encode()) & 0x7FFFFFFF)
+    return (tree, [tree.gate_index[g.id] for g in gates], tape, key,
+            settings.mission_time())
+
+
+def _fault_tree_modules(paths: list) -> int:
+    """Stream launches of a model's fault-tree uncertainty analyses on
+    CUDA: one per BDD module whose root is not a constant."""
+    from canopy_tpu_torch.compiler.graph import compile_fault_tree
+    from canopy_tpu_torch.compiler.modules import build_modular_bdd
+    from canopy_tpu_torch.mef import Initializer
+    from canopy_tpu_torch.settings import Settings
+    n = 0
+    for fault_tree in Initializer(paths, Settings()).model.fault_trees:
+        tree = compile_fault_tree(fault_tree)
+        modular = build_modular_bdd(tree,
+                                    house_states=tree.house_state_vector())
+        n += sum(1 for bdd, _slot in modular.chain
+                 if bdd.resolved_root() > 1)
+    return n
+
+
+def phase_et(device, record: dict) -> None:
+    """(11a-c) Event trees, alignment phases and SIL through the CLI."""
+    from canopy_tpu_torch.compiler.bdd import build_bdd_multi
+    from canopy_tpu_torch.engine.bdd_eval import (bdd_probability,
+                                                  make_bdd_evaluator)
+    from canopy_tpu_torch.engine.propagate import propagate_probability
+    from canopy_tpu_torch.ops.stream_kernel import (bdd_stream_encoding,
+                                                    house_tensor,
+                                                    stage_basic,
+                                                    stream_forward_plain,
+                                                    stream_propagate_staged)
+    from canopy_tpu_torch.utils.scale_models import event_tree_scale_xml
+
+    with open(ET_GOLDEN) as fh:
+        golden = json.load(fh)
+    out: dict = {"fixtures": {}}
+
+    # (a) The event-tree and alignment fixtures, then the SIL slice.
+    reset_counts()
+    for name, want in sorted(golden["fixtures"].items()):
+        report, seconds = _run_cli(
+            [os.path.join(FIXTURES, f"{name}.xml"), "--device",
+             device.type, "--probability"], name)
+        got_seq = {s["sequence"]: s["probability"]
+                   for s in report["sequences"]}
+        got_ft = _fault_tree_values(report)
+        check(set(got_seq) == set(want["sequences"]) and
+              set(got_ft) == set(want["fault_trees"]),
+              f"{name}: results {sorted(got_seq)} {sorted(got_ft)}")
+        worst = max([_rel(got_seq[k], v) for k, v in
+                     want["sequences"].items()] +
+                    [_rel(got_ft[k], v) for k, v in
+                     want["fault_trees"].items()])
+        check(worst <= PROB_RTOL, f"{name}: rel err {worst:.3e}")
+        log(f"[et] {name} through the CLI: {len(got_seq)} sequences, "
+            f"{len(got_ft)} fault-tree results within {worst:.3e} of the "
+            f"JAX values (limit {PROB_RTOL}); {seconds:.3f} s; timings "
+            f"{json.dumps(report['timings'])}")
+        out["fixtures"][name] = {"seconds": seconds, "rel_err": worst}
+    want = golden["sil_slice"]
+    report, seconds = _run_cli(
+        [SLICE_MODEL, "--device", device.type, "--probability", "--sil",
+         "--time-step", str(want["time_step"]), "--skip-products"],
+        "sil_slice")
+    (ft,) = report["fault_trees"]
+    worst = max([_rel(ft["sil"][k], want["sil"][k])
+                 for k in ("pfd_avg", "pfh_avg")] +
+                [_rel(v, v2) for (_t, v), (_t2, v2) in
+                 zip(ft["time_curve"], want["time_curve"])])
+    check([t for t, _ in ft["time_curve"]] ==
+          [t for t, _ in want["time_curve"]], "SIL slice: time points")
+    check(ft["sil"]["sil_level"] == want["sil"]["sil_level"] and
+          ft["sil"]["pfd_fractions"] == want["sil"]["pfd_fractions"],
+          f"SIL slice: {ft['sil']}")
+    check(worst <= PROB_RTOL, f"SIL slice: rel err {worst:.3e}")
+    log(f"[et] SIL slice through the CLI: {len(ft['time_curve'])} time "
+        f"points, PFD avg {ft['sil']['pfd_avg']!r}, SIL "
+        f"{ft['sil']['sil_level']}, within {worst:.3e} of the JAX values; "
+        f"{seconds:.3f} s")
+    out["sil_slice"] = {"seconds": seconds, "rel_err": worst}
+    read_counts(record, "et-fixtures", ())
+
+    # (b) The 64-sequence scale model with uncertainty on the forest path:
+    # one stream launch per sequence root.
+    scale_path = os.path.join(OUT_DIR, "et_scale64.xml")
+    with open(scale_path, "w") as fh:
+        fh.write(event_tree_scale_xml(deviates=True))
+    argv = [scale_path, "--device", device.type, "--probability",
+            "--uncertainty", "--num-trials", str(ET_TRIALS), "--seed",
+            str(ET_SEED)]
+    reset_counts()
+    report, seconds = _run_cli(argv, "scale64")
+    launches = read_counts(record, "et", ("stream",))
+    tree, slots, tape, key, mission = _event_tree_inputs([scale_path])
+    bdds = build_bdd_multi(tree, slots,
+                           house_states=tree.house_state_vector())
+    n_roots = sum(1 for b in bdds if b.resolved_root() > 1)
+    n_modules = _fault_tree_modules([scale_path])
+    seqs = report["sequences"]
+    check(len(seqs) == 64 and n_roots == 64, f"{len(seqs)} sequences, "
+                                             f"{n_roots} roots")
+    # One launch per sequence root, beside one per module of the fault
+    # trees' own uncertainty analyses.
+    check(launches["stream"] == n_roots + n_modules,
+          f"stream launched {launches['stream']} times for {n_roots} "
+          f"sequence roots and {n_modules} fault-tree modules")
+    check({s["uncertainty"]["method"] for s in seqs} == {"bdd-stream-f32"},
+          "sequence uncertainty did not run the stream kernel")
+    timings = report["timings"]
+    check("propagation:IE" not in timings, "scale model left the forest")
+    log(f"[et] scale64 through the CLI ({' '.join(argv[1:])}): "
+        f"{seconds:.3f} s, launches {launches} ({n_roots} sequence roots, "
+        f"{n_modules} fault-tree modules); host timings "
+        f"{json.dumps(timings)}")
+    # The kernel's tops of root 0 on the same samples: bit-equal to the
+    # stream's plain version, their mean the reported one, and within
+    # TOP_RTOL of the f64 level evaluation.
+    samples, sample_ms = timed_ms(
+        lambda: tape.sample(key, ET_TRIALS, mission, device))
+    basic = torch.clamp(samples[:, :tree.n_basic], 0.0, 1.0)
+    evaluators = [make_bdd_evaluator(b, device) for b in bdds]
+    tops, eval_ms = timed_ms(lambda: [ev(basic) for ev in evaluators])
+    enc = bdd_stream_encoding(bdds[0])
+    plain, plain_ms = timed_ms(lambda: stream_forward_plain(
+        enc, stage_basic(enc, basic, torch.float32),
+        house_tensor(enc, np.zeros(0, np.float32), device))[0])
+    check(torch.equal(tops[0], plain), "root 0: kernel differs from plain")
+    mean = float(tops[0].double().cpu().numpy().mean())
+    check(mean == seqs[0]["uncertainty"]["mean"],
+          f"root 0: redrawn mean {mean!r} != reported "
+          f"{seqs[0]['uncertainty']['mean']!r}")
+    # The kernels alone, on inputs staged beforehand (still one host
+    # dispatch per launch).
+    staged = [(e, stage_basic(e, basic, torch.float32)) for e in
+              (bdd_stream_encoding(b) for b in bdds)]
+    kernel_ms = cuda_ms(lambda: [stream_propagate_staged(
+        e, x, np.zeros(0, np.float32)) for e, x in staged], 3)
+    level, level_ms = timed_ms(
+        lambda: [bdd_probability(b, basic) for b in bdds])
+    rel = max(float(((t.double() - ref).abs() / ref.abs()).max())
+              for t, ref in zip(tops, level))
+    check(rel <= TOP_RTOL, f"scale64: per-trial tops rel err {rel:.3e}")
+    log(f"[et] scale64 root 0 ({bdds[0].n_nodes} BDD nodes): kernel tops "
+        f"bit-equal to plain over {ET_TRIALS} trials, mean the reported "
+        f"one; every root's tops within {rel:.3e} of the f64 level "
+        f"evaluation (limit {TOP_RTOL}). Device: sampling {sample_ms:.3f} "
+        f"ms; {len(bdds)} stream launches {eval_ms:.3f} ms through the "
+        f"evaluators, {kernel_ms:.3f} ms on staged inputs; the f64 level "
+        f"evaluation of all roots {level_ms:.3f} ms; plain stream of root "
+        f"0 {plain_ms:.3f} ms")
+    out["scale64"] = {"seconds": seconds, "launches": launches,
+                      "host_timings": timings, "sample_ms": sample_ms,
+                      "stream_ms": eval_ms, "stream_staged_ms": kernel_ms,
+                      "level_f64_ms": level_ms,
+                      "root0_plain_ms": plain_ms, "tops_rel_err": rel}
+    del samples, basic, tops, plain, level, staged
+    torch.cuda.empty_cache()
+
+    # (c) The plant-width event tree with uncertainty: its forest exceeds
+    # the 2,000,000-node limit, so it runs the direct-propagation fallback.
+    argv = [*ET_PLANT, "--device", device.type, "--probability",
+            "--uncertainty",
+            "--num-trials", str(ET_TRIALS), "--seed", str(ET_SEED)]
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    report, seconds = _run_cli(argv, "plant")
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_counts(record, "et-plant", ())
+    timings = report["timings"]
+    check("propagation:IE" in timings, "plant tree: no fallback")
+    got = {s["sequence"]: s for s in report["sequences"]}
+    check(set(got) == set(golden["sequences"]), "plant tree: sequences")
+    worst = max(_rel(got[k]["probability"], v)
+                for k, v in golden["sequences"].items())
+    check(worst <= PROB_RTOL, f"plant tree: rel err {worst:.3e}")
+    for s in got.values():
+        unc = s["uncertainty"]
+        check(unc["method"] == "direct-propagation" and
+              unc["n_trials"] == ET_TRIALS and
+              0.0 < unc["ci95"][0] <= unc["mean"] <= unc["ci95"][1] < 1.0,
+              f"plant tree {s['sequence']}: {unc}")
+    log(f"[et] plant event tree through the CLI ({' '.join(argv[1:])}): "
+        f"{seconds:.3f} s, peak {peak / 2**30:.2f} GiB, launches "
+        f"{launches}; 64 sequences within {worst:.3e} of the golden values "
+        f"(limit {PROB_RTOL}); host timings {json.dumps(timings)}")
+    # Device time of the fallback's sampling and propagation, redone on
+    # the same inputs.
+    tree, slots, tape, key, mission = _event_tree_inputs(ET_PLANT)
+    house = torch.as_tensor(tree.house_state_vector(), device=device)
+    samples, sample_ms = timed_ms(
+        lambda: tape.sample(key, ET_TRIALS, mission, device))
+    basic = torch.clamp(samples[:, :tree.n_basic], 0.0, 1.0)
+    vals, prop_ms = timed_ms(
+        lambda: propagate_probability(tree, basic, house)[:, slots])
+    log(f"[et] plant tree fallback on the card: sampling {sample_ms:.3f} "
+        f"ms, one propagation of {tree.n_nodes} nodes x {ET_TRIALS} f64 "
+        f"trials {prop_ms:.3f} ms")
+    out["plant"] = {"seconds": seconds, "peak_bytes": peak,
+                    "launches": launches, "host_timings": timings,
+                    "rel_err": worst, "sample_ms": sample_ms,
+                    "propagation_ms": prop_ms, "n_nodes": tree.n_nodes}
+    del samples, basic, vals
+    torch.cuda.empty_cache()
+    record["et"] = out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -2032,6 +2528,7 @@ def main() -> int:
     phase_mc(device, record)
     phase_spill(device, record)
     phase_block(device, record)
+    phase_et(device, record)
     check("jax" not in sys.modules, "the port imported jax")
     for name in KERNELS:
         record[name]["launches"] = record["paths"][PATH_OF[name]][name]

@@ -14,7 +14,12 @@
   trials against ``torch_slice_golden.json``: probability 1e-12
   relative, MIF/RAW/RRW 1e-10 relative, cut-set count and module sizes
   exact.
-* Every branch that is not ported yet raises ``NotImplementedError``.
+* The branches once not ported (``test_unported_branches_raise``, its
+  case ids kept): event trees (``demo_plant``'s sequences), alignment
+  phases (``aralia_like_alignment``) and SIL (``aralia_like_small`` under
+  ``time_step(100)``) now match the JAX report within 1e-12 relative;
+  Monte Carlo runs and reports its standard error; ``"cuda"`` without a
+  card raises ``DeviceError``.
 """
 
 import json
@@ -39,7 +44,8 @@ from canopy_tpu_torch.engine.bdd_eval import make_modular_evaluator
 from canopy_tpu_torch.mef import Initializer
 from canopy_tpu_torch.settings import Settings
 
-from torch_parity import FIXTURES, fixture_path, load_tree
+from torch_parity import (FIXTURES, fixture_path, load_tree, rel_err,
+                          run_both_analyses)
 
 with open(f"{FIXTURES}/golden.json") as fh:
     GOLDEN = json.load(fh)
@@ -155,9 +161,39 @@ def test_slice_model_against_its_golden():
 @pytest.mark.parametrize("case", ["event-tree", "alignment", "monte-carlo",
                                   "sil", "cuda"])
 def test_unported_branches_raise(case):
+    """Each case once asserted that its branch raised; the branches are
+    ported, so the cases check what the branch now gives."""
     name = {"event-tree": "demo_plant",
             "alignment": "aralia_like_alignment"}.get(case,
                                                       "aralia_like_small")
+    if case in ("event-tree", "alignment", "sil"):
+        # Parity with the JAX report.
+        def configure(settings):
+            settings = _configure(settings, importance=False)
+            if case == "sil":
+                settings.time_step(100.0).safety_integrity_levels(True)
+            return settings
+        ours, ref = run_both_analyses(fixture_path(name), configure)
+        if case == "event-tree":
+            assert [s.sequence for s in ours.sequences] == \
+                [s.sequence for s in ref.sequences] != []
+            for got, want in zip(ours.sequences, ref.sequences):
+                assert rel_err(got.probability, want.probability) <= 1e-12
+            return
+        got_rows = [(r.phase, r.probability) for r in ours.fault_trees]
+        want_rows = [(r.phase, r.probability) for r in ref.fault_trees]
+        assert [p for p, _ in got_rows] == [p for p, _ in want_rows]
+        for (_p, got), (_p2, want) in zip(got_rows, want_rows):
+            assert rel_err(got, want) <= 1e-12
+        if case == "alignment":
+            assert {p for p, _ in got_rows} == {None, "run", "service"}
+            return
+        (got,), (want,) = ours.fault_trees, ref.fault_trees
+        assert got.sil["sil_level"] == want.sil["sil_level"]
+        assert rel_err(got.sil["pfd_avg"], want.sil["pfd_avg"]) <= 1e-12
+        for (t, v), (t2, v2) in zip(got.time_curve, want.time_curve):
+            assert t == t2 and rel_err(v, v2) <= 1e-12
+        return
     settings = _configure(Settings(), importance=False)
     if case == "monte-carlo":
         # Ported since (the bit-packed engine): the case now checks that
@@ -167,14 +203,8 @@ def test_unported_branches_raise(case):
         (ft,) = RiskAnalysis(model, settings, "cpu").run().fault_trees
         assert 0.0 < ft.probability < 1.0 and ft.mc_std_error > 0.0
         return
-    if case == "sil":
-        settings.time_step(100.0).safety_integrity_levels(True)
     model = Initializer([fixture_path(name)], settings).model
-    if case == "cuda":
-        if torch.cuda.is_available():
-            pytest.skip("a CUDA device exists here")
-        with pytest.raises(DeviceError):
-            RiskAnalysis(model, settings, "cuda")
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        RiskAnalysis(model, settings, "cpu").run()
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device exists here")
+    with pytest.raises(DeviceError):
+        RiskAnalysis(model, settings, "cuda")

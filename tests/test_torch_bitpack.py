@@ -6,7 +6,9 @@ Tolerances:
 
 * ``pack_states``, ``propagate_packed`` (every node's words) and
   ``popcount_mean``: bit-equal to the JAX package (and/or/xor are exact);
-* Philox4x32-10: Random123's known answers, exactly;
+* Philox4x32-10: Random123's known answers, exactly; one packed word's
+  distinct products and XORs equal to the counts ``chip_smoke.py``
+  bounds the kernel by;
 * the plain Bernoulli sampler: its thresholds bit-equal to the JAX
   kernel's; ``p`` of 0 and 1 bit-equal to the JAX kernel in interpret mode
   (whose generator is a zero stub there, so no other draw compares);
@@ -167,6 +169,45 @@ def test_philox_known_answers():
     assert got == [0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]
     got = [int(v) for v in philox4x32_10((full,) * 4, (full, full))]
     assert got == [0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD]
+
+
+def test_philox_word_work_matches_the_bound():
+    """The integer work ``chip_smoke.py`` bounds the Philox kernel by.
+    One packed word's eight calls (counters ``(w, j, seed_hi, 0)``, ``j``
+    = 0..7, one key) are traced as expressions, so a product or XOR that
+    the calls share counts once: 132 wide products and 146 three-input
+    XORs, beside 32 compares; the trace computes philox4x32_10."""
+    import chip_smoke
+    from canopy_tpu_torch.ops.bernoulli_kernel import PHILOX_M, PHILOX_W
+    mask = 0xFFFFFFFF
+    w, seed_lo, seed_hi, event = 123_457, 7, 3, 11
+    products, xors = set(), set()
+    for j in range(8):
+        # (expression, value) pairs; equal expressions are one operation.
+        c = [(("w",), w), (("j", j), j), (("seed_hi",), seed_hi),
+             (("0",), 0)]
+        k = [(("k0", 0), seed_lo), (("k1", 0), event)]
+        for r in range(10):
+            if r:
+                k = [(("k0", r), (k[0][1] + PHILOX_W[0]) & mask),
+                     (("k1", r), (k[1][1] + PHILOX_W[1]) & mask)]
+            halves = []
+            for m, (expr, value) in ((PHILOX_M[0], c[0]),
+                                     (PHILOX_M[1], c[2])):
+                products.add((m, expr))
+                halves.append(((("hi", m, expr), (m * value) >> 32),
+                               (("lo", m, expr), (m * value) & mask)))
+            (hi0, lo0), (hi1, lo1) = halves
+            x0 = (("xor", hi1[0], c[1][0], k[0][0]),
+                  hi1[1] ^ c[1][1] ^ k[0][1])
+            x2 = (("xor", hi0[0], c[3][0], k[1][0]),
+                  hi0[1] ^ c[3][1] ^ k[1][1])
+            xors.update((x0[0], x2[0]))
+            c = [x0, lo1, x2, lo0]
+        assert [v for _e, v in c] == list(philox4x32_10(
+            (w, j, seed_hi, 0), (seed_lo, event)))
+    assert len(products) == chip_smoke.BERN_PRODUCTS_PER_WORD == 132
+    assert len(xors) + 32 == chip_smoke.BERN_ALU_OPS_PER_WORD == 146 + 32
 
 
 def test_thresholds_match_the_jax_kernel():

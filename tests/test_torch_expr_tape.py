@@ -25,7 +25,7 @@ from canopy_tpu.compiler.expr_tape import ExpressionTape as JaxTape
 from canopy_tpu_torch.compiler.expr_tape import ExpressionTape
 from canopy_tpu_torch.engine.uncertainty import uncertainty_analysis
 
-from torch_parity import ALL_FIXTURES, fixture_path
+from torch_parity import ALL_FIXTURES, fixture_inputs
 
 RTOL = 1e-12
 
@@ -33,7 +33,7 @@ RTOL = 1e-12
 def _model(pkg, name):
     mef = importlib.import_module(f"{pkg}.mef")
     settings = importlib.import_module(f"{pkg}.settings")
-    return mef.Initializer([fixture_path(name)],
+    return mef.Initializer(fixture_inputs(name),
                            settings.Settings().ccf_analysis(True)).model
 
 

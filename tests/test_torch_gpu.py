@@ -121,10 +121,67 @@ def test_uncertainty_streams_on_cuda(cuda_device):  # noqa: F811
     tsk.reset_launches()
     with torch.no_grad():
         got = ev(p)
-    assert tsk.LAUNCHES["stream"] == 1
+    # One launch per module whose root is not a constant, small ones too.
+    assert tsk.LAUNCHES["stream"] == sum(
+        1 for bdd, _slot in modular.chain if bdd.resolved_root() > 1) == 2
     from canopy_tpu_torch.compiler.modules import modular_probability
     want = modular_probability(modular, p)
     assert float(((got.double() - want).abs() / want).max()) <= 1e-5
+
+
+def test_event_tree_on_cuda(cuda_device, tmp_path):  # noqa: F811
+    """Sequences on the card: point values equal to the CPU's within
+    1e-12 relative; sequence uncertainty launches the stream kernel once
+    per root (beside the fault trees' own uncertainty launches), and each
+    sequence's mean is within 1e-5 relative of the f64 level evaluation
+    of the same (redrawn) samples."""
+    import zlib
+
+    from canopy_tpu_torch.compiler.bdd import build_bdd_multi
+    from canopy_tpu_torch.compiler.expr_tape import ExpressionTape
+    from canopy_tpu_torch.compiler.graph import (compile_fault_tree,
+                                                 compile_gates)
+    from canopy_tpu_torch.engine.bdd_eval import bdd_probability
+    from canopy_tpu_torch.engine.event_tree_walk import walk_event_tree
+    from canopy_tpu_torch.utils.scale_models import event_tree_scale_xml
+    path = tmp_path / "scale16.xml"
+    path.write_text(event_tree_scale_xml(n_fe=4, deviates=True,
+                                         house_flip=True))
+    settings = (Settings().probability_analysis(True)
+                .uncertainty_analysis(True).num_trials(4096).seed(7))
+    model = Initializer([str(path)], settings).model
+    cpu = RiskAnalysis(model, settings, "cpu").run().sequences
+    tsk.reset_launches()
+    gpu = RiskAnalysis(model, settings, "cuda").run().sequences
+    # One launch per sequence root, and one per module of the four fault
+    # trees' own uncertainty analyses.
+    n_modules = 0
+    for fault_tree in model.fault_trees:
+        ft_tree = compile_fault_tree(fault_tree)
+        n_modules += sum(
+            1 for bdd, _slot in build_modular_bdd(
+                ft_tree, house_states=ft_tree.house_state_vector()).chain
+            if bdd.resolved_root() > 1)
+    assert tsk.LAUNCHES["stream"] == len(gpu) + n_modules == 16 + 4
+    assert {s.uncertainty["method"] for s in gpu} == {"bdd-stream-f32"}
+    (initiating,) = model.initiating_events
+    outcomes = walk_event_tree(model, initiating)
+    gates = [o.conjoined_gate(f"__seq{i}__") for i, o in enumerate(outcomes)]
+    tree = compile_gates(gates)
+    tape = ExpressionTape.build([e.expression for e in tree.basic_events])
+    key = (7, zlib.crc32(b"IE") & 0x7FFFFFFF)
+    basic = torch.clamp(tape.sample(key, 4096, settings.mission_time(),
+                                    cuda_device), 0.0, 1.0)
+    for s_gpu, s_cpu, outcome, gate in zip(gpu, cpu, outcomes, gates):
+        assert abs(s_gpu.probability - s_cpu.probability) <= \
+            1e-12 * s_cpu.probability
+        house = tree.house_state_vector()
+        for event_id, state in outcome.house_states.items():
+            house[tree.house_index[event_id] - tree.n_basic] = float(state)
+        (bdd,) = build_bdd_multi(tree, [tree.gate_index[gate.id]],
+                                 house_states=house)
+        want = float(bdd_probability(bdd, basic).mean())
+        assert abs(s_gpu.uncertainty["mean"] - want) <= 1e-5 * want
 
 
 @pytest.mark.parametrize("name,tree_name", [

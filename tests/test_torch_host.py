@@ -21,7 +21,8 @@ import sys
 import numpy as np
 import pytest
 
-from torch_parity import ALL_FIXTURES, fixture_path, load_tree
+from torch_parity import (ALL_FIXTURES, fixture_inputs, fixture_path,
+                          load_tree)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_PKG = os.path.join(ROOT, "canopy_tpu")
@@ -53,7 +54,8 @@ def test_import_leaves_jax_out():
             "canopy_tpu_torch.ops.block_gather, "
             "canopy_tpu_torch.ops.gather_kernel, "
             "canopy_tpu_torch.ops.bsr_propagate, "
-            "canopy_tpu_torch.utils.synthetic, canopy_tpu_torch.report; "
+            "canopy_tpu_torch.utils.synthetic, canopy_tpu_torch.report, "
+            "canopy_tpu_torch.utils.scale_models; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'canopy_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -149,7 +151,7 @@ def _compare_programs(jp, tp):
 def _fault_trees(name):
     import canopy_tpu.mef as jmef
     import canopy_tpu.settings as jset
-    model = jmef.Initializer([fixture_path(name)],
+    model = jmef.Initializer(fixture_inputs(name),
                              jset.Settings().ccf_analysis(True)).model
     return [ft.name for ft in model.fault_trees]
 

@@ -133,8 +133,8 @@ def test_tree_stream_equals_shared_schedule_without_spills(name):
     from canopy_tpu_torch.compiler.graph import compile_fault_tree
     from canopy_tpu_torch.mef import Initializer
     from canopy_tpu_torch.settings import Settings
-    from torch_parity import fixture_path
-    path = [fixture_path(name)]
+    from torch_parity import fixture_inputs
+    path = fixture_inputs(name)
     jmodel = jmef.Initializer(path, jset.Settings().ccf_analysis(True)).model
     tmodel = Initializer(path, Settings().ccf_analysis(True)).model
     checked = 0
@@ -245,8 +245,8 @@ def test_top_cone_is_a_fixed_point(name):
         import canopy_tpu_torch.mef as tmef
         from canopy_tpu_torch.compiler.graph import compile_fault_tree
         from canopy_tpu_torch.settings import Settings
-        from torch_parity import fixture_path
-        model = tmef.Initializer([fixture_path(name)],
+        from torch_parity import fixture_inputs
+        model = tmef.Initializer(fixture_inputs(name),
                                  Settings().ccf_analysis(True)).model
         trees = [compile_fault_tree(ft) for ft in model.fault_trees]
     for tree in trees:

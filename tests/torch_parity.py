@@ -22,8 +22,18 @@ ALL_FIXTURES = sorted(f[:-4] for f in os.listdir(FIXTURES)
                       if f.endswith(".xml"))
 
 
+#: Fixtures that hold only what they add to another: loaded after it.
+FIXTURE_BASES = {"torch_event_tree_plant": ["torch_slice_plant"]}
+
+
 def fixture_path(name: str) -> str:
     return os.path.join(FIXTURES, f"{name}.xml")
+
+
+def fixture_inputs(name: str) -> list[str]:
+    """The MEF files of fixture ``name``: those it builds on, then its
+    own."""
+    return [fixture_path(n) for n in FIXTURE_BASES.get(name, []) + [name]]
 
 
 def load_tree(pkg: str, name: str, ccf: bool = True,
@@ -36,9 +46,35 @@ def load_tree(pkg: str, name: str, ccf: bool = True,
     settings_mod = importlib.import_module(f"{pkg}.settings")
     graph = importlib.import_module(f"{pkg}.compiler.graph")
     settings = settings_mod.Settings().ccf_analysis(ccf)
-    model = mef.Initializer([fixture_path(name)], settings).model
+    model = mef.Initializer(fixture_inputs(name), settings).model
     fault_tree = model.fault_trees.get(tree_name or name)
     return model, graph.compile_fault_tree(fault_tree)
+
+
+def run_both_analyses(path: str, configure=lambda settings: settings):
+    """(port report, JAX report) of the MEF file ``path``: ``RiskAnalysis``
+    of each package on the CPU, its ``Settings`` passed through
+    ``configure``."""
+    from canopy_tpu.engine.analysis import RiskAnalysis as JaxAnalysis
+    from canopy_tpu.mef import Initializer as JaxInitializer
+    from canopy_tpu.settings import Settings as JaxSettings
+    from canopy_tpu_torch.engine.analysis import RiskAnalysis
+    from canopy_tpu_torch.mef import Initializer
+    from canopy_tpu_torch.settings import Settings
+    settings = configure(Settings())
+    ours = RiskAnalysis(Initializer([path], settings).model, settings,
+                        "cpu").run()
+    jax_settings = configure(JaxSettings())
+    ref = JaxAnalysis(JaxInitializer([path], jax_settings).model,
+                      jax_settings).run()
+    return ours, ref
+
+
+def rel_err(got: float, want: float) -> float:
+    """``|got - want| / |want|``, 0 where the two are equal."""
+    if got == want:
+        return 0.0
+    return abs(got - want) / max(abs(want), 1e-300)
 
 
 def overwriting_program(stream_program_cls):
