@@ -14,5 +14,14 @@ CUDA when available or falls back to the CPU on its own.
 
 __version__ = "0.3.0"
 
+
+def build_info() -> dict:
+    """Git-derived build metadata (commit, count, dirty) — the
+    reference's ``cmake/build-info.cmake`` analogue; see
+    :mod:`canopy_tpu_torch.build_info`."""
+    from .build_info import build_info as _bi
+    return _bi()
+
+
 from .settings import Algorithm, Approximation, Settings  # noqa: F401,E402
 from . import errors  # noqa: F401,E402

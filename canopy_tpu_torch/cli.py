@@ -7,11 +7,15 @@ Examples:
     python -m canopy_tpu_torch plant.xml --bdd --importance --uncertainty \
         --num-trials 1048576 --seed 7 -o report.xml
     python -m canopy_tpu_torch plant.xml --device cpu --rare-event
+    python -m canopy_tpu_torch --project project.xml
 
 ``--device`` (default ``cuda``) names where the analysis runs; with no
 usable CUDA device the run stops with an error instead of moving to the
-CPU.  ``--project`` and ``--validate`` need RELAX NG validation (lxml),
-which this package does not have: they exit with an error.
+CPU.  ``--project`` files are validated against the bundled project
+grammar (checked by hand, ``io/xml.Validator``); their input files come
+before the positional ones, and flags given on the command line
+override their options.  ``--validate`` needs a RELAX NG engine (lxml),
+which this package does not have: it exits with an error.
 """
 
 from __future__ import annotations
@@ -19,9 +23,18 @@ from __future__ import annotations
 import argparse
 import sys
 
-from . import __version__
 from .errors import Error
 from .settings import Settings
+
+
+class _VersionAction(argparse.Action):
+    """Lazy --version: the git subprocesses (commit/count/dirty) run
+    only when the flag is actually given, not on every CLI start."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        from .build_info import version_string
+        print(version_string())
+        parser.exit()
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -29,8 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="canopy-tpu-torch",
         description="Quantification of Open-PSA MEF models on PyTorch "
                     "and CUDA.")
-    parser.add_argument("--version", action="version",
-                        version=f"canopy-tpu-torch {__version__}")
+    parser.add_argument("--version", action=_VersionAction, nargs=0,
+                        help="build version (git-derived when available)")
     parser.add_argument("input_files", nargs="*",
                         help="MEF XML input files (globs allowed)")
     parser.add_argument("--project", metavar="PROJECT_XML",
@@ -151,14 +164,25 @@ def main(argv: list[str] | None = None) -> int:
     try:
         from ._device import resolve_device
         device = resolve_device(args.device)
-        if args.project or args.validate:
+        if args.validate:
             from .io.xml import Validator
-            Validator(args.project or args.validate)  # Raises: no RELAX NG.
+            Validator(args.validate)  # Raises: no RELAX NG engine.
         input_files = list(args.input_files)
-        settings = settings_from_args(args)
+        output = args.output
+        if args.project:
+            from .project import load_project
+            project = load_project(args.project)
+            input_files = project.input_files + input_files
+            settings = settings_from_args(args, base=project.settings)
+            if output is None:
+                output = project.output
+        else:
+            settings = settings_from_args(args)
         if not input_files:
-            print("error: no input files", file=sys.stderr)
+            print("error: no input files (positional or --project)",
+                  file=sys.stderr)
             return 2
+        args.output = output
         from .mef.initializer import Initializer
         init = Initializer(input_files, settings,
                            allow_extern=args.allow_extern)

@@ -144,9 +144,37 @@ false or the package is missing).  Phases, each raising on failure:
    the golden values.  Host times from the reports' timings (walk,
    compile, forest or propagation, sampling, per-sequence evaluation);
    device times of sampling, the per-sequence kernels and the fallback's
-   propagation by CUDA events, redone on the same inputs.
+   propagation by CUDA events, redone on the same inputs;
+12. the path ``project``, on the slice at ``PROJECT_TRIALS`` trials: (a)
+   a project file (``bdd``, probability, importance, uncertainty, a fixed
+   seed) through ``python -m canopy_tpu_torch --project`` in its own
+   process (the default device, cuda), its report's fault-tree results
+   and settings equal to the flag-driven CLI's in-process; (b)
+   ``--version``, git-derived where the tree is a git checkout; (c)
+   ``save_compiled`` / ``load_compiled`` of the slice tree and its tape:
+   the loaded tape's samples under ``(seed, 0)`` equal the tape's, and the
+   loaded tree's stream tops through ``make_propagator`` bit-equal to the
+   tree's before saving; (d) ``model_to_mef_xml`` of the slice, parsed
+   again through the CLI: probability within ``PROB_RTOL``, the same
+   products; (e) a ``CheckpointedSweep`` of ``SWEEP_BATCHES`` x
+   ``SWEEP_TRIALS`` trials (each batch samples the tape under ``(seed,
+   batch)`` and runs the stream kernel), stopped by an exception at batch
+   ``SWEEP_STOP`` and resumed from its checkpoint: its final state equal
+   to the uninterrupted sweep's, bit for bit;
+13. the path ``markov`` (f64, torch operations): ``markov_stationary`` of
+   ``tests/test_markov.py``'s 10,000-state CSR birth-death chain (host
+   LU, the blocked substitutions on the card; its test's checks), the
+   dense path on its first 2,000 states against numpy's solve on the
+   host, ``markov_transient`` of 12 repairable components (4,096 states)
+   over 1,024 initial distributions against scipy's ``expm_multiply``,
+   and ``BlockedTriangular.solve`` of ``tests/test_markov.py``'s
+   10,000-row lower chain system against ``spsolve_triangular``.  Every
+   device call of phases 12-13 is timed by CUDA events beside its
+   ``RooflineAccountant`` bytes share and peak memory, and each phase
+   prints its wall time.
 
-Each path (5's two, 6, 7, 8, 9's two, 10's two and 11's ``et``) runs with the
+Each path (5's two, 6, 7, 8, 9's two, 10's two, 11's ``et`` and 12's
+``project``) runs with the
 launch counts set to 0 just before it and read just after; a kernel of the
 path that never launched fails the run.  Long output goes to ``chiprun_out/``.  The last lines are the
 kernels' JSON record (with each kernel's bound: the larger of its bytes
@@ -2501,6 +2529,388 @@ def phase_et(device, record: dict) -> None:
     record["et"] = out
 
 
+#: Phase 12 (path ``project``): the project file's trials and seed, and
+#: the checkpointed sweep's batches (stopped by an exception at
+#: ``SWEEP_STOP``, then resumed).
+PROJECT_TRIALS = 1 << 20
+PROJECT_SEED = 7
+SWEEP_BATCHES = 16
+SWEEP_TRIALS = 65_536
+SWEEP_STOP = 7
+#: Phase 13 (path ``markov``): the chain sizes, the transient's batch and
+#: time (hours; its truncation must fall in ``TRANSIENT_K``), and the
+#: tolerances: the sparse stationary solve's ``tests/test_markov.py``
+#: checks; the dense one against numpy's LU on the host (two pivoted
+#: factorizations of an ill-conditioned balance matrix: 9.7e-11 apart
+#: between torch's and numpy's on the CPU); the transient against scipy's
+#: ``expm_multiply``; the blocked solve at its test's tolerance.
+MARKOV_STATES = 10_000
+MARKOV_DENSE_STATES = 2_000
+MARKOV_COMPONENTS = 12
+TRANSIENT_BATCH = 1_024
+TRANSIENT_T = 24.0
+TRANSIENT_K = (50, 500)
+DENSE_PI_ATOL = 1e-9
+TRANSIENT_ATOL = 1e-10
+BLOCKED_TOL = 1e-9
+
+
+def device_call(label: str, fn, elements: int, n_bytes: float, roof,
+                out: dict, reps: int = 3):
+    """``fn()`` timed on the card: CUDA-event milliseconds over ``reps``
+    runs, its ``RooflineAccountant`` entry (``n_bytes``: each input read
+    once, each output written once) and the peak device memory of one
+    run; logged and kept in ``out[label]``.  Returns ``fn()``'s result."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    result = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = cuda_ms(fn, reps)
+    entry = roof.record(label, elements, n_bytes / elements, ms / 1e3)
+    out[label] = {"ms": ms, "bytes": n_bytes, "peak_bytes": peak,
+                  "hbm_fraction": entry["hbm_fraction"]}
+    log(f"[{label}] {ms:.3f} ms (CUDA events, {reps} runs), "
+        f"{n_bytes / 1e6:.3f} MB at least, {entry['hbm_fraction']:.4f} "
+        f"of {roof.bandwidth / 1e12:.2f} TB/s; peak {peak / 2**20:.1f} "
+        f"MiB above the {base / 2**20:.1f} MiB held before")
+    return result
+
+
+def _fault_tree_products(report: dict) -> list:
+    (ft,) = report["fault_trees"]
+    return [(order, sorted(literals))
+            for order, _prob, literals in ft["products"]]
+
+
+def phase_project(device, record: dict) -> None:
+    """(12) Project files, ``--version``, compiled-model I/O, the MEF
+    writer and a checkpointed sweep, on the slice."""
+    import contextlib
+    import io
+
+    from canopy_tpu_torch.build_info import build_info
+    from canopy_tpu_torch.cli import main as cli_main
+    from canopy_tpu_torch.compiler.expr_tape import ExpressionTape
+    from canopy_tpu_torch.engine.checkpoint import (CheckpointedSweep,
+                                                    SweepState)
+    from canopy_tpu_torch.engine.propagate import make_propagator
+    from canopy_tpu_torch.io.compiled_io import load_compiled, save_compiled
+    from canopy_tpu_torch.io.mef_writer import model_to_mef_xml
+    from canopy_tpu_torch.mef import Initializer
+    from canopy_tpu_torch.settings import Settings
+    from canopy_tpu_torch.utils.profiling import RooflineAccountant
+
+    roof = RooflineAccountant()
+    out: dict = {}
+    wall0 = time.perf_counter()
+    reset_counts()
+
+    # (a) The project file through ``python -m canopy_tpu_torch --project``
+    # (its default device, cuda), against the flag-driven CLI in-process.
+    project = os.path.join(OUT_DIR, "slice_project.xml")
+    project_report = os.path.join(OUT_DIR, "slice_project_report.json")
+    with open(project, "w") as fh:
+        fh.write(f"""<?xml version="1.0"?>
+<canopy-project>
+  <input-files><file>{SLICE_MODEL}</file></input-files>
+  <options>
+    <algorithm value="bdd"/>
+    <analysis probability="true" importance="true" uncertainty="true"/>
+    <limits num-trials="{PROJECT_TRIALS}" seed="{PROJECT_SEED}"/>
+  </options>
+  <output file="{project_report}"/>
+</canopy-project>
+""")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "canopy_tpu_torch", "--project", project],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    project_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"--project exited {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+    with open(project_report) as fh:
+        by_project = json.load(fh)
+    by_flags, flags_s = _run_cli(
+        [SLICE_MODEL, "--device", device.type, "--bdd", "--probability",
+         "--importance", "--uncertainty", "--num-trials",
+         str(PROJECT_TRIALS), "--seed", str(PROJECT_SEED)], "project_flags")
+    check(by_project["fault_trees"] == by_flags["fault_trees"] and
+          by_project["settings"] == by_flags["settings"],
+          "--project report differs from the flag-driven one")
+    (ft,) = by_project["fault_trees"]
+    check(ft["uncertainty"].get("method") == "bdd-stream-f32" and
+          ft["uncertainty"]["n_trials"] == PROJECT_TRIALS,
+          f"project uncertainty: method "
+          f"{ft['uncertainty'].get('method')}, {ft['uncertainty']['n_trials']}"
+          f" trials")
+    log(f"[project] python -m canopy_tpu_torch --project (default device "
+        f"cuda): {project_s:.3f} s in its own process, the flag-driven CLI "
+        f"{flags_s:.3f} s in-process; probability {ft['probability']!r}, "
+        f"{len(ft['importance'])} importance rows and the uncertainty "
+        f"statistics (mean {ft['uncertainty']['mean']!r}) equal")
+    out["project"] = {"project_s": project_s, "flags_s": flags_s}
+
+    # (b) --version: git-derived where the tree is a git checkout.
+    stdout = io.StringIO()
+    with contextlib.redirect_stdout(stdout):
+        try:
+            cli_main(["--version"])
+        except SystemExit as exc:
+            check(exc.code == 0, f"--version exited {exc.code}")
+    version = stdout.getvalue().strip()
+    git = subprocess.run(["git", "rev-parse", "--show-toplevel"], cwd=ROOT,
+                         capture_output=True, text=True).returncode == 0 \
+        if shutil.which("git") else False
+    info = build_info()
+    check(version.startswith("canopy-tpu-torch ") and
+          info["source"] == ("git" if git else "package") and
+          (("+g" in version) == git), f"--version {version!r}, {info}")
+    source = "git-derived" if git else \
+        "not a git checkout: the package version"
+    log(f"[project] --version: {version!r} ({source})")
+
+    # (c) Compiled-model I/O: the loaded tree's tops bit-equal to the
+    # tree's before saving, on the loaded tape's samples.
+    tree = load_tree("torch_slice_plant")
+    tape = ExpressionTape.build([e.expression for e in tree.basic_events])
+    path = os.path.join(OUT_DIR, "slice_compiled.npz")
+    save_compiled(path, tree, tape)
+    loaded, loaded_tape = load_compiled(path)
+    mission = Settings().mission_time()
+    key = (PROJECT_SEED, 0)
+    samples = device_call(
+        "sample-2^20", lambda: loaded_tape.sample(key, PROJECT_TRIALS,
+                                                  mission, device),
+        PROJECT_TRIALS, PROJECT_TRIALS * tree.n_basic * 8, roof, out)
+    check(torch.equal(samples, tape.sample(key, PROJECT_TRIALS, mission,
+                                           device)),
+          "loaded tape samples differ")
+    basic = torch.clamp(samples, 0.0, 1.0).float()
+    del samples
+    before = make_propagator(tree, device)(basic)
+    propagate = make_propagator(loaded, device)
+    check(propagate.engine == "stream", f"engine {propagate.engine}")
+    after = device_call("loaded-tree-2^20", lambda: propagate(basic),
+                        PROJECT_TRIALS,
+                        PROJECT_TRIALS * (tree.n_basic + 1) * 4, roof, out)
+    check(torch.equal(after, before), "loaded tree's tops differ")
+    log(f"[project] save_compiled / load_compiled: {os.path.getsize(path)} "
+        f"bytes; the loaded tree's {PROJECT_TRIALS} stream tops bit-equal "
+        f"to the tree's before saving")
+    del basic, before, after
+
+    # (d) The MEF writer: the slice written, parsed again and quantified
+    # through the CLI.
+    model = Initializer([SLICE_MODEL], Settings()).model
+    rewritten = os.path.join(OUT_DIR, "slice_rewritten.xml")
+    with open(rewritten, "wb") as fh:
+        fh.write(model_to_mef_xml(model))
+    again, again_s = _run_cli([rewritten, "--device", device.type, "--bdd",
+                               "--probability"], "project_rewritten")
+    (ft2,) = again["fault_trees"]
+    p_err = _rel(ft2["probability"], ft["probability"])
+    check(p_err <= PROB_RTOL, f"rewritten model: rel err {p_err:.3e}")
+    check(_fault_tree_products(again) == _fault_tree_products(by_flags),
+          "rewritten model: products differ")
+    log(f"[project] model_to_mef_xml: {os.path.getsize(rewritten)} bytes, "
+        f"through the CLI {again_s:.3f} s: probability within {p_err:.3e} "
+        f"(limit {PROB_RTOL}), the same {ft2['n_products']} products")
+
+    # (e) A checkpointed sweep over the direct-propagation slice: each
+    # batch samples the tape under (seed, batch) and runs the stream
+    # kernel; stopped at SWEEP_STOP, resumed, equal to uninterrupted.
+    class Stop(Exception):
+        pass
+
+    def batch_fn(stop_at=None):
+        def fn(key, batch):
+            if batch == stop_at:
+                raise Stop(batch)
+            s = tape.sample(key, SWEEP_TRIALS, mission, device)
+            return propagate(torch.clamp(s, 0.0, 1.0).float()) \
+                .double().cpu().numpy()
+        return fn
+
+    kw = dict(seed=PROJECT_SEED, n_batches=SWEEP_BATCHES,
+              batch_trials=SWEEP_TRIALS)
+    t0 = time.perf_counter()
+    full = CheckpointedSweep(batch_fn(), **kw).run()
+    sweep_s = time.perf_counter() - t0
+    ckpt = os.path.join(OUT_DIR, "sweep_checkpoint.npz")
+    if os.path.exists(ckpt):
+        os.unlink(ckpt)
+    try:
+        CheckpointedSweep(batch_fn(SWEEP_STOP), checkpoint_path=ckpt,
+                          **kw).run()
+        check(False, "the sweep did not stop")
+    except Stop:
+        pass
+    check(SweepState.load(ckpt).completed_batches == SWEEP_STOP,
+          "checkpoint after the stop")
+    resumed = CheckpointedSweep(batch_fn(), checkpoint_path=ckpt,
+                                **kw).run()
+    for name in ("seed", "completed_batches", "completed_trials", "sum_",
+                 "sum_sq", "reservoir_filled"):
+        check(getattr(resumed, name) == getattr(full, name),
+              f"resumed sweep: {name}")
+    check(np.array_equal(resumed.reservoir, full.reservoir),
+          "resumed sweep: reservoir")
+    one = device_call(
+        "sweep-batch", lambda: propagate(torch.clamp(tape.sample(
+            (PROJECT_SEED, 0), SWEEP_TRIALS, mission, device), 0.0,
+            1.0).float()), SWEEP_TRIALS,
+        SWEEP_TRIALS * (tree.n_basic + 1) * 4, roof, out)
+    del one
+    launches = read_counts(record, "project", ("stream", "stream_log",
+                                                "adjoint"))
+    log(f"[project] CheckpointedSweep: {SWEEP_BATCHES} batches x "
+        f"{SWEEP_TRIALS} trials in {sweep_s:.3f} s uninterrupted; stopped "
+        f"at batch {SWEEP_STOP}, resumed from its checkpoint: the final "
+        f"state bit-equal (mean {full.mean!r}, std {full.std!r}); path "
+        f"launches {launches}")
+    out["sweep_s"] = sweep_s
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - wall0
+    log(f"[project] phase wall time {out['wall_s']:.3f} s")
+    record["project"] = out
+
+
+def phase_markov(device, record: dict) -> None:
+    """(13) Markov submodels in f64 on the card."""
+    from scipy.sparse import csr_matrix, diags
+    from scipy.sparse.linalg import expm_multiply, spsolve_triangular
+
+    from canopy_tpu_torch.ops import markov
+    from canopy_tpu_torch.utils.markov_models import (birth_death_csr,
+                                                      random_lower_csr,
+                                                      repairable_components)
+    from canopy_tpu_torch.utils.profiling import RooflineAccountant
+
+    roof = RooflineAccountant()
+    out: dict = {}
+    wall0 = time.perf_counter()
+    rng = np.random.default_rng(SLICE_SEED)
+    reset_counts()
+
+    # (a) The stationary distribution of the 10,000-state CSR chain: the
+    # host factorization, then the two blocked substitutions on the card.
+    sp = birth_death_csr(MARKOV_STATES, seed=3)
+    factors = []
+    sparse_lu = markov.sparse_lu
+
+    def keep_factors(*args, **kwargs):
+        factors.append(sparse_lu(*args, **kwargs))
+        return factors[-1]
+
+    markov.sparse_lu = keep_factors
+    try:
+        t0 = time.perf_counter()
+        pi = markov.markov_stationary((sp.indptr, sp.indices, sp.data),
+                                      method="sparse", device=device)
+        torch.cuda.synchronize()
+        stationary_s = time.perf_counter() - t0
+    finally:
+        markov.sparse_lu = sparse_lu
+    check(pi.device.type == "cuda", f"pi on {pi.device}")
+    pi_h = pi.cpu().numpy()
+    resid = float(np.abs(pi_h @ sp).max())
+    check(abs(pi_h.sum() - 1.0) < 1e-8 and resid < 1e-10 and
+          bool((pi_h > 0).all()),
+          f"stationary: sum {pi_h.sum()!r}, |pi Q| {resid:.3e}")
+    (lu,) = factors
+    e_last = torch.zeros(MARKOV_STATES, dtype=torch.float64, device=device)
+    e_last[-1] = 1.0
+    device_call("lu-solve-10k", lambda: lu.solve(e_last), MARKOV_STATES,
+                sum(t.numel() * t.element_size() for bt in (lu.L, lu.U)
+                    for t in (bt.dense, bt.off_idx, bt.off_val))
+                + 2 * MARKOV_STATES * 8, roof, out)
+    log(f"[markov] markov_stationary, {MARKOV_STATES} states (CSR, "
+        f"{sp.nnz} entries): {stationary_s:.3f} s, most of it the host "
+        f"factorization ({lu.nnz_factors} factor entries, "
+        f"{lu.L.n_blocks} blocks); sum - 1 = {pi_h.sum() - 1.0:.3e}, "
+        f"max |pi Q| {resid:.3e} (limit 1e-10), every pi > 0")
+    out["stationary_s"] = stationary_s
+
+    # (b) The dense path on the first MARKOV_DENSE_STATES states against
+    # numpy on the host.
+    n = MARKOV_DENSE_STATES
+    q = sp[:n, :n].toarray()
+    np.fill_diagonal(q, 0.0)
+    np.fill_diagonal(q, -q.sum(axis=1))
+    q_t = torch.from_numpy(q).to(device)
+    pi_d = device_call("dense-stationary-2k",
+                       lambda: markov.markov_stationary(q_t), n,
+                       (n * n + 2 * n) * 8, roof, out)
+    a = np.concatenate([q[:, :-1], np.ones((n, 1))], axis=1)
+    e = np.zeros(n)
+    e[-1] = 1.0
+    ref = np.linalg.solve(a.T, e)
+    diff = float(np.abs(pi_d.cpu().numpy() - ref).max())
+    check(diff <= DENSE_PI_ATOL, f"dense stationary: {diff:.3e} from numpy")
+    log(f"[markov] dense markov_stationary, {n} states: within {diff:.3e} "
+        f"of numpy's solve (limit {DENSE_PI_ATOL})")
+
+    # (c) The transient of MARKOV_COMPONENTS repairable components (a
+    # 2^12-state Kronecker-sum generator), batched over TRANSIENT_BATCH
+    # initial distributions.
+    Q = repairable_components(MARKOV_COMPONENTS, seed=5)
+    S = len(Q)
+    lam = float(np.max(-np.diag(Q))) * TRANSIENT_T * 1.0000001
+    K = markov._poisson_terms(lam, 1e-12)
+    check(TRANSIENT_K[0] <= K <= TRANSIENT_K[1], f"truncation K = {K}")
+    p0 = rng.random((TRANSIENT_BATCH, S))
+    p0 /= p0.sum(axis=1, keepdims=True)
+    Q_t, p0_t = torch.from_numpy(Q).to(device), torch.from_numpy(p0).to(device)
+    pt = device_call(
+        "transient-4096x1024",
+        lambda: markov.markov_transient(Q_t, p0_t, TRANSIENT_T),
+        TRANSIENT_BATCH * S, (S * S + 2 * TRANSIENT_BATCH * S) * 8, roof,
+        out)
+    rows = [0, 1, TRANSIENT_BATCH // 2, TRANSIENT_BATCH - 1]
+    want = expm_multiply(csr_matrix(Q.T) * TRANSIENT_T, p0[rows].T).T
+    diff = float(np.abs(pt[rows].cpu().numpy() - want).max())
+    check(diff <= TRANSIENT_ATOL, f"transient: {diff:.3e} from scipy")
+    flops = 2.0 * TRANSIENT_BATCH * S * S * (K - 1)
+    log(f"[markov] markov_transient, {S} states x {TRANSIENT_BATCH} "
+        f"initial distributions at t = {TRANSIENT_T} h: K = {K}, rows "
+        f"{rows} within {diff:.3e} of scipy's expm_multiply (limit "
+        f"{TRANSIENT_ATOL}); {flops / 1e12:.3f} TFLOP of f64 matmuls, "
+        f"{flops / out['transient-4096x1024']['ms'] / 1e9:.1f} TFLOP/s")
+    out["transient_K"] = K
+    del Q_t, p0_t, pt
+
+    # (d) BlockedTriangular.solve on the 10,000-row lower chain system.
+    indptr, indices, data, diag = random_lower_csr(MARKOV_STATES,
+                                                   3.0 / MARKOV_STATES,
+                                                   seed=0, chain=True)
+    bt = markov.compile_blocked_triangular(indptr, indices, data, diag,
+                                           lower=True, device=device)
+    b = np.random.default_rng(3).uniform(-1, 1, MARKOV_STATES)
+    b_t = torch.from_numpy(b).to(device)
+    x = device_call("blocked-solve-10k", lambda: bt.solve(b_t),
+                    MARKOV_STATES,
+                    sum(t.numel() * t.element_size()
+                        for t in (bt.dense, bt.off_idx, bt.off_val))
+                    + 2 * MARKOV_STATES * 8, roof, out)
+    full = (csr_matrix((data, indices, indptr),
+                       shape=(MARKOV_STATES,) * 2) + diags(diag)).tocsr()
+    want = spsolve_triangular(full, b, lower=True)
+    err = float(np.max(np.abs(x.cpu().numpy() - want)
+                       / (BLOCKED_TOL + BLOCKED_TOL * np.abs(want))))
+    check(err <= 1.0, f"blocked solve: {err:.3e} of its tolerance")
+    log(f"[markov] BlockedTriangular.solve, {MARKOV_STATES} rows "
+        f"({bt.n_blocks} blocks of {bt.block}): {err:.3e} of its "
+        f"tolerance (rtol = atol = {BLOCKED_TOL}) against scipy's "
+        f"spsolve_triangular")
+    # Torch operations only: no kernel of csrc/ runs on this path.
+    out["launches"] = read_counts(record, "markov", ())
+    out["wall_s"] = time.perf_counter() - wall0
+    log(f"[markov] phase wall time {out['wall_s']:.3f} s")
+    record["markov"] = out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -2529,6 +2939,8 @@ def main() -> int:
     phase_spill(device, record)
     phase_block(device, record)
     phase_et(device, record)
+    phase_project(device, record)
+    phase_markov(device, record)
     check("jax" not in sys.modules, "the port imported jax")
     for name in KERNELS:
         record[name]["launches"] = record["paths"][PATH_OF[name]][name]

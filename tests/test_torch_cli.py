@@ -92,19 +92,31 @@ def test_profile_writes_a_torch_profiler_trace(tmp_path):
     assert (prof / "ops.txt").read_text().strip()
 
 
+#: A project file that breaks the project grammar (``num-trials`` is an
+#: xsd positiveInteger).
+BAD_PROJECT = ("<canopy-project><input-files><file>m.xml</file>"
+               "</input-files><options><limits num-trials=\"0\"/>"
+               "</options></canopy-project>")
+
+
 @pytest.mark.parametrize("argv,needle", [
     (["--device", "cuda"], "cuda"),
     (["--device", "cpu", "--validate"], "RELAX NG"),
     # The id is the one this case had when it checked --sil's refusal,
     # which named ROADMAP.md; --sil runs now
-    # (test_torch_alignment_sil.py::test_cli_writes_sil_and_curve), so the
-    # case checks --project, which needs RELAX NG validation.
+    # (test_torch_alignment_sil.py::test_cli_writes_sil_and_curve), and
+    # --project too (test_torch_project.py), so the case checks that a
+    # project file breaking the grammar exits 1 with the grammar's message.
     pytest.param(["--device", "cpu", "--project", "project.xml"],
-                 "RELAX NG", id="argv2-ROADMAP.md"),
+                 "num-trials of element limits is not positiveInteger",
+                 id="argv2-ROADMAP.md"),
 ])
-def test_errors_exit_nonzero_with_a_message(capsys, argv, needle):
+def test_errors_exit_nonzero_with_a_message(capsys, tmp_path, monkeypatch,
+                                            argv, needle):
     import torch
     if argv[1] == "cuda" and torch.cuda.is_available():
         pytest.skip("a CUDA device exists here")
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "project.xml").write_text(BAD_PROJECT)
     assert torch_main([fixture_path("aralia_like_small"), *argv]) == 1
     assert needle in capsys.readouterr().err

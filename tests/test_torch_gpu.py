@@ -816,3 +816,59 @@ def test_replay_ring_widths_match_plain(cuda_device, n_trials):  # noqa: F811
     senc = tsk.tree_stream_encoding(tree)
     assert torch.equal(top, tsk.stream_forward(
         senc, tsk.stage_basic(senc, p), [])[0])
+
+
+def test_markov_on_cuda_matches_the_cpu(cuda_device):  # noqa: F811
+    """``ops/markov.py`` on the card against the port on the CPU, within
+    1e-12 (transient and dense stationary absolute, the blocked and LU
+    solves relative to the largest entry)."""
+    from canopy_tpu_torch.ops import markov
+    from canopy_tpu_torch.utils.markov_models import (birth_death_csr,
+                                                      random_lower_csr,
+                                                      repairable_components)
+    cpu = torch.device("cpu")
+    Q = repairable_components(8, seed=1)
+    p0 = np.random.default_rng(2).random((16, 256))
+    p0 /= p0.sum(axis=1, keepdims=True)
+    got = markov.markov_transient(Q, p0, 30.0, device=cuda_device)
+    assert got.device.type == "cuda"
+    want = markov.markov_transient(Q, p0, 30.0, device=cpu)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-12)
+    sp = birth_death_csr(600, seed=3)
+    for method in ("dense", "sparse"):
+        q = sp.toarray()
+        got = markov.markov_stationary(torch.from_numpy(q).to(cuda_device),
+                                       method=method)
+        want = markov.markov_stationary(torch.from_numpy(q), method=method)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                                   atol=1e-12)
+    indptr, indices, data, diag = random_lower_csr(2000, 3e-3, seed=0,
+                                                   chain=True)
+    b = np.random.default_rng(3).uniform(-1, 1, (3, 2000))
+    got, want = [markov.compile_blocked_triangular(
+        indptr, indices, data, diag, device=d).solve(
+            torch.from_numpy(b).to(d)).cpu().numpy()
+        for d in (cuda_device, cpu)]
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+
+
+def test_compiled_model_round_trip_on_cuda(cuda_device, tmp_path):  # noqa: F811,E501
+    """A saved and loaded slice tree through ``make_propagator`` on the
+    card gives tops bit-equal to the tree before saving, on samples of
+    the loaded tape under the same key."""
+    from canopy_tpu_torch.compiler.expr_tape import ExpressionTape
+    from canopy_tpu_torch.io.compiled_io import load_compiled, save_compiled
+    _m, tree = load_tree("canopy_tpu_torch", "torch_slice_plant",
+                         tree_name="slice")
+    tape = ExpressionTape.build([e.expression for e in tree.basic_events])
+    path = tmp_path / "slice.npz"
+    save_compiled(path, tree, tape)
+    loaded, loaded_tape = load_compiled(path)
+    samples = loaded_tape.sample((7, 0), 65_536, 8760.0, cuda_device)
+    assert torch.equal(samples, tape.sample((7, 0), 65_536, 8760.0,
+                                            cuda_device))
+    basic = torch.clamp(samples, 0.0, 1.0).float()
+    before = make_propagator(tree, cuda_device)(basic)
+    after = make_propagator(loaded, cuda_device)(basic)
+    assert torch.equal(after, before)

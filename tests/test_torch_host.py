@@ -5,7 +5,12 @@
 * Drift guard: each host module the port vendors is the ``canopy_tpu``
   original apart from its import lines.  Two normalizations are allowed:
   upstream source paths in docstrings lose their machine prefix, and the
-  native library's cache directory and log prefix name the port.
+  native library's cache directory and log prefix name the port.  Modules
+  copied definition by definition (project files, build info, compiled
+  model I/O, the sweep state, Markov's host halves) are compared without
+  docstrings, the port's package and program names normalized; the
+  Markov host functions that hand tensors to the device differ from the
+  originals in exactly the lines listed here.
 * The port's compiled trees, modular BDDs and stream programs equal the
   JAX package's on every fixture, array for array.
 * The standard-library XML reader builds the same element trees (names,
@@ -55,7 +60,14 @@ def test_import_leaves_jax_out():
             "canopy_tpu_torch.ops.gather_kernel, "
             "canopy_tpu_torch.ops.bsr_propagate, "
             "canopy_tpu_torch.utils.synthetic, canopy_tpu_torch.report, "
-            "canopy_tpu_torch.utils.scale_models; "
+            "canopy_tpu_torch.utils.scale_models, "
+            "canopy_tpu_torch.project, canopy_tpu_torch.build_info, "
+            "canopy_tpu_torch.schemas, canopy_tpu_torch.io.compiled_io, "
+            "canopy_tpu_torch.io.mef_writer, "
+            "canopy_tpu_torch.engine.checkpoint, "
+            "canopy_tpu_torch.ops.markov, "
+            "canopy_tpu_torch.utils.markov_models, "
+            "canopy_tpu_torch.utils.profiling; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'canopy_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -77,13 +89,115 @@ def _without_imports(path: str) -> list[str]:
 
 def _normalize(lines: list[str]) -> list[str]:
     return [re.sub(r"/\w+/reference/", "reference/", line)
-            .replace("canopy_tpu_torch", "canopy_tpu") for line in lines]
+            .replace("canopy_tpu_torch", "canopy_tpu")
+            .replace("canopy-tpu-torch", "canopy-tpu") for line in lines]
 
 
 @pytest.mark.parametrize("rel", VENDORED)
 def test_vendored_module_is_the_original(rel):
     assert _normalize(_without_imports(os.path.join(PORT_PKG, rel))) == \
         _normalize(_without_imports(os.path.join(JAX_PKG, rel)))
+
+
+def _definitions(path: str) -> dict[str, list[str]]:
+    """A module's top-level functions, classes and assignments by name:
+    their source lines, docstrings left out."""
+    with open(path) as fh:
+        text = fh.read()
+    lines = text.splitlines()
+    out = {}
+    for node in ast.parse(text).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            name = node.name
+        elif (isinstance(node, ast.Assign) and len(node.targets) == 1
+              and isinstance(node.targets[0], ast.Name)):
+            name = node.targets[0].id
+        else:
+            continue
+        drop = set()
+        for sub in ast.walk(node):
+            body = getattr(sub, "body", None)
+            if (isinstance(sub, (ast.FunctionDef, ast.ClassDef)) and body
+                    and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)
+                    and isinstance(body[0].value.value, str)):
+                drop.update(range(body[0].lineno - 1, body[0].end_lineno))
+        start = min([node.lineno] + [d.lineno for d in
+                                     getattr(node, "decorator_list", [])])
+        out[name] = _normalize([line for i, line in enumerate(
+            lines[start - 1:node.end_lineno], start - 1) if i not in drop])
+    return out
+
+
+#: Modules copied definition by definition, and the definitions that must
+#: be the originals (``None``: every one of the module).
+COPIED = {
+    "project.py": ["Project", "load_project"],
+    "build_info.py": ["_base_version", "_git", "build_info",
+                      "version_string"],
+    "io/compiled_io.py": None,
+    "engine/checkpoint.py": ["SweepState"],
+    "ops/markov.py": ["_poisson_terms", "_rcm_order"],
+}
+
+
+@pytest.mark.parametrize("rel", sorted(COPIED))
+def test_copied_definitions_are_the_originals(rel):
+    ours = _definitions(os.path.join(PORT_PKG, rel))
+    theirs = _definitions(os.path.join(JAX_PKG, rel))
+    names = COPIED[rel] or sorted(theirs)
+    if COPIED[rel] is None:
+        assert sorted(ours) == names
+    for name in names:
+        assert ours[name] == theirs[name], name
+
+
+#: The Markov host functions that build the device half: their only
+#: changes, as (the original's lines, the port's lines), stripped.
+MARKOV_CHANGES = {
+    "compile_blocked_triangular": [
+        (["dtype=jnp.float64) -> BlockedTriangular:"],
+         ["dtype=torch.float64, *,", "device) -> BlockedTriangular:"]),
+        (["dense=jnp.asarray(dense, dtype=dtype),",
+          "off_idx=jnp.asarray(off_idx),",
+          "off_val=jnp.asarray(off_val, dtype=dtype),"],
+         ["dense=torch.as_tensor(dense, dtype=dtype, device=device),",
+          "off_idx=torch.as_tensor(off_idx, dtype=torch.int64, "
+          "device=device),",
+          "off_val=torch.as_tensor(off_val, dtype=dtype, device=device),"]),
+    ],
+    "triangular_solve_levels": [
+        (["data: jnp.ndarray, diag: jnp.ndarray,",
+          "b: jnp.ndarray) -> jnp.ndarray:"],
+         ["data, diag, b: torch.Tensor) -> torch.Tensor:"]),
+        (["np.asarray(indptr), np.asarray(indices), np.asarray(data),",
+          "np.asarray(diag), lower=True)"],
+         ["np.asarray(indptr), np.asarray(indices), _host(data),",
+          "_host(diag), lower=True, device=b.device)"]),
+    ],
+    "sparse_lu": [
+        (['block: int = 128, ordering: str = "rcm") -> SparseLU:'],
+         ['block: int = 128, ordering: str = "rcm", *,',
+          "device) -> SparseLU:"]),
+        (["lower=True, block=block)"],
+         ["lower=True, block=block, device=device)"]),
+        (["lower=False, block=block)"],
+         ["lower=False, block=block, device=device)"]),
+    ],
+}
+
+
+@pytest.mark.parametrize("name", sorted(MARKOV_CHANGES))
+def test_markov_host_functions_change_only_their_device_lines(name):
+    import difflib
+    ours = _definitions(os.path.join(PORT_PKG, "ops", "markov.py"))[name]
+    theirs = _definitions(os.path.join(JAX_PKG, "ops", "markov.py"))[name]
+    matcher = difflib.SequenceMatcher(a=theirs, b=ours, autojunk=False)
+    changes = [([line.strip() for line in theirs[i1:i2]],
+                [line.strip() for line in ours[j1:j2]])
+               for tag, i1, i2, j1, j2 in matcher.get_opcodes()
+               if tag != "equal"]
+    assert changes == MARKOV_CHANGES[name]
 
 
 def test_vendored_native_source_is_the_original():
