@@ -12,10 +12,11 @@ Examples:
 ``--device`` (default ``cuda``) names where the analysis runs; with no
 usable CUDA device the run stops with an error instead of moving to the
 CPU.  ``--project`` files are validated against the bundled project
-grammar (checked by hand, ``io/xml.Validator``); their input files come
-before the positional ones, and flags given on the command line
-override their options.  ``--validate`` needs a RELAX NG engine (lxml),
-which this package does not have: it exits with an error.
+grammar (``io/xml.Validator``); their input files come before the
+positional ones, and flags given on the command line override their
+options.  ``--validate [SCHEMA]`` validates every input file against a
+RELAX NG grammar (default: the bundled MEF grammar) with the same
+interpreter.
 """
 
 from __future__ import annotations
@@ -164,9 +165,6 @@ def main(argv: list[str] | None = None) -> int:
     try:
         from ._device import resolve_device
         device = resolve_device(args.device)
-        if args.validate:
-            from .io.xml import Validator
-            Validator(args.validate)  # Raises: no RELAX NG engine.
         input_files = list(args.input_files)
         output = args.output
         if args.project:
@@ -183,9 +181,14 @@ def main(argv: list[str] | None = None) -> int:
                   file=sys.stderr)
             return 2
         args.output = output
+        schema = args.validate
+        if schema == "__default__":
+            from .schemas import default_schema_path
+            schema = default_schema_path()
         from .mef.initializer import Initializer
         init = Initializer(input_files, settings,
-                           allow_extern=args.allow_extern)
+                           allow_extern=args.allow_extern,
+                           schema_path=schema)
         from .engine.analysis import RiskAnalysis
         from .utils.profiling import trace
         with trace(args.profile, cuda=device.type == "cuda"):

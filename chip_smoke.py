@@ -160,7 +160,9 @@ false or the package is missing).  Phases, each raising on failure:
    ``SWEEP_TRIALS`` trials (each batch samples the tape under ``(seed,
    batch)`` and runs the stream kernel), stopped by an exception at batch
    ``SWEEP_STOP`` and resumed from its checkpoint: its final state equal
-   to the uninterrupted sweep's, bit for bit;
+   to the uninterrupted sweep's, bit for bit; the flag-driven run of (a)
+   takes ``--validate`` (the slice against the bundled MEF grammar), and
+   its XML report validates against the report grammar;
 13. the path ``markov`` (f64, torch operations): ``markov_stationary`` of
    ``tests/test_markov.py``'s 10,000-state CSR birth-death chain (host
    LU, the blocked substitutions on the card; its test's checks), the
@@ -171,10 +173,26 @@ false or the package is missing).  Phases, each raising on failure:
    10,000-row lower chain system against ``spsolve_triangular``.  Every
    device call of phases 12-13 is timed by CUDA events beside its
    ``RooflineAccountant`` bytes share and peak memory, and each phase
-   prints its wall time.
+   prints its wall time;
+14. the path ``parallel`` (``canopy_tpu_torch/parallel/``): (a) one NCCL
+   rank on the card: ``dryrun_multichip``, then every entry point at full
+   width (``parallel_steps``): the stream step on the slice's BDD module
+   at ``PARALLEL_STREAM_TRIALS``, the grad step on it at
+   ``PARALLEL_GRAD_TRIALS`` f32 trials (within ``GRAD_RTOL`` of the f64
+   grad step), the replay step on the 65k tree, partition and pipeline
+   on the reordered ``plant_hier_9363`` tree in slabs, the cut-set
+   quantifier on the slice's minimal cut sets (f64, within
+   ``PROB_RTOL``); every sharded top bit-equal to the unsharded path on
+   the same trials; (b) ``PARALLEL_RANKS`` spawned ranks sharing the card
+   over gloo (``PARALLEL_RANK_TRIALS`` trials per rank on the stream
+   step; gate rows and levels split over both ranks), each running
+   ``dryrun_multichip`` and the same steps, importing no JAX.  Logged:
+   CUDA-event ms per rank and step beside the unsharded path's, the bytes
+   each collective moved, the collectives copied through host memory,
+   the launches and the phase's wall time.
 
-Each path (5's two, 6, 7, 8, 9's two, 10's two, 11's ``et`` and 12's
-``project``) runs with the
+Each path (5's two, 6, 7, 8, 9's two, 10's two, 11's ``et``, 12's
+``project`` and 14's ``parallel``) runs with the
 launch counts set to 0 just before it and read just after; a kernel of the
 path that never launched fails the run.  Long output goes to ``chiprun_out/``.  The last lines are the
 kernels' JSON record (with each kernel's bound: the larger of its bytes
@@ -2632,10 +2650,11 @@ def phase_project(device, record: dict) -> None:
                                 f"{proc.stderr[-2000:]}")
     with open(project_report) as fh:
         by_project = json.load(fh)
-    by_flags, flags_s = _run_cli(
-        [SLICE_MODEL, "--device", device.type, "--bdd", "--probability",
-         "--importance", "--uncertainty", "--num-trials",
-         str(PROJECT_TRIALS), "--seed", str(PROJECT_SEED)], "project_flags")
+    flags = [SLICE_MODEL, "--device", device.type, "--bdd",
+             "--probability", "--importance", "--uncertainty",
+             "--num-trials", str(PROJECT_TRIALS), "--seed",
+             str(PROJECT_SEED), "--validate"]
+    by_flags, flags_s = _run_cli(flags, "project_flags")
     check(by_project["fault_trees"] == by_flags["fault_trees"] and
           by_project["settings"] == by_flags["settings"],
           "--project report differs from the flag-driven one")
@@ -2651,6 +2670,29 @@ def phase_project(device, record: dict) -> None:
         f"{len(ft['importance'])} importance rows and the uncertainty "
         f"statistics (mean {ft['uncertainty']['mean']!r}) equal")
     out["project"] = {"project_s": project_s, "flags_s": flags_s}
+
+    # The same flag-driven run (its input validated against the bundled
+    # MEF grammar) writing the XML report, which validates against the
+    # report grammar and carries the same probability.
+    from canopy_tpu_torch.io.xml import Document, Validator
+    from canopy_tpu_torch.schemas import report_schema_path
+    xml_report = os.path.join(OUT_DIR, "slice_report.xml")
+    t0 = time.perf_counter()
+    check(cli_main([*flags, "-o", xml_report]) == 0, "--validate run "
+                                                     "exited non-zero")
+    validate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    doc = Document(xml_report, Validator(report_schema_path()))
+    report_s = time.perf_counter() - t0
+    (analysis,) = doc.root.child("results").children("fault-tree-analysis")
+    xml_p = analysis.child("probability").attribute("value", float)
+    check(_rel(xml_p, ft["probability"]) <= PROB_RTOL,
+          f"XML report probability {xml_p!r} vs {ft['probability']!r}")
+    log(f"[project] --validate: the slice validated against mef.rng and "
+        f"quantified in {validate_s:.3f} s; its XML report "
+        f"({os.path.getsize(xml_report)} bytes) validated against "
+        f"report.rng in {report_s:.3f} s, probability {xml_p!r}")
+    out["validate"] = {"cli_s": validate_s, "report_validate_s": report_s}
 
     # (b) --version: git-derived where the tree is a git checkout.
     stdout = io.StringIO()
@@ -2911,6 +2953,355 @@ def phase_markov(device, record: dict) -> None:
     record["markov"] = out
 
 
+#: Phase 14 (path ``parallel``): trials of the stream step on one rank
+#: (14a) and per rank (14b), of the grad, replay and tree steps, and of
+#: the cut-set quantifier; the plant tree's trials go through in slabs.
+PARALLEL_STREAM_TRIALS = 1 << 20
+PARALLEL_RANK_TRIALS = 1 << 19
+PARALLEL_GRAD_TRIALS = 65_536
+PARALLEL_REPLAY_TRIALS = 65_536
+PARALLEL_TREE_TRIALS = 65_536
+PARALLEL_TREE_SLAB = 8_192
+PARALLEL_CUTSET_TRIALS = 65_536
+PARALLEL_SEED = 20271
+PARALLEL_RANKS = 2
+#: Seconds a collective may wait before its rank fails.
+PARALLEL_TIMEOUT_S = 300
+#: The kernels the parallel path runs inside its sharded steps.
+PARALLEL_KERNELS = ("stream", "stream_log", "adjoint", "replay")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def parallel_programs() -> dict:
+    """The host-built inputs of phase 14, built once and handed to every
+    rank: the slice's big BDD module program, the 65k replay tree and its
+    program, the reordered plant tree, the slice tree's minimal cut sets
+    as a matrix."""
+    from canopy_tpu_torch.compiler.bdd import build_bdd
+    from canopy_tpu_torch.compiler.modules import build_modular_bdd
+    from canopy_tpu_torch.compiler.reorder import (locality_reorder,
+                                                   random_shuffle)
+    from canopy_tpu_torch.compiler.zbdd import bdd_minimal_cut_sets
+    from canopy_tpu_torch.engine.cutset_quantify import build_cutset_matrix
+    from canopy_tpu_torch.ops.stream_kernel import (bdd_stream_encoding,
+                                                    compile_replay_stream,
+                                                    encode_replay)
+    from canopy_tpu_torch.utils.synthetic import (synthetic_compiled_tree,
+                                                  synthetic_hierarchical_tree)
+    times = {}
+    t0 = time.perf_counter()
+    slice_tree = load_tree("torch_slice_plant")
+    chain = build_modular_bdd(slice_tree).chain
+    module = bdd_stream_encoding(max((b for b, _ in chain),
+                                     key=lambda b: b.n_nodes))
+    products, _truncated = bdd_minimal_cut_sets(
+        build_bdd(slice_tree, house_states=slice_tree.house_state_vector()),
+        limit_order=20, with_truncation=True)
+    matrix = build_cutset_matrix(products, slice_tree.n_basic)
+    times["slice_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    replay_tree = synthetic_compiled_tree(**REPLAY_TREE)
+    replay = encode_replay(compile_replay_stream(replay_tree))
+    times["replay_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with open(os.path.join(FIXTURES, "golden.json")) as fh:
+        gold = json.load(fh)["plant_hier_9363"]
+    plant = synthetic_hierarchical_tree(**gold["generator"])
+    plant = locality_reorder(random_shuffle(plant, seed=1).tree,
+                             hot_first=True).tree
+    times["plant_s"] = time.perf_counter() - t0
+    return {"module": module, "replay_tree": replay_tree, "replay": replay,
+            "plant": plant, "matrix": matrix, "build": times}
+
+
+def _host_only(progs: dict) -> dict:
+    """``progs`` with the encodings' caches emptied (they hold device
+    tables; a rank rebuilds what it needs on its own device)."""
+    import copy
+    out = dict(progs)
+    for key in ("module", "replay"):
+        out[key] = copy.copy(progs[key])
+        out[key]._cache = {}
+    return out
+
+
+def _uniform(shape, seed: int, device, lo=0.0, hi=1.0,
+             dtype=torch.float32) -> torch.Tensor:
+    """The same draw on every rank: a seeded generator on the card."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand(shape, generator=gen, device=device,
+                      dtype=dtype).mul_(hi - lo).add_(lo)
+
+
+def _collective_bytes(fn):
+    """``(fn(), bytes each collective moved during the call)``."""
+    from canopy_tpu_torch.parallel.distributed import COLLECTIVE_BYTES
+    before = dict(COLLECTIVE_BYTES)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before.get(k, 0) for k, v in
+                 COLLECTIVE_BYTES.items() if v != before.get(k, 0)}
+
+
+def parallel_steps(progs: dict, device, stream_trials: int,
+                   label: str) -> dict:
+    """Every parallel entry point at full width on this rank, each held to
+    the unsharded single-device path on the same trials (rank 0 runs the
+    unsharded path on the gathered batch).  Returns what was measured."""
+    import torch.distributed as dist
+    from canopy_tpu_torch.engine.cutset_quantify import (
+        mcub, product_probabilities, rare_event)
+    from canopy_tpu_torch.engine.propagate import top_event_probability
+    from canopy_tpu_torch.ops.stream_kernel import (replay_propagate,
+                                                    stream_propagate)
+    from canopy_tpu_torch.parallel.mesh import make_mesh
+    from canopy_tpu_torch.parallel.partition import \
+        make_partitioned_propagator
+    from canopy_tpu_torch.parallel.pipeline import (make_pipe_mesh,
+                                                    make_pipeline_propagator)
+    from canopy_tpu_torch.parallel.quantify import (
+        gather_trials, shard_trials, sharded_cutset_quantifier,
+        sharded_replay_step, sharded_stream_grad_step, sharded_stream_step)
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    lead = rank == 0
+    mesh = make_mesh(device)                            # trials over all
+    tp_mesh = make_mesh(device, model_parallelism=world)    # rows over all
+    pipe_mesh = make_pipe_mesh(device, pipe=world)
+    out: dict = {"rank": rank, "world": world, "steps": {}}
+    steps = out["steps"]
+    enc = progs["module"]
+    n_cols = int(enc.staged_cols.max()) + 1
+    none = np.zeros(0, np.float32)
+
+    def record(name, local_ms, whole_ms, moved, **extra):
+        steps[name] = {"ms": local_ms, "unsharded_ms": whole_ms,
+                       "collective_bytes": moved, **extra}
+        whole = "rank 0 times" if whole_ms is None else f"{whole_ms:.3f} ms"
+        log(f"[parallel {label}] rank {rank}/{world} {name}: {local_ms:.3f} "
+            f"ms sharded, unsharded {whole}; collectives {moved}; {extra}")
+
+    # The stream step on the slice's BDD module (the step kernel), on
+    # PRA-scale probabilities (phase 3's draw).
+    x = _uniform((stream_trials * world, n_cols), PARALLEL_SEED, device, 0.0,
+                 0.02)
+    local = shard_trials(mesh, x)
+    step = sharded_stream_step(enc, mesh, none)
+    tops, moved = _collective_bytes(lambda: gather_trials(mesh, step(local)))
+    ms = cuda_ms(lambda: step(local), 3)
+    whole_ms = None
+    if lead:
+        whole = stream_propagate(enc, x, none)
+        check(torch.equal(tops, whole), f"{label}: sharded stream tops "
+                                        "differ from the unsharded kernel's")
+        whole_ms = cuda_ms(lambda: stream_propagate(enc, x, none), 3)
+    record("stream", ms, whole_ms, moved, trials=int(local.shape[0]),
+           ops=enc.n_ops, **({"bit_equal": True} if lead else {}))
+    del x, local, tops
+
+    # The grad step on the same program (level-parallel logged forward,
+    # gather-form backward).
+    x = _uniform((PARALLEL_GRAD_TRIALS, n_cols), PARALLEL_SEED + 1, device,
+                 0.0, 0.02)
+    local = shard_trials(mesh, x)
+    grad_step = sharded_stream_grad_step(enc, mesh, none)
+    (tops_l, grad_l), _ = _collective_bytes(lambda: grad_step(local))
+    tops_g, grad_g = gather_trials(mesh, tops_l), gather_trials(mesh, grad_l)
+    ms = cuda_ms(lambda: grad_step(local), 3)
+    whole_ms, extra = None, {}
+    if lead:
+        w_tops, w_grad = grad_step(x)
+        same = torch.equal(tops_g, w_tops) and torch.equal(grad_g, w_grad)
+        diff = float((grad_g - w_grad).abs().max())
+        g64 = sharded_stream_grad_step(enc, mesh, none,
+                                       torch.float64)(x)[1]
+        err = _grad_error(grad_g.T, g64.T)
+        check(err <= GRAD_RTOL["f32"], f"{label}: grad vs f64 {err:.3e}")
+        check(same, f"{label}: sharded grad differs from the unsharded "
+                    f"step (max abs {diff:.3e})")
+        whole_ms = cuda_ms(lambda: grad_step(x), 3)
+        extra = {"bit_equal": same, "grad_vs_f64": err}
+    record("stream_grad", ms, whole_ms, {}, trials=int(local.shape[0]),
+           **extra)
+    del x, local
+
+    # The replay step on the 65k tree.
+    rtree, renc = progs["replay_tree"], progs["replay"]
+    rhouse = rtree.house_state_vector()
+    x = _uniform((PARALLEL_REPLAY_TRIALS, rtree.n_basic), PARALLEL_SEED + 2,
+                 device, 0.0, 0.05)
+    local = shard_trials(mesh, x)
+    rstep = sharded_replay_step(renc, mesh, rhouse)
+    tops = gather_trials(mesh, rstep(local))
+    ms = cuda_ms(lambda: rstep(local), 3)
+    whole_ms = None
+    if lead:
+        check(torch.equal(tops, replay_propagate(renc, x, rhouse)),
+              f"{label}: sharded replay tops differ from the unsharded "
+              "kernel's")
+        whole_ms = cuda_ms(lambda: replay_propagate(renc, x, rhouse), 3)
+    record("replay", ms, whole_ms, {}, trials=int(local.shape[0]),
+           **({"bit_equal": True} if lead else {}))
+    del x, local, tops
+
+    # Partition (gate rows over every rank) and pipeline (levels over
+    # every rank) on the reordered plant tree, slab by slab.
+    plant = progs["plant"]
+    part = make_partitioned_propagator(plant, tp_mesh)
+    pipe = make_pipeline_propagator(plant, pipe_mesh)
+    house = torch.zeros(plant.n_house, device=device)
+    moved_part = moved_pipe = None
+    part_ms = pipe_ms = gather_ms = 0.0
+    for s in range(PARALLEL_TREE_TRIALS // PARALLEL_TREE_SLAB):
+        x = _uniform((PARALLEL_TREE_SLAB, plant.n_basic),
+                     PARALLEL_SEED + 10 + s, device, 1e-4, 5e-3)
+        with torch.no_grad():
+            got, m1 = _collective_bytes(lambda: part(x, house))
+            got_pipe, m2 = _collective_bytes(lambda: pipe(x, house))
+            want = top_event_probability(plant, x, house)
+            check(torch.equal(got, want), f"{label}: partition tops differ "
+                                          "from the gather engine's")
+            check(torch.equal(got_pipe, want), f"{label}: pipeline tops "
+                                               "differ from the gather "
+                                               "engine's")
+            if s == 0:
+                moved_part, moved_pipe = m1, m2
+                part_ms = cuda_ms(lambda: part(x, house), 2)
+                pipe_ms = cuda_ms(lambda: pipe(x, house), 2)
+                gather_ms = cuda_ms(
+                    lambda: top_event_probability(plant, x, house), 2)
+        del x, got, got_pipe, want
+    record("partition", part_ms, gather_ms, moved_part,
+           slab=PARALLEL_TREE_SLAB, trials=PARALLEL_TREE_TRIALS,
+           bit_equal=True)
+    record("pipeline", pipe_ms, gather_ms, moved_pipe,
+           slab=PARALLEL_TREE_SLAB, trials=PARALLEL_TREE_TRIALS,
+           bit_equal=True)
+
+    # The cut-set quantifier on the slice's minimal cut sets (f64).
+    matrix = progs["matrix"]
+    x = _uniform((PARALLEL_CUTSET_TRIALS, matrix.n_basic), PARALLEL_SEED + 3,
+                 device, 0.0, 0.1, torch.float64)
+    quantify = sharded_cutset_quantifier(matrix, tp_mesh)
+    local = shard_trials(tp_mesh, x, ("data",))
+    (re_l, mcub_l), moved = _collective_bytes(lambda: quantify(local))
+    re_g = gather_trials(tp_mesh, re_l, ("data",))
+    mcub_g = gather_trials(tp_mesh, mcub_l, ("data",))
+    ms = cuda_ms(lambda: quantify(local), 3)
+    q = product_probabilities(matrix, x)
+    err = max(float(((re_g - rare_event(q)).abs() / rare_event(q)).max()),
+              float(((mcub_g - mcub(q)).abs() / mcub(q)).max()))
+    check(err <= PROB_RTOL, f"{label}: cut sets rel err {err:.3e}")
+    whole_ms = cuda_ms(lambda: (rare_event(product_probabilities(matrix, x)),
+                                mcub(product_probabilities(matrix, x))), 3)
+    record("cutset", ms, whole_ms, moved, products=matrix.n_products,
+           rel_err=err)
+    return out
+
+
+def _parallel_rank(rank: int, port: int, progs: dict,
+                   device_type: str = "cuda") -> None:
+    """One rank of phase 14b (spawned; gloo between ranks, compute on the
+    one card); writes what it measured to ``parallel_rank<r>.json``."""
+    import torch.distributed as dist
+    from canopy_tpu_torch.ops.stream_kernel import LAUNCHES, reset_launches
+    from canopy_tpu_torch.parallel.distributed import (HOST_ROUTED,
+                                                       initialize)
+    from canopy_tpu_torch.parallel.dryrun import dryrun_multichip
+    from canopy_tpu_torch.parallel.mesh import make_mesh
+    device = torch.device(device_type)
+    t0 = time.perf_counter()
+    initialize(f"tcp://localhost:{port}", PARALLEL_RANKS, rank,
+               device=device, backend="gloo", timeout=PARALLEL_TIMEOUT_S)
+    mesh = make_mesh(device)
+    torch.cuda.synchronize()
+    reset_launches()
+    dry = dryrun_multichip(mesh, device)
+    run = parallel_steps(progs, device, PARALLEL_RANK_TRIALS, "14b")
+    torch.cuda.synchronize()
+    run.update(dryrun=dry, launches=dict(LAUNCHES),
+               host_routed=dict(HOST_ROUTED),
+               jax=sorted(m for m in sys.modules if m == "jax" or
+                          m.startswith(("jax.", "canopy_tpu."))),
+               wall_s=time.perf_counter() - t0)
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(OUT_DIR, f"parallel_rank{rank}.json"), "w") as fh:
+        json.dump(run, fh, default=str)
+
+
+def phase_parallel(device, record: dict) -> None:
+    """(14) The path ``parallel``: (a) one NCCL rank on the card, every
+    entry point at full width and ``dryrun_multichip``; (b) two ranks
+    sharing the card over gloo, each running ``dryrun_multichip`` and the
+    same steps."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from canopy_tpu_torch.parallel.distributed import (COLLECTIVE_BYTES,
+                                                       HOST_ROUTED,
+                                                       initialize)
+    from canopy_tpu_torch.parallel.dryrun import dryrun_multichip
+    from canopy_tpu_torch.parallel.mesh import make_mesh
+
+    wall0 = time.perf_counter()
+    progs = parallel_programs()
+    log(f"[parallel] host builds {progs['build']} (slice module "
+        f"{progs['module'].n_ops} ops; replay tree {progs['replay'].n_ops} "
+        f"ops, {progs['replay'].n_evicted} evictions; plant tree "
+        f"{progs['plant'].n_gates} gates; {progs['matrix'].n_products} "
+        f"slice cut sets)")
+    out: dict = {"build": progs["build"]}
+
+    # (a) One NCCL rank.
+    t0 = time.perf_counter()
+    initialize(f"tcp://localhost:{free_port()}", 1, 0, device=device,
+               timeout=PARALLEL_TIMEOUT_S)
+    check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+    dry = dryrun_multichip(make_mesh(device), device)
+    log(f"[parallel 14a] dryrun_multichip on one NCCL rank: {dry}")
+    reset_counts()
+    out["a"] = parallel_steps(progs, device, PARALLEL_STREAM_TRIALS, "14a")
+    launches = read_counts(record, "parallel", PARALLEL_KERNELS)
+    out["a"].update(dryrun=dry, launches=launches,
+                    collective_bytes=dict(COLLECTIVE_BYTES),
+                    wall_s=time.perf_counter() - t0)
+    dist.destroy_process_group()
+    log(f"[parallel 14a] launches {launches}; wall "
+        f"{out['a']['wall_s']:.3f} s")
+    torch.cuda.empty_cache()
+
+    # (b) Two ranks on the one card over gloo.
+    t0 = time.perf_counter()
+    mp.spawn(_parallel_rank, args=(free_port(), _host_only(progs),
+                                   device.type),
+             nprocs=PARALLEL_RANKS, join=True)
+    ranks = []
+    for rank in range(PARALLEL_RANKS):
+        with open(os.path.join(OUT_DIR, f"parallel_rank{rank}.json")) as fh:
+            ranks.append(json.load(fh))
+    for run in ranks:
+        check(run["jax"] == [], f"rank {run['rank']} imported {run['jax']}")
+        for name in PARALLEL_KERNELS:
+            check(run["launches"][name] > 0,
+                  f"14b rank {run['rank']}: kernel {name} never launched")
+        log(f"[parallel 14b] rank {run['rank']}: dryrun {run['dryrun']}; "
+            f"launches {run['launches']}; collectives through the host "
+            f"{run['host_routed']}; wall {run['wall_s']:.3f} s")
+    out["b"] = {"ranks": ranks, "wall_s": time.perf_counter() - t0}
+    out["host_routed"] = {"parent": dict(HOST_ROUTED),
+                          "ranks": [r["host_routed"] for r in ranks]}
+    out["wall_s"] = time.perf_counter() - wall0
+    log(f"[parallel] phase wall time {out['wall_s']:.3f} s (14b "
+        f"{out['b']['wall_s']:.3f} s with the spawn)")
+    record["parallel"] = out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -2941,6 +3332,7 @@ def main() -> int:
     phase_et(device, record)
     phase_project(device, record)
     phase_markov(device, record)
+    phase_parallel(device, record)
     check("jax" not in sys.modules, "the port imported jax")
     for name in KERNELS:
         record[name]["launches"] = record["paths"][PATH_OF[name]][name]

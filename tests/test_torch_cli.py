@@ -55,6 +55,15 @@ def _assert_same(got, want, path="report"):
     ["--rare-event", "--probability"],
     ["--mcub", "--probability", "--importance"],
     ["--pdag", "--probability", "--importance"],
+    # Cut-set paths (the products the sharded cut-set quantifier reads).
+    ["--zbdd", "--probability"],
+    ["--mocus", "--probability"],
+    ["--prime-implicants", "--probability"],
+    ["--limit-order", "3", "--probability"],
+    ["--cut-off", "1e-4", "--probability"],
+    ["--ccf", "--probability"],
+    ["--preprocessor", "--probability"],
+    ["--mocus", "--rare-event", "--probability"],
 ])
 def test_report_matches_jax_cli(tmp_path, flags):
     model = fixture_path("aralia_like_small")
@@ -99,9 +108,20 @@ BAD_PROJECT = ("<canopy-project><input-files><file>m.xml</file>"
                "</options></canopy-project>")
 
 
+#: A grammar using ``list``, which the port's RELAX NG interpreter does
+#: not take.
+LIST_GRAMMAR = ('<grammar xmlns="http://relaxng.org/ns/structure/1.0">'
+                '<start><element name="opsa-mef"><list><text/></list>'
+                '</element></start></grammar>')
+
+
 @pytest.mark.parametrize("argv,needle", [
     (["--device", "cuda"], "cuda"),
-    (["--device", "cpu", "--validate"], "RELAX NG"),
+    # --validate runs now (test_torch_relaxng.py::
+    # test_validate_flag_exits_zero); the case keeps its id and checks that
+    # a grammar outside the interpreter's RELAX NG subset exits 1.
+    pytest.param(["--device", "cpu", "--validate", "list.rng"], "RELAX NG",
+                 id="argv1-RELAX NG"),
     # The id is the one this case had when it checked --sil's refusal,
     # which named ROADMAP.md; --sil runs now
     # (test_torch_alignment_sil.py::test_cli_writes_sil_and_curve), and
@@ -118,5 +138,6 @@ def test_errors_exit_nonzero_with_a_message(capsys, tmp_path, monkeypatch,
         pytest.skip("a CUDA device exists here")
     monkeypatch.chdir(tmp_path)
     (tmp_path / "project.xml").write_text(BAD_PROJECT)
+    (tmp_path / "list.rng").write_text(LIST_GRAMMAR)
     assert torch_main([fixture_path("aralia_like_small"), *argv]) == 1
     assert needle in capsys.readouterr().err

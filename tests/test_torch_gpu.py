@@ -872,3 +872,34 @@ def test_compiled_model_round_trip_on_cuda(cuda_device, tmp_path):  # noqa: F811
     before = make_propagator(tree, cuda_device)(basic)
     after = make_propagator(loaded, cuda_device)(basic)
     assert torch.equal(after, before)
+
+
+def test_sharded_stream_step_on_one_nccl_rank(cuda_device,  # noqa: F811
+                                              tmp_path):
+    """``parallel.sharded_stream_step`` on a one-rank NCCL group launches
+    the stream kernel and equals ``stream_propagate`` to the bit."""
+    import torch.distributed as dist
+    from canopy_tpu_torch.parallel.distributed import initialize
+    from canopy_tpu_torch.parallel.mesh import make_mesh
+    from canopy_tpu_torch.parallel.quantify import (gather_trials,
+                                                    shard_trials,
+                                                    sharded_stream_step)
+    _m, tree = load_tree("canopy_tpu_torch", "aralia_like_ccf")
+    enc = tsk.encode_stream(tsk.compile_stream(tree))
+    house = tree.house_state_vector()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    basic = torch.rand((65_536, tree.n_basic), generator=gen,
+                       device="cuda") * 0.05
+    initialize(f"file://{tmp_path / 'rendezvous'}", 1, 0, device="cuda",
+               timeout=60)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh("cuda")
+        step = sharded_stream_step(enc, mesh, house)
+        before = tsk.LAUNCHES["stream"]
+        tops = gather_trials(mesh, step(shard_trials(mesh, basic)))
+        torch.cuda.synchronize()
+        assert tsk.LAUNCHES["stream"] > before
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(tops, tsk.stream_propagate(enc, basic, house))

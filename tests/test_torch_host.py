@@ -67,7 +67,13 @@ def test_import_leaves_jax_out():
             "canopy_tpu_torch.engine.checkpoint, "
             "canopy_tpu_torch.ops.markov, "
             "canopy_tpu_torch.utils.markov_models, "
-            "canopy_tpu_torch.utils.profiling; "
+            "canopy_tpu_torch.utils.profiling, "
+            "canopy_tpu_torch.parallel, canopy_tpu_torch.parallel.mesh, "
+            "canopy_tpu_torch.parallel.distributed, "
+            "canopy_tpu_torch.parallel.quantify, "
+            "canopy_tpu_torch.parallel.partition, "
+            "canopy_tpu_torch.parallel.pipeline, "
+            "canopy_tpu_torch.parallel.dryrun; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'canopy_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -138,6 +144,10 @@ COPIED = {
     "io/compiled_io.py": None,
     "engine/checkpoint.py": ["SweepState"],
     "ops/markov.py": ["_poisson_terms", "_rcm_order"],
+    "parallel/mesh.py": ["mesh_shape"],
+    "parallel/quantify.py": ["_pad_rows"],
+    "parallel/partition.py": ["_pad_rows", "_PaddedLevel", "_plan_levels"],
+    "parallel/pipeline.py": ["_LevelCode", "_merge_level", "plan_stages"],
 }
 
 

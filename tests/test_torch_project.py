@@ -3,7 +3,7 @@
 
 * Grammar verdicts: every project document of ``tests/test_project.py``,
   one mutation per rule of the grammar, and the xsd lexical forms'
-  edge cases; the port's hand-written check of ``schemas/project.rng``
+  edge cases; the port's RELAX NG interpreter on ``schemas/project.rng``
   (``io/xml.Validator``) must give lxml's RELAX NG verdict (the JAX
   package's ``Validator(project_schema_path())``) on each, exactly.
 * ``load_project`` gives the same ``Project`` in both packages (input
@@ -175,10 +175,21 @@ def test_grammar_error_names_file_and_line(tmp_path):
     assert "num-trials" in str(err.value)
 
 
-def test_other_grammars_still_need_relax_ng():
-    from canopy_tpu.schemas import default_schema_path
+def test_other_grammars_still_need_relax_ng(tmp_path):
+    """The name is the one this test had when every grammar but the
+    project grammar raised; the MEF grammar now loads and validates a
+    fixture, and a grammar outside the interpreter's RELAX NG subset (or
+    no grammar file at all) still raises ``IllegalOperation``."""
     from canopy_tpu_torch.errors import IllegalOperation
-    for path in (default_schema_path(), "__default__"):
+    from canopy_tpu_torch.schemas import default_schema_path
+    Document(os.path.join(FIXTURES, "demo_plant.xml"),
+             validator=Validator(default_schema_path()))
+    listed = tmp_path / "list.rng"
+    listed.write_text(
+        '<grammar xmlns="http://relaxng.org/ns/structure/1.0"><start>'
+        '<element name="r"><list><text/></list></element></start>'
+        '</grammar>')
+    for path in (str(listed), "__default__"):
         with pytest.raises(IllegalOperation, match="RELAX NG"):
             Validator(path)
 
