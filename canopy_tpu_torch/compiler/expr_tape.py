@@ -11,13 +11,17 @@ The build half is the JAX package's (``canopy_tpu/compiler/expr_tape.py``):
   folded on the host at build time; everything else becomes vectorized
   f64 torch ops over an optional trials axis, on the caller's device.
 
-Sampling replaces ``jax.random.fold_in(key, slot)`` with one
-``torch.Generator`` per deviate slot on the analysis device, seeded from
-``(seed, batch, slot)`` through numpy's ``SeedSequence``: deterministic,
-and a batch's draws do not depend on how many batches the run has.
-Gamma and beta deviates use Marsaglia-Tsang on generator-driven normals
-and uniforms (torch's own gamma sampler takes no generator); histograms
-draw their bins with ``torch.multinomial``.
+Sampling keys as the JAX tape keys: deviate slot ``s`` draws under
+``fold_in(key, s)``, through ``ops/prng.py``'s threefry counterparts of
+``jax.random``, so the same key gives the JAX tape's samples (integers and
+uniforms bit for bit, the transcendental transforms within a few ulps).
+The uniform, normal and lognormal deviates depend only on the key and the
+slot: one ``draw_standard`` launch draws them all (applying ``lo + (hi -
+lo) * u``, ``mean + sigma * z`` or ``exp(mu + sigma * z)`` in the kernel
+where the parameters are fixed, straight into the output columns), with
+the Gumbel noise and uniforms of every histogram.  Gamma and beta
+deviates draw in tape order, one ``draw_gamma`` launch each, because
+their parameters may themselves be sampled.
 
 Two evaluators are derived from one tape: ``evaluate_mean(mission_time,
 device)`` -> ``(n_out,)`` means, and ``sample(key, n_trials,
@@ -30,7 +34,6 @@ import functools
 import math
 from typing import Callable
 
-import numpy as np
 import torch
 
 from ..errors import LogicError
@@ -44,10 +47,15 @@ from ..mef.expr.random_deviate import (BetaDeviate, GammaDeviate, Histogram,
                                        LognormalDeviate, NormalDeviate,
                                        UniformDeviate)
 from ..mef.expr.test_event import TestFunctionalEvent, TestInitiatingEvent
+from ..ops.prng import (AFFINE, EXP_AFFINE, GUMBEL, NONE, NORMAL, UNIFORM,
+                        StandardTable, beta_from_logs, draw_gamma,
+                        draw_standard, fold_in_many, split)
 
-__all__ = ["ExpressionTape", "slot_generator"]
+__all__ = ["ExpressionTape"]
 
 _F64 = torch.float64
+_STANDARD = ("uniform-deviate", "normal-deviate", "lognormal-deviate")
+_DEVIATES = _STANDARD + ("gamma-deviate", "beta-deviate", "histogram")
 
 
 # ---------------------------------------------------------------------------
@@ -162,40 +170,6 @@ def _periodic_test_5(lam, mu, tau, theta, time):
     return 1.0 - op_f
 
 
-def slot_generator(key: tuple[int, ...], slot: int,
-                   device: torch.device) -> torch.Generator:
-    """The deviate generator of ``slot`` under ``key`` = (seed, batch)."""
-    state = np.random.SeedSequence([*key, slot]).generate_state(
-        1, np.uint64)[0]
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(state))
-    return gen
-
-
-def _gamma(k: torch.Tensor, n: int, gen: torch.Generator) -> torch.Tensor:
-    """Gamma(k, 1) draws by Marsaglia-Tsang (boosted for k < 1)."""
-    device = gen.device
-    k = torch.broadcast_to(k.to(_F64), (n,))
-    boost = k < 1.0
-    kk = torch.where(boost, k + 1.0, k)
-    d = kk - 1.0 / 3.0
-    c = 1.0 / torch.sqrt(9.0 * d)
-    out = torch.empty(n, dtype=_F64, device=device)
-    pending = torch.arange(n, device=device)
-    while pending.numel():
-        m = pending.numel()
-        z = torch.randn(m, generator=gen, dtype=_F64, device=device)
-        u = torch.rand(m, generator=gen, dtype=_F64, device=device)
-        dp, cp = d[pending], c[pending]
-        v = (1.0 + cp * z) ** 3
-        ok = (v > 0) & (torch.log(u) < 0.5 * z * z + dp - dp * v
-                        + dp * torch.log(torch.clamp(v, min=1e-300)))
-        out[pending[ok]] = (dp * v)[ok]
-        pending = pending[~ok]
-    u = torch.rand(n, generator=gen, dtype=_F64, device=device)
-    return torch.where(boost, out * u ** (1.0 / k), out)
-
-
 class ExpressionTape:
     """A compiled, batched evaluator for a set of output expressions."""
 
@@ -205,6 +179,8 @@ class ExpressionTape:
         self._n_slots = 0
         self._out_slots: list[int] = []
         self.n_deviates = 0
+        self._varying_cache: list[bool] | None = None
+        self._plan: dict | None = None
 
     # ==================================================================
     # Build.
@@ -305,148 +281,305 @@ class ExpressionTape:
     # Evaluate.
     # ==================================================================
 
-    def _run(self, mission_time: torch.Tensor, key=None,
-             n_trials: int | None = None):
-        """Interpret the tape; sample mode iff ``key`` is given."""
-        sampling = key is not None
+    def _evaluate(self, kind: str, aux, a: list, mission_time, const):
+        """One non-deviate op on its argument values."""
+        if kind == "const":
+            return const(aux)
+        if kind == "mission-time":
+            return mission_time
+        if kind == "alias":
+            return a[0]
+        if kind == "periodic-test":
+            if len(a) == 4:
+                return _periodic_test_4(*a)
+            if len(a) == 5:
+                return _periodic_test_5(*a)
+            # 11-arg flavor: host math is exact; deviate args are not
+            # supported on the tape yet.
+            raise LogicError(
+                "The 11-argument periodic-test with stochastic/"
+                "time-traced arguments is host-evaluated only.")
+        if kind == "ite":
+            cond, then_v, else_v = a
+            return torch.where(cond != 0, then_v, else_v)
+        if kind == "switch":
+            out = a[-1]
+            # Build from last case to first so earlier cases win.
+            pairs = list(zip(a[:-1:2], a[1:-1:2]))
+            for cond, val in reversed(pairs):
+                out = torch.where(cond != 0, val, out)
+            return out
+        return _ELEMENTWISE[kind](*a)
+
+    @staticmethod
+    def _deviate_mean(kind: str, aux, a: list):
+        if kind == "uniform-deviate":
+            lo, hi = a
+            return (lo + hi) / 2
+        if kind == "normal-deviate":
+            return a[0]
+        if kind == "lognormal-deviate":
+            if aux == "normal":
+                mu, sigma = a
+                return torch.exp(mu + sigma * sigma / 2)
+            return a[0]
+        if kind == "gamma-deviate":
+            k, theta = a
+            return k * theta
+        if kind == "beta-deviate":
+            alpha, beta = a
+            return alpha / (alpha + beta)
+        # Histogram: the weighted mean of the bins' midpoints.
+        n_bins = aux
+        bounds = torch.stack(list(torch.broadcast_tensors(*a[:n_bins + 1])),
+                             dim=-1)
+        weights = torch.stack(list(torch.broadcast_tensors(
+            *a[n_bins + 1:])), dim=-1)
+        mids = (bounds[..., :-1] + bounds[..., 1:]) / 2
+        return torch.sum(weights * mids, dim=-1) / torch.sum(weights, dim=-1)
+
+    def _run_mean(self, mission_time: torch.Tensor) -> torch.Tensor:
         device = mission_time.device
         values: list = [None] * self._n_slots
 
         def const(x):
             return torch.as_tensor(x, dtype=_F64, device=device)
 
-        def draw_shape():
-            return (n_trials,) if sampling else ()
-
-        def gen(slot):
-            return slot_generator(key, slot, device)
-
         for kind, slot, arg_slots, aux in self._ops:
             a = [values[s] for s in arg_slots]
-            if kind == "const":
-                values[slot] = const(aux)
-            elif kind == "mission-time":
-                values[slot] = mission_time
-            elif kind == "alias":
-                values[slot] = a[0]
-            elif kind == "uniform-deviate":
-                lo, hi = a
-                if sampling:
-                    u = torch.rand(n_trials, generator=gen(slot),
-                                   dtype=_F64, device=device)
-                    values[slot] = lo + (hi - lo) * u
+            if kind in _DEVIATES:
+                values[slot] = self._deviate_mean(kind, aux, a)
+            else:
+                values[slot] = self._evaluate(kind, aux, a, mission_time,
+                                              const)
+        # Time-step sweeps pass a vector of times: broadcast to its shape.
+        return self._stack(values, mission_time.shape, device)
+
+    def _stack(self, values: list, shape, device) -> torch.Tensor:
+        if not self._out_slots:
+            return torch.zeros(tuple(shape) + (0,), dtype=_F64,
+                               device=device)
+        return torch.stack([torch.broadcast_to(torch.as_tensor(
+            values[s], dtype=_F64, device=device), shape)
+            for s in self._out_slots], dim=-1)
+
+    # ==================================================================
+    # Sample.
+    # ==================================================================
+
+    def _varying(self) -> list[bool]:
+        """Per slot: whether a deviate reaches it (its value differs by
+        trial)."""
+        if self._varying_cache is None:
+            varying = [False] * self._n_slots
+            for kind, slot, arg_slots, _aux in self._ops:
+                varying[slot] = kind in _DEVIATES or any(
+                    varying[s] for s in arg_slots)
+            self._varying_cache = varying
+        return self._varying_cache
+
+    def _root(self, slot: int) -> int:
+        """The slot an alias chain ends at."""
+        while self._ops[slot][0] == "alias":
+            slot = self._ops[slot][2][0]
+        return slot
+
+    @staticmethod
+    def _lognormal_params(aux, a: list):
+        """``(mu, sigma)`` of a lognormal deviate (its error-factor flavor
+        converted as the JAX tape converts it)."""
+        if aux == "normal":
+            return a[0], a[1]
+        mean, ef, level = a
+        z_level = torch.special.ndtri((1.0 + level) / 2.0)
+        sigma = torch.log(ef) / z_level
+        return torch.log(mean) - sigma * sigma / 2, sigma
+
+    def _standard_params(self, kind: str, aux, a: list):
+        """``(transform, p0, p1)`` of a uniform, normal or lognormal
+        deviate: ``lo + (hi - lo) * u``, ``mean + sigma * z``, ``exp(mu +
+        sigma * z)``."""
+        if kind == "uniform-deviate":
+            lo, hi = a
+            return AFFINE, lo, hi - lo
+        if kind == "normal-deviate":
+            return AFFINE, a[0], a[1]
+        mu, sigma = self._lognormal_params(aux, a)
+        return EXP_AFFINE, mu, sigma
+
+    def _sample_plan(self, t_host: torch.Tensor) -> dict:
+        """What a sample at this mission time draws, keys aside: the
+        ``draw_standard`` rows, the columns of the block, and the host
+        values device operations read.  It depends on the mission time
+        alone, so the last one is kept."""
+        if self._plan is not None and self._plan["mission_time"] == \
+                float(t_host):
+            return self._plan
+        varying = self._varying()
+
+        # Every slot no deviate reaches, as a host scalar: the standard
+        # deviates' parameters come from here.
+        host: list = [None] * self._n_slots
+
+        def host_const(x):
+            return torch.as_tensor(x, dtype=_F64)
+
+        for kind, slot, arg_slots, aux in self._ops:
+            if not varying[slot]:
+                host[slot] = self._evaluate(
+                    kind, aux, [host[s] for s in arg_slots], t_host,
+                    host_const)
+
+        # The rows: the uniform, normal and lognormal deviates (transformed
+        # in the kernel where their parameters are fixed, each into its
+        # output columns), and the Gumbel noise and uniforms of
+        # histograms.  A row's key is its slot's (source 0) or one of the
+        # two halves of its slot's split (sources 1 and 2).
+        out_cols: dict[int, list[int]] = {}
+        for j, s in enumerate(self._out_slots):
+            out_cols.setdefault(self._root(s), []).append(j)
+        rows = []
+        col_of: dict[int, int] = {}    # slot -> its final values' column
+        raw_of: dict[int, int] = {}    # slot -> its standard draw's column
+        hist_of: dict[int, tuple[int, int]] = {}
+        n_cols = len(self._out_slots)
+        fixed: dict[tuple, list] = {}  # (kind, aux) -> [(slot, cols)]
+        for kind, slot, arg_slots, aux in self._ops:
+            if kind == "histogram":
+                hist_of[slot] = (n_cols, n_cols + aux)
+                rows += [(1, slot, GUMBEL, NONE, aux, b, n_cols + b, 0.0, 0.0)
+                         for b in range(aux)]
+                rows.append((2, slot, UNIFORM, NONE, 1, 0, n_cols + aux, 0.0,
+                             0.0))
+                n_cols += aux + 1
+            elif kind in _STANDARD:
+                draw = UNIFORM if kind == "uniform-deviate" else NORMAL
+                if any(varying[s] for s in arg_slots):
+                    rows.append((0, slot, draw, NONE, 1, 0, n_cols, 0.0, 0.0))
+                    raw_of[slot] = n_cols
+                    n_cols += 1
+                    continue
+                cols = out_cols.get(slot)
+                if cols is None:
+                    cols = [n_cols]
+                    n_cols += 1
+                col_of[slot] = cols[0]
+                fixed.setdefault((kind, aux), []).append((slot, cols))
+        # The fixed parameters of each (kind, flavor) in one vectorised
+        # pass.
+        for (kind, aux), items in fixed.items():
+            args = torch.tensor([[float(host[s]) for s in self._ops[slot][2]]
+                                 for slot, _cols in items], dtype=_F64)
+            transform, p0, p1 = self._standard_params(kind, aux,
+                                                      list(args.unbind(1)))
+            draw = UNIFORM if kind == "uniform-deviate" else NORMAL
+            for (slot, cols), a, b in zip(items, p0.tolist(), p1.tolist()):
+                rows += [(0, slot, draw, transform, 1, 0, c, a, b)
+                         for c in cols]
+        # The host values a device operation reads.
+        needed = sorted({s for kind, slot, arg_slots, _aux in self._ops
+                         if varying[slot] and slot not in col_of
+                         for s in arg_slots if not varying[s]} |
+                        {s for s in self._out_slots if not varying[s]})
+        self._plan = {
+            "mission_time": float(t_host), "rows": rows, "n_cols": n_cols,
+            "col_of": col_of, "raw_of": raw_of, "hist_of": hist_of,
+            "deviates": [op[1] for op in self._ops if op[0] in _DEVIATES],
+            "needed": needed,
+            "needed_values": torch.tensor([float(host[s]) for s in needed],
+                                          dtype=_F64)}
+        return self._plan
+
+    def _run_sample(self, mission_time: torch.Tensor, key,
+                    n_trials: int) -> torch.Tensor:
+        """Slot ``s`` draws under ``fold_in(key, s)``, as the JAX tape's
+        ``deviate_key`` gives it."""
+        device = mission_time.device
+        varying = self._varying()
+        plan = self._sample_plan(mission_time.detach().cpu())
+        col_of, raw_of, hist_of = (plan["col_of"], plan["raw_of"],
+                                   plan["hist_of"])
+        slot_key = dict(zip(plan["deviates"],
+                            fold_in_many(key, plan["deviates"])))
+        row_keys = {(0, s): k for s, k in slot_key.items()}
+        for s in hist_of:
+            row_keys[1, s], row_keys[2, s] = split(slot_key[s])
+        table = StandardTable()
+        for source, slot, draw, transform, stride, offset, col, p0, p1 in \
+                plan["rows"]:
+            table.add(row_keys[source, slot], draw, col, transform, p0, p1,
+                      stride, offset)
+        n_out = len(self._out_slots)
+        n_cols = plan["n_cols"]
+        block = torch.empty((n_trials, n_cols), dtype=_F64, device=device)
+        draw_standard(table, block)
+        values: list = [None] * self._n_slots
+        if plan["needed"]:
+            moved = plan["needed_values"].to(device)
+            for s, v in zip(plan["needed"], moved.unbind()):
+                values[s] = v
+
+        # 3. The rest in tape order: gamma, beta and histogram deviates
+        # (their parameters may be sampled) and every op they reach.
+        for kind, slot, arg_slots, aux in self._ops:
+            if not varying[slot]:
+                continue
+            a = [values[s] for s in arg_slots]
+            if slot in col_of:
+                values[slot] = block[:, col_of[slot]]
+            elif slot in raw_of:
+                x = block[:, raw_of[slot]]
+                if kind == "uniform-deviate":
+                    values[slot] = a[0] + (a[1] - a[0]) * x
+                elif kind == "normal-deviate":
+                    values[slot] = a[0] + a[1] * x
                 else:
-                    values[slot] = (lo + hi) / 2
-            elif kind == "normal-deviate":
-                mean, sigma = a
-                if sampling:
-                    z = torch.randn(n_trials, generator=gen(slot),
-                                    dtype=_F64, device=device)
-                    values[slot] = mean + sigma * z
-                else:
-                    values[slot] = mean
-            elif kind == "lognormal-deviate":
-                if aux == "normal":
-                    mu, sigma = a
-                    if sampling:
-                        z = torch.randn(n_trials, generator=gen(slot),
-                                        dtype=_F64, device=device)
-                        values[slot] = torch.exp(mu + sigma * z)
-                    else:
-                        values[slot] = torch.exp(mu + sigma * sigma / 2)
-                else:
-                    mean, ef, level = a
-                    z_level = torch.special.ndtri((1.0 + level) / 2.0)
-                    sigma = torch.log(ef) / z_level
-                    mu = torch.log(mean) - sigma * sigma / 2
-                    if sampling:
-                        z = torch.randn(n_trials, generator=gen(slot),
-                                        dtype=_F64, device=device)
-                        values[slot] = torch.exp(mu + sigma * z)
-                    else:
-                        values[slot] = mean
+                    mu, sigma = self._lognormal_params(aux, a)
+                    values[slot] = torch.exp(mu + sigma * x)
             elif kind == "gamma-deviate":
                 k, theta = a
-                if sampling:
-                    values[slot] = _gamma(k, n_trials, gen(slot)) * theta
-                else:
-                    values[slot] = k * theta
+                values[slot] = draw_gamma([slot_key[slot]], k,
+                                          n_trials)[0] * theta
             elif kind == "beta-deviate":
-                alpha, beta = a
-                if sampling:
-                    g = gen(slot)
-                    x = _gamma(alpha, n_trials, g)
-                    y = _gamma(beta, n_trials, g)
-                    values[slot] = x / (x + y)
-                else:
-                    values[slot] = alpha / (alpha + beta)
+                alphas = torch.stack([torch.broadcast_to(x, (n_trials,))
+                                      for x in a])
+                logs = draw_gamma(split(slot_key[slot]), alphas,
+                                  n_trials, log_space=True)
+                values[slot] = beta_from_logs(logs[0], logs[1])
             elif kind == "histogram":
-                n_bins = aux
-                bounds = torch.stack([torch.broadcast_to(x, draw_shape())
-                                      for x in a[:n_bins + 1]], dim=-1)
-                weights = torch.stack([torch.broadcast_to(x, draw_shape())
-                                       for x in a[n_bins + 1:]], dim=-1)
-                mids = (bounds[..., :-1] + bounds[..., 1:]) / 2
-                if sampling:
-                    g = gen(slot)
-                    w = torch.clamp(weights, min=0.0)
-                    if all(x.ndim == 0 for x in a[n_bins + 1:]):
-                        idx = torch.multinomial(w[0], n_trials,
-                                                replacement=True,
-                                                generator=g)
-                    else:
-                        idx = torch.multinomial(w, 1, generator=g)[:, 0]
-                    lo = torch.gather(bounds, -1, idx[:, None])[:, 0]
-                    hi = torch.gather(bounds, -1, idx[:, None] + 1)[:, 0]
-                    u = torch.rand(n_trials, generator=g, dtype=_F64,
-                                   device=device)
-                    values[slot] = lo + (hi - lo) * u
-                else:
-                    total = torch.sum(weights, dim=-1)
-                    values[slot] = torch.sum(weights * mids, dim=-1) / total
-            elif kind == "periodic-test":
-                if len(a) == 4:
-                    values[slot] = _periodic_test_4(*a)
-                elif len(a) == 5:
-                    values[slot] = _periodic_test_5(*a)
-                else:
-                    # 11-arg flavor: host math is exact; deviate args are
-                    # not supported on the tape yet.
-                    raise LogicError(
-                        "The 11-argument periodic-test with stochastic/"
-                        "time-traced arguments is host-evaluated only.")
-            elif kind == "ite":
-                cond, then_v, else_v = a
-                values[slot] = torch.where(cond != 0, then_v, else_v)
-            elif kind == "switch":
-                out = a[-1]
-                # Build from last case to first so earlier cases win.
-                pairs = list(zip(a[:-1:2], a[1:-1:2]))
-                for cond, val in reversed(pairs):
-                    out = torch.where(cond != 0, val, out)
-                values[slot] = out
+                g0, u_col = hist_of[slot]
+                shape = (n_trials,)
+                bounds = torch.stack([torch.broadcast_to(x, shape)
+                                      for x in a[:aux + 1]], dim=-1)
+                weights = torch.stack([torch.broadcast_to(x, shape)
+                                       for x in a[aux + 1:]], dim=-1)
+                logits = torch.log(torch.clamp(weights, min=1e-300))
+                idx = torch.argmax(block[:, g0:g0 + aux] + logits, dim=-1)
+                lo = torch.gather(bounds, -1, idx[:, None])[:, 0]
+                hi = torch.gather(bounds, -1, idx[:, None] + 1)[:, 0]
+                values[slot] = lo + (hi - lo) * block[:, u_col]
             else:
-                values[slot] = _ELEMENTWISE[kind](*a)
+                values[slot] = self._evaluate(kind, aux, a, mission_time,
+                                              None)
 
-        # Mean mode broadcasts to the mission-time shape (time-step
-        # sweeps pass a vector of times); sample mode to the trials axis.
-        out_shape = draw_shape() if sampling else mission_time.shape
-        if not self._out_slots:
-            return torch.zeros(tuple(out_shape) + (0,), dtype=_F64,
-                               device=device)
-        return torch.stack([torch.broadcast_to(const(values[s]), out_shape)
-                            for s in self._out_slots], dim=-1)
+        # 4. The output columns the kernel did not write.
+        for j, s in enumerate(self._out_slots):
+            if self._root(s) not in col_of:
+                block[:, j] = values[s]
+        out = block[:, :n_out]
+        return out if n_cols == n_out else out.contiguous()
 
     def evaluate_mean(self, mission_time, device) -> torch.Tensor:
         """Mean values on ``device``, shape ``mission_time.shape +
         (n_outputs,)``."""
-        return self._run(torch.as_tensor(mission_time, dtype=_F64,
-                                         device=torch.device(device)))
+        return self._run_mean(torch.as_tensor(mission_time, dtype=_F64,
+                                              device=torch.device(device)))
 
-    def sample(self, key: tuple[int, ...], n_trials: int, mission_time,
+    def sample(self, key, n_trials: int, mission_time,
                device) -> torch.Tensor:
-        """Epistemic samples on ``device``, shape (n_trials, n_outputs);
-        ``key`` = (seed, batch) seeds every deviate slot's generator."""
-        return self._run(torch.as_tensor(mission_time, dtype=_F64,
-                                         device=torch.device(device)),
-                         key=tuple(int(k) for k in key), n_trials=n_trials)
+        """Epistemic samples on ``device``, shape (n_trials, n_outputs),
+        under the threefry key ``key`` (``ops/prng.py``: two 32-bit words,
+        as ``jax.random`` keys are)."""
+        return self._run_sample(torch.as_tensor(mission_time, dtype=_F64,
+                                                device=torch.device(device)),
+                                key, n_trials)

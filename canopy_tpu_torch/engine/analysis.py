@@ -54,6 +54,7 @@ from ..compiler.graph import CompiledTree, compile_fault_tree, compile_gates
 from ..errors import LogicError
 from ..mef.event import BasicEvent, Gate
 from ..mef.model import Model
+from ..ops.prng import fold_in, prng_key
 from ..settings import Algorithm, Approximation, Settings
 from .bdd_eval import (bdd_probability, make_bdd_evaluator,
                        make_modular_evaluator)
@@ -780,10 +781,9 @@ class RiskAnalysis:
 
         One expression tape covers the basic events, the initiating
         event's expression and every collected expression, so a shared
-        parameter is sampled once per trial.  Its key is ``(seed,
-        crc32(initiating name) & 0x7FFFFFFF)`` through the port's
-        per-slot generators; the JAX package folds the same crc32 into a
-        JAX key, so the two packages' draws agree in distribution only.
+        parameter is sampled once per trial.  Its key is
+        ``fold_in(prng_key(seed), crc32(initiating name) & 0x7FFFFFFF)``,
+        the JAX package's, so both packages draw the same samples.
 
         Sequence roots evaluate over the BDDs the point values built
         (``root_bdds``): on CUDA each root through the stream kernel
@@ -806,7 +806,8 @@ class RiskAnalysis:
             return None
         n_trials = settings.num_trials()
         t0 = time.perf_counter()
-        key = (settings.seed(), zlib.crc32(name.encode()) & 0x7FFFFFFF)
+        key = fold_in(prng_key(settings.seed()),  # crc32: stable across
+                      zlib.crc32(name.encode()) & 0x7FFFFFFF)  # processes
         samples = tape_u.sample(key, n_trials, mission, device)
         basic_s = torch.clamp(samples[:, :tree.n_basic], 0.0, 1.0)
         self._stamp(f"sampling:{name}", t0)

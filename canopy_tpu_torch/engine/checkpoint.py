@@ -4,12 +4,11 @@ The JAX package's checkpointed batch loop (``canopy_tpu/engine/
 checkpoint.py``): persist (seed, completed-batch counter, accumulated
 moments, quantile sketch) after every batch, restart from the last
 completed batch after a preemption.  Determinism comes for free: batch
-``i`` always draws under the key ``(seed, i)``, the key
-``ExpressionTape.sample`` takes (one generator per deviate slot, seeded
-from ``(seed, i, slot)``), so a resumed sweep produces bit-identical
-results to an uninterrupted one.  :class:`SweepState` is the JAX
-package's, so given the same per-batch results both packages reach the
-same state, bit for bit.
+``i`` always draws under the threefry key ``fold_in(prng_key(seed), i)``
+(``ops/prng.py``), the JAX package's, so a resumed sweep produces
+bit-identical results to an uninterrupted one.  :class:`SweepState` and
+the keys are the JAX package's, so a sweep checkpointed by either package
+resumes in the other to the same state.
 
 The accumulator keeps exact moment sums plus a bounded reservoir sample
 for quantiles/histograms (uniform over all seen trials), so memory stays
@@ -23,6 +22,8 @@ import os
 import tempfile
 
 import numpy as np
+
+from ..ops.prng import fold_in, prng_key
 
 __all__ = ["SweepState", "CheckpointedSweep"]
 
@@ -95,7 +96,7 @@ class CheckpointedSweep:
     """Runs a batched sweep function with persistent, resumable state.
 
     ``batch_fn(key, batch_index) -> np.ndarray`` of per-trial results,
-    ``key`` = ``(seed, batch_index)``.
+    ``key`` = ``fold_in(prng_key(seed), batch_index)``.
     """
 
     def __init__(self, batch_fn, seed: int, n_batches: int,
@@ -116,6 +117,7 @@ class CheckpointedSweep:
             self.state = SweepState.fresh(seed, reservoir_size)
 
     def run(self) -> SweepState:
+        base_key = prng_key(self.state.seed)
         rng = np.random.default_rng(self.state.seed ^ 0x5EED)
         # Fast-forward the reservoir RNG to the resume point so the
         # sample stays identical to an uninterrupted run.
@@ -124,7 +126,7 @@ class CheckpointedSweep:
 
         k = len(self.state.reservoir)
         for batch in range(self.state.completed_batches, self.n_batches):
-            key = (self.state.seed, batch)
+            key = fold_in(base_key, batch)
             results = np.asarray(self.batch_fn(key, batch), dtype=np.float64)
             assert results.shape == (self.batch_trials,)
             self.state.sum_ += float(results.sum())

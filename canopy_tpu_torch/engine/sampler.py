@@ -11,8 +11,8 @@
   (``ops/bernoulli_kernel.py``): the engine behind the Monte Carlo
   approximation of ``RiskAnalysis``.
 
-States come from an explicit ``torch.Generator`` (the JAX package's
-``jax.random`` keys), so a run is reproducible from its seed.
+States come from threefry keys (``ops/prng.py``), the JAX package's
+``jax.random`` keys: the same key gives the JAX package's states.
 """
 
 from __future__ import annotations
@@ -22,25 +22,26 @@ import math
 import torch
 
 from ..compiler.graph import CompiledTree
+from ..ops.prng import uniform
 from .propagate import propagate_probability
 
 __all__ = ["sample_states", "sample_top_probability", "monte_carlo_ci"]
 
 
-def sample_states(generator: torch.Generator, basic_p: torch.Tensor,
-                  n_trials: int) -> torch.Tensor:
+def sample_states(key, basic_p: torch.Tensor, n_trials: int) -> torch.Tensor:
     """Bernoulli basic-event states, shape ``(n_trials, n_basic)`` in
-    {0., 1.}, drawn from ``generator`` (on ``basic_p``'s device).
+    {0., 1.}: ``uniform(key, (n_trials, n_basic)) < basic_p`` (float32 or
+    float64, as ``basic_p``), on ``basic_p``'s device.
 
     ``basic_p`` may itself be batched ``(n_trials, n_basic)`` — epistemic
     and aleatory sampling compose.
     """
-    u = torch.rand((n_trials, basic_p.shape[-1]), generator=generator,
-                   dtype=basic_p.dtype, device=basic_p.device)
+    u = uniform(key, (n_trials, basic_p.shape[-1]), basic_p.dtype,
+                device=basic_p.device)
     return (u < basic_p).to(basic_p.dtype)
 
 
-def sample_top_probability(tree: CompiledTree, generator: torch.Generator,
+def sample_top_probability(tree: CompiledTree, key,
                            basic_p: torch.Tensor, n_trials: int,
                            house_states: torch.Tensor | None = None):
     """Estimate the top-event probability by state simulation.
@@ -51,7 +52,7 @@ def sample_top_probability(tree: CompiledTree, generator: torch.Generator,
     if house_states is None:
         house_states = torch.as_tensor(tree.house_state_vector(),
                                        device=basic_p.device)
-    states = sample_states(generator, basic_p, n_trials)
+    states = sample_states(key, basic_p, n_trials)
     vals = propagate_probability(tree, states, house_states)
     top = vals[..., tree.top_index]
     return torch.mean(top), top

@@ -17,6 +17,7 @@ import torch
 
 from ..compiler.expr_tape import ExpressionTape
 from ..compiler.graph import CompiledTree
+from ..ops.prng import fold_in, prng_key
 from .propagate import make_propagator
 
 __all__ = ["UncertaintyResult", "uncertainty_analysis",
@@ -44,8 +45,8 @@ def sample_basic_probabilities(tape: ExpressionTape, key, n_trials: int,
                                mission_time: float, device,
                                clip_probability: bool = True
                                ) -> torch.Tensor:
-    """(n_trials, n_basic) sampled probability vectors on ``device``;
-    ``key`` = (seed, batch)."""
+    """(n_trials, n_basic) sampled probability vectors on ``device``,
+    drawn under the threefry key ``key``."""
     samples = tape.sample(key, n_trials, mission_time, device)
     if clip_probability:
         samples = torch.clamp(samples, 0.0, 1.0)
@@ -61,9 +62,11 @@ def uncertainty_analysis(tree: CompiledTree, tape: ExpressionTape,
                          top_fn=None) -> UncertaintyResult:
     """Distribution of the top-event probability under parameter uncertainty.
 
-    ``batch_size`` splits the trials axis into chunks; batch ``b`` draws
-    with key ``(seed, b)``, so a batch's samples do not depend on how many
-    batches there are.  ``top_fn(p_batch) -> (trials,)`` overrides the
+    The run's key is ``prng_key(seed)``, the JAX package's
+    ``PRNGKey(seed)``.  ``batch_size`` splits the trials axis into chunks;
+    batch ``b`` draws under ``fold_in(key, b)``, as the JAX package's
+    batches do, so a batch's samples do not depend on how many batches
+    there are (an unbatched run draws under the key itself).  ``top_fn(p_batch) -> (trials,)`` overrides the
     evaluator (e.g. exact BDD evaluation); by default
     :func:`~.propagate.make_propagator` dispatches (the stream kernel on
     CUDA, gather on the CPU) with ``house_states`` (default:
@@ -75,21 +78,23 @@ def uncertainty_analysis(tree: CompiledTree, tape: ExpressionTape,
         top_fn = make_propagator(tree, device, output="top",
                                  house_states=house)
 
-    def run_batch(batch_index: int, batch_trials: int) -> torch.Tensor:
-        p = sample_basic_probabilities(tape, (seed, batch_index),
-                                       batch_trials, mission_time, device)
+    key = prng_key(seed)
+
+    def run_batch(batch_key, batch_trials: int) -> torch.Tensor:
+        p = sample_basic_probabilities(tape, batch_key, batch_trials,
+                                       mission_time, device)
         with torch.no_grad():
             return top_fn(p)
 
     if batch_size is None or batch_size >= n_trials:
-        tops = run_batch(0, n_trials)
+        tops = run_batch(key, n_trials)
     else:
         pieces = []
         remaining = n_trials
         batch_index = 0
         while remaining > 0:
             chunk = min(batch_size, remaining)
-            pieces.append(run_batch(batch_index, chunk))
+            pieces.append(run_batch(fold_in(key, batch_index), chunk))
             remaining -= chunk
             batch_index += 1
         tops = torch.cat(pieces)

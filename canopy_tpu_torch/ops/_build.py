@@ -27,7 +27,7 @@ _CSRC = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(_PKG, "_build")
 _SOURCES = ("stream.cu", "adjoint.cu", "fused.cu", "replay.cu",
             "replay_adjoint.cu", "spill.cu", "bernoulli.cu", "gather.cu",
-            "block_gather.cu")
+            "block_gather.cu", "prng.cu")
 _HEADERS = ("stream_ops.cuh", "adjoint_ops.cuh", "replay_ops.cuh")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -148,6 +148,11 @@ def load_library() -> ctypes.CDLL:
     lib.canopy_block_gather_level.argtypes = [vp, i64, vp, vp, vp, vp, vp,
                                               *[i32] * 9, vp]
     lib.canopy_block_gather_level.restype = i32
+    lib.canopy_prng_draw_standard.argtypes = [vp, vp, i32, i64, i32, vp,
+                                              vp]
+    lib.canopy_prng_draw_standard.restype = i32
+    lib.canopy_prng_draw_gamma.argtypes = [vp, i64, vp, i64, i32, vp, vp]
+    lib.canopy_prng_draw_gamma.restype = i32
     lib.canopy_cuda_error_string.argtypes = [i32]
     lib.canopy_cuda_error_string.restype = ctypes.c_char_p
     lib.canopy_max_count_states.restype = i32

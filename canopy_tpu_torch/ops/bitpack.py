@@ -28,6 +28,7 @@ import torch
 
 from ..compiler.graph import CompiledTree, CountBlock, PairBlock, ProdBlock
 from ..errors import LogicError
+from .prng import uniform
 
 __all__ = ["pack_states", "sample_states_packed", "propagate_packed",
            "packed_top_probability", "popcount_mean", "popcount"]
@@ -58,15 +59,15 @@ def pack_states(states: torch.Tensor) -> torch.Tensor:
                        words).to(torch.int32)
 
 
-def sample_states_packed(generator: torch.Generator, basic_p: torch.Tensor,
+def sample_states_packed(key, basic_p: torch.Tensor,
                          n_trials: int) -> torch.Tensor:
     """Packed Bernoulli states ``(n_basic, n_trials // 32)`` drawn as
-    float32 uniforms below ``p`` (the reference's XLA formulation, here
-    from ``generator``, which must live on ``basic_p``'s device)."""
+    float32 uniforms below ``p`` (the reference's XLA formulation, under
+    the threefry key ``key``: the JAX package's states)."""
     if n_trials % 32:
         raise LogicError(f"n_trials must be a multiple of 32, got {n_trials}")
-    u = torch.rand((n_trials, basic_p.shape[-1]), generator=generator,
-                   dtype=torch.float32, device=basic_p.device)
+    u = uniform(key, (n_trials, basic_p.shape[-1]), torch.float32,
+                device=basic_p.device)
     return pack_states(u < basic_p.to(torch.float32)[None, :])
 
 

@@ -116,7 +116,7 @@ VARIANTS: dict = {}
 LAUNCHES = {"stream": 0, "stream_log": 0, "adjoint": 0, "fused_tiled": 0,
             "fused": 0, "replay": 0, "replay_tape": 0, "replay_bwd": 0,
             "spill": 0, "bernoulli": 0, "gather": 0, "block_log": 0,
-            "block_direct": 0}
+            "block_direct": 0, "prng": 0}
 
 #: Shared memory one block may use on an H100 (227 KB, opt-in above 48 KB).
 SMEM_BYTES = 232_448

@@ -15,11 +15,40 @@ text is then that generator's):
 * ``house_flip``: every system also ORs the gate ``maint-line`` (house
   event ``maint`` AND basic event ``m``), and the failure path of ``FE0``
   sets ``maint`` true, so the sequences carry two house vectors.
+
+:func:`every_deviate_kind` lists one expression of every deviate kind of
+the expression tape, with fixed and with sampled parameters, for the
+sampler's checks.
 """
 
 from __future__ import annotations
 
-__all__ = ["event_tree_scale_xml"]
+__all__ = ["event_tree_scale_xml", "every_deviate_kind"]
+
+
+def every_deviate_kind(expr, mission_time) -> list:
+    """Every deviate kind with fixed parameters, then with parameters drawn
+    from one shared uniform ``u`` (one tape slot), histograms with sampled
+    weights, and ops over deviates.  ``expr`` is a package's ``mef.expr``
+    module and ``mission_time`` its ``MissionTime()``, so each package
+    builds the same list."""
+    C = expr.ConstantExpression
+    u = expr.UniformDeviate(C(0.5), C(2.0))
+    return [
+        expr.UniformDeviate(C(1.0), C(3.0)),
+        expr.NormalDeviate(C(5.0), C(2.0)),
+        expr.LognormalDeviate(C(1e-3), C(3.0), C(0.95)),
+        expr.LognormalDeviate(C(-1.0), C(0.5)),
+        expr.GammaDeviate(C(0.5), C(2.0)), expr.GammaDeviate(C(3.0), C(2.0)),
+        expr.BetaDeviate(C(2.0), C(6.0)),
+        expr.Histogram([C(0.0), C(1.0), C(3.0)], [C(1.0), C(3.0)]),
+        expr.NormalDeviate(u, C(0.1)), expr.GammaDeviate(u, C(1.5)),
+        expr.BetaDeviate(u, C(2.0)),
+        expr.Histogram([C(0.0), C(1.0), C(3.0), C(4.0)],
+                       [u, C(1.0), expr.Mul([u, u])]),
+        expr.LognormalDeviate(expr.Mul([C(1e-3), u]), C(3.0), C(0.95)),
+        expr.UniformDeviate(u, C(3.0)),
+        expr.Add([u, expr.Exponential(C(1e-4), mission_time)]), C(0.25), u]
 
 
 def event_tree_scale_xml(n_fe: int = 6, deviates: bool = False,

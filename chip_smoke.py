@@ -58,7 +58,24 @@ false or the package is missing).  Phases, each raising on failure:
    kernels launched, the stream method tag, probability / MIF / cut-set
    count against ``tests/fixtures/torch_slice_golden.json``, and the
    kernel's per-trial tops of 65,536 sampled trials against the f64 level
-   evaluation of the same samples;
+   evaluation of the same samples (the run's samples redrawn under
+   ``prng_key(seed)``, its one ``draw_standard`` launch counted);
+6'. the threefry kernels (``csrc/prng.cu``, phase ``prng``): random bits
+   and uniforms equal to the ``jax.random`` draws frozen in
+   ``tests/fixtures/torch_prng_golden.json`` (2^20 elements, fixed
+   indices), normals, Gumbel noise, gammas and betas within
+   ``PRNG_DRAW_RTOL``; the slice tape at 2^20 trials in one
+   ``draw_standard`` launch, bit-equal to the plain version and within
+   ``PRNG_DRAW_RTOL`` of the frozen JAX samples at fixed (trial, column)
+   pairs, kernel and plain timed on the tape's table beside the bound
+   (the block written, ``THREEFRY_INT_OPS`` per draw on the ALU lanes,
+   the float64 work); the every-kind tape
+   (``utils/scale_models.every_deviate_kind``) at ``PRNG_KIND_TRIALS``
+   trials, one launch plus one per gamma or beta deviate, bit-equal to
+   plain; the path ``prng``: the slice through the CLI in-process with
+   the golden file's flags (``--bdd --uncertainty --num-trials 16384
+   --batch-size 8192 --seed 7``), its uncertainty block within
+   ``PRNG_UNC_RTOL`` of the JAX CLI's;
 7. the direct-propagation slice, through ``RiskAnalysis`` with
    ``algorithm("pdag").approximation("none")``, importance and 1,048,576
    uncertainty trials: ``stream``, ``stream_log`` and ``adjoint``
@@ -152,7 +169,8 @@ false or the package is missing).  Phases, each raising on failure:
    and settings equal to the flag-driven CLI's in-process; (b)
    ``--version``, git-derived where the tree is a git checkout; (c)
    ``save_compiled`` / ``load_compiled`` of the slice tree and its tape:
-   the loaded tape's samples under ``(seed, 0)`` equal the tape's, and the
+   the loaded tape's samples under ``fold_in(prng_key(seed), 0)`` equal the
+   tape's, and the
    loaded tree's stream tops through ``make_propagator`` bit-equal to the
    tree's before saving; (d) ``model_to_mef_xml`` of the slice, parsed
    again through the CLI: probability within ``PROB_RTOL``, the same
@@ -191,8 +209,8 @@ false or the package is missing).  Phases, each raising on failure:
    each collective moved, the collectives copied through host memory,
    the launches and the phase's wall time.
 
-Each path (5's two, 6, 7, 8, 9's two, 10's two, 11's ``et``, 12's
-``project`` and 14's ``parallel``) runs with the
+Each path (5's two, 6, 6''s ``prng``, 7, 8, 9's two, 10's two, 11's
+``et``, 12's ``project`` and 14's ``parallel``) runs with the
 launch counts set to 0 just before it and read just after; a kernel of the
 path that never launched fails the run.  Long output goes to ``chiprun_out/``.  The last lines are the
 kernels' JSON record (with each kernel's bound: the larger of its bytes
@@ -352,6 +370,27 @@ PHILOX_PROBE_REPS = 64
 PIPE_PROBE_SHAPE = (132 * 16, 256)
 PIPE_PROBE_REPS = 128
 
+#: Phase ``prng``: the frozen JAX draws and uncertainty block, the
+#: every-kind tape's trials, the draws' tolerance against JAX's (float64
+#: transcendental functions rounding otherwise than XLA's in the last
+#: bits) and the CLI's against JAX's block (float32 stream tops against
+#: the JAX package's float64 BDD evaluation, as ``TOP_RTOL``).
+PRNG_GOLDEN = os.path.join(FIXTURES, "torch_prng_golden.json")
+PRNG_KIND_TRIALS = 65_536
+PRNG_DRAW_RTOL = 1e-12
+PRNG_UNC_RTOL = 1e-5
+#: Integer operations of one threefry2x32 call, counted from
+#: ``csrc/prng.cu``: two key additions, 20 rounds of an add, a rotate
+#: (one funnel shift) and a XOR, five injections of two adds.  Each is one
+#: instruction on the ALU pipe (``ALU_LANES`` per SM and clock).
+THREEFRY_INT_OPS = 2 + 20 * 3 + 5 * 2
+#: float64 operations a draw adds by row kind and transform, counted from
+#: the source (the normal: scale and shift, ``x * -x``, ``w - 3.125``, 22
+#: Horner steps of a multiply and an add, ``p * x``, ``* sqrt(2)``; the
+#: library's ``log1p``, ``log`` and ``exp`` counted as one each).
+PRNG_KIND_F64_OPS = {0: 1, 1: 1, 2: 2 + 1 + 1 + 1 + 44 + 1 + 1, 3: 5}
+PRNG_TRANSFORM_F64_OPS = {0: 0, 1: 2, 2: 3}
+
 KERNELS = {
     "stream": ("canopy_tpu_torch/csrc/stream.cu",
                "canopy_tpu/ops/stream_kernel.py:135"),
@@ -379,13 +418,16 @@ KERNELS = {
                   "canopy_tpu/ops/block_gather.py:269"),
     "block_direct": ("canopy_tpu_torch/csrc/block_gather.cu",
                      "canopy_tpu/ops/block_gather.py:331"),
+    "prng": ("canopy_tpu_torch/csrc/prng.cu",
+             "jax.random (no Pallas kernel)"),
 }
 #: The path whose launch count each kernel's record reports.
 PATH_OF = {"stream": "bdd-slice", "stream_log": "bdd-slice",
            "adjoint": "bdd-slice", "fused_tiled": "dispatch",
            "fused": "dispatch", "replay": "replay", "replay_tape": "replay",
            "replay_bwd": "replay", "bernoulli": "mc", "spill": "spill",
-           "gather": "gather", "block_log": "block", "block_direct": "block"}
+           "gather": "gather", "block_log": "block", "block_direct": "block",
+           "prng": "prng"}
 
 
 def log(msg: str) -> None:
@@ -869,6 +911,7 @@ def phase_kernels(device, record: dict) -> None:
 
 
 def phase_slice(device, record: dict) -> None:
+    from canopy_tpu_torch.ops.prng import prng_key
     from canopy_tpu_torch.cli import main as cli_main
     from canopy_tpu_torch.compiler.modules import (build_modular_bdd,
                                                    modular_probability)
@@ -889,7 +932,7 @@ def phase_slice(device, record: dict) -> None:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_counts(record, "bdd-slice",
-                           ("stream", "stream_log", "adjoint"))
+                           ("stream", "stream_log", "adjoint", "prng"))
     check(rc == 0, f"CLI exited {rc}")
     log(f"[slice] python -m canopy_tpu_torch {' '.join(argv)}: "
         f"{seconds:.3f} s, launches {launches}")
@@ -920,14 +963,15 @@ def phase_slice(device, record: dict) -> None:
         f"events within {worst:.3e} (limit {MIF_RTOL}); uncertainty mean "
         f"{unc['mean']!r}, method {unc['method']}")
 
-    # Per-trial agreement: redraw the run's one batch (key = (seed, 0)),
-    # check that the kernel reproduces the reported mean, then hold 65,536
-    # of its trials against the f64 level evaluation.
+    # Per-trial agreement: redraw the run's one batch (an unbatched run
+    # draws under prng_key(seed)), check that the kernel reproduces the
+    # reported mean, then hold 65,536 of its trials against the f64 level
+    # evaluation.
     from canopy_tpu_torch.settings import Settings
     tree = load_tree("torch_slice_plant")
     tape = ExpressionTape.build([e.expression for e in tree.basic_events])
     modular = build_modular_bdd(tree)
-    samples = sample_basic_probabilities(tape, (SLICE_SEED, 0),
+    samples = sample_basic_probabilities(tape, prng_key(SLICE_SEED),
                                          SLICE_TRIALS,
                                          Settings().mission_time(), device)
     ev = make_modular_evaluator(modular, device)
@@ -1302,8 +1346,228 @@ def phase_wide_count(device, record: dict) -> None:
     torch.cuda.empty_cache()
 
 
+class plain_draws:
+    """Within the block, the expression tape draws through the plain
+    versions of ``csrc/prng.cu`` (on the tensors' device); ``tables``
+    collects the ``draw_standard`` tables the tape builds, with or without
+    the block."""
+
+    tables: list = []
+
+    def __init__(self, plain: bool = True):
+        self.plain = plain
+
+    def __enter__(self):
+        import canopy_tpu_torch.compiler.expr_tape as et
+        from canopy_tpu_torch.ops import prng
+        self.saved = (et.draw_standard, et.draw_gamma)
+        tables = plain_draws.tables = []
+
+        def standard(table, out):
+            tables.append(table)
+            if self.plain:
+                prng.draw_standard_plain(table, out)
+                return out
+            return prng.draw_standard(table, out)
+        et.draw_standard = standard
+        if self.plain:
+            et.draw_gamma = prng.draw_gamma_plain
+        return self
+
+    def __exit__(self, *exc):
+        import canopy_tpu_torch.compiler.expr_tape as et
+        et.draw_standard, et.draw_gamma = self.saved
+        return False
+
+
+def prng_bound(table, n_trials: int, clock_hz: float) -> dict:
+    """``draw_standard``'s bound on one table: the block written over the
+    memory rate, against its integer work (``THREEFRY_INT_OPS`` per draw)
+    over the ALU lanes at the SM clock and its float64 work over the
+    float64 peak."""
+    n_rows = len(table.rows)
+    n = n_rows * n_trials
+    t_bytes = (n * 8 + n_rows * 72) / HBM_BYTES_PER_S * 1e3
+    t_int = n * THREEFRY_INT_OPS / (ALU_LANES * N_SMS * clock_hz) * 1e3
+    f64_ops = n_trials * sum(PRNG_KIND_F64_OPS[r[2]] +
+                             PRNG_TRANSFORM_F64_OPS[r[3]]
+                             for r in table.rows)
+    t_f64 = f64_ops / PEAK_FLOPS[8] * 1e3
+    t_ops = max(t_int, t_f64)
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "int_ms": t_int, "f64_ms": t_f64,
+            "bytes_ms": t_bytes}
+
+
+def _unc_errors(got: dict, want: dict) -> dict:
+    """The largest relative error of each statistic of an uncertainty
+    block (densities left out: a top within ``PRNG_UNC_RTOL`` of JAX's may
+    fall into the next bin)."""
+    out = {}
+    for key in ("mean", "std", "error_factor"):
+        out[key] = _rel(got[key], want[key])
+    for key in ("ci95", "quantiles", "histogram_edges"):
+        check(len(got[key]) == len(want[key]), f"{key}: lengths differ")
+        out[key] = max(_rel(a, b) for a, b in zip(got[key], want[key]))
+    return out
+
+
+def phase_prng(device, record: dict) -> None:
+    """(6') The threefry kernels (``csrc/prng.cu``): bit-equal to their
+    plain versions on the slice tape at 2^20 trials and on the every-kind
+    tape, within ``PRNG_DRAW_RTOL`` of the frozen ``jax.random`` draws;
+    the path ``prng``: the slice's uncertainty through the CLI against the
+    JAX package's block."""
+    from canopy_tpu_torch.cli import main as cli_main
+    from canopy_tpu_torch.compiler.expr_tape import ExpressionTape
+    from canopy_tpu_torch.mef import expr
+    from canopy_tpu_torch.mef.parameter import MissionTime
+    from canopy_tpu_torch.ops import prng
+    from canopy_tpu_torch.settings import Settings
+    from canopy_tpu_torch.utils.scale_models import every_deviate_kind
+
+    with open(PRNG_GOLDEN) as fh:
+        golden = json.load(fh)
+    clock = sm_clock_hz()
+    mission = Settings().mission_time()
+
+    # (a) The frozen jax.random draws at fixed indices: bits (the plain
+    # hash on the card) and uniforms exactly, the rest within the tolerance.
+    d = golden["draws"]
+    idx = torch.tensor(d["indices"], device=device)
+    key = tuple(d["key"])
+    bits32 = prng.random_bits(key, 32, (d["n"],), device)[idx]
+    check(bits32.tolist() == d["bits32"], "threefry 32-bit bits")
+    bits64 = prng.random_bits(key, 64, (d["n"],), device)[idx]
+    check([b & (2**64 - 1) for b in bits64.tolist()] == d["bits64"],
+          "threefry 64-bit bits")
+    draws = {
+        "uniform_f64": prng.uniform(key, (d["n"],), torch.float64,
+                                    device=device),
+        "uniform_f32": prng.uniform(key, (d["n"],), torch.float32,
+                                    device=device),
+        "normal": prng.normal(key, (d["n"],), device),
+        "gumbel": prng.gumbel(key, (d["n"],), device)}
+    worst = 0.0
+    for name, x in draws.items():
+        got = x[idx].double().tolist()
+        if name.startswith("uniform"):
+            check(got == d[name], f"{name} differs from jax.random")
+            continue
+        worst = max(worst, max(_rel(a, b) for a, b in zip(got, d[name])))
+    g = golden["gamma"]
+    gidx = torch.tensor(g["indices"], device=device)
+    gkey = tuple(g["key"])
+    for name, x in (
+            ("gamma_0.3", prng.gamma(gkey, 0.3, (g["n"],), device)),
+            ("gamma_3.5", prng.gamma(gkey, 3.5, (g["n"],), device)),
+            ("beta_2_6", prng.beta(gkey, 2.0, 6.0, (g["n"],), device))):
+        got = x[gidx].tolist()
+        worst = max(worst, max(_rel(a, b) for a, b in zip(got, g[name])))
+    check(worst <= PRNG_DRAW_RTOL, f"kernel draws vs jax.random: {worst:.3e}")
+    log(f"[prng] frozen jax.random draws at {len(d['indices'])} indices of "
+        f"2^20 and {len(g['indices'])} of {g['n']}: bits and uniforms "
+        f"equal, normal/gumbel/gamma/beta within {worst:.3e} (limit "
+        f"{PRNG_DRAW_RTOL})")
+    del draws, bits32, bits64
+
+    # (b) The slice tape at 2^20 trials: one draw_standard launch, bit-equal
+    # to the plain version, within the tolerance of the frozen JAX
+    # samples; kernel and plain timed on the tape's own table.
+    tree = load_tree("torch_slice_plant")
+    tape = ExpressionTape.build([e.expression for e in tree.basic_events])
+    s = golden["slice_samples"]
+    key = tuple(s["key"])
+    n = s["n_trials"]
+    check(key == prng.prng_key(SLICE_SEED) and n == SLICE_TRIALS,
+          "golden slice samples: key or trials")
+    launches = prng.LAUNCHES["prng"]
+    with plain_draws(plain=False):
+        got, tape_ms = timed_ms(lambda: tape.sample(key, n, mission, device))
+    (table,) = plain_draws.tables
+    check(prng.LAUNCHES["prng"] - launches == 1,
+          "the slice tape took more than one launch")
+    check(tuple(got.shape) == (n, s["n_outputs"]), "slice samples shape")
+    worst = max(_rel(float(got[t, c]), v) for t, c, v in s["pairs"])
+    check(worst <= PRNG_DRAW_RTOL, f"slice samples vs JAX: {worst:.3e}")
+    with plain_draws():
+        want, tape_plain_ms = timed_ms(
+            lambda: tape.sample(key, n, mission, device))
+    check(torch.equal(got, want), "slice tape: kernel differs from plain")
+    err = float((got - want).abs().max())
+    del want
+    out = torch.empty_like(got)
+    ms = cuda_ms(lambda: prng.draw_standard(table, out), 5)
+    plain_ms = cuda_ms(lambda: prng.draw_standard_plain(table, out), 1)
+    tape_ms = cuda_ms(lambda: tape.sample(key, n, mission, device), 3)
+    b = prng_bound(table, n, clock)
+    log(f"[prng] slice tape, {len(table.rows)} rows x {n} trials into "
+        f"{got.shape[1]} columns: bit-equal to plain, {len(s['pairs'])} "
+        f"(trial, column) pairs within {worst:.3e} of JAX; draw_standard "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms; tape.sample {tape_ms:.3f} "
+        f"ms (plain draws {tape_plain_ms:.3f} ms); bound {b['bound_ms']:.3f} "
+        f"ms ({b['bound_by']}: bytes {b['bytes_ms']:.3f}, integer "
+        f"{b['int_ms']:.3f}, float64 {b['f64_ms']:.3f} ms)")
+    record["prng"].update(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        shape=f"slice tape, {len(table.rows)} rows x {n} trials", **b)
+    record.setdefault("timings", {})["prng slice tape"] = {
+        "tape_ms": tape_ms, "tape_plain_ms": tape_plain_ms, "ms": ms,
+        "plain_ms": plain_ms, **b}
+    del got, out
+    torch.cuda.empty_cache()
+
+    # (c) The every-kind tape: one draw_standard launch and one draw_gamma
+    # per gamma or beta deviate, bit-equal to the plain versions.
+    tape = ExpressionTape.build(every_deviate_kind(expr, MissionTime()))
+    n_gamma = sum(1 for op in tape._ops
+                  if op[0] in ("gamma-deviate", "beta-deviate"))
+    key = prng.fold_in(prng.prng_key(SLICE_SEED), 1)
+    launches = prng.LAUNCHES["prng"]
+    got, kind_ms = timed_ms(
+        lambda: tape.sample(key, PRNG_KIND_TRIALS, mission, device))
+    check(prng.LAUNCHES["prng"] - launches == 1 + n_gamma,
+          f"every-kind tape: {prng.LAUNCHES['prng'] - launches} launches")
+    with plain_draws():
+        want = tape.sample(key, PRNG_KIND_TRIALS, mission, device)
+    check(torch.equal(got, want), "every-kind tape: kernel differs from "
+                                  "plain")
+    log(f"[prng] every-kind tape ({tape.n_outputs} outputs, {n_gamma} "
+        f"gamma/beta deviates) at {PRNG_KIND_TRIALS} trials: "
+        f"{1 + n_gamma} launches, bit-equal to plain, {kind_ms:.3f} ms")
+    del got, want
+
+    # (d) The path: the slice's uncertainty through the CLI, against the
+    # JAX CLI's block frozen in the golden file.
+    u = golden["slice_uncertainty"]
+    report_path = os.path.join(OUT_DIR, "torch_slice_prng_report.json")
+    argv = [SLICE_MODEL, "--device", "cuda", *u["flags"], "-o", report_path]
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli_main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts(record, "prng", ("prng", "stream"))
+    check(rc == 0, f"CLI exited {rc}")
+    with open(report_path) as fh:
+        report = json.load(fh)
+    (ft,) = report["fault_trees"]
+    unc = ft["uncertainty"]
+    check(unc.get("method") == "bdd-stream-f32", f"method {unc.get('method')}")
+    errs = _unc_errors(unc, u["block"])
+    check(max(errs.values()) <= PRNG_UNC_RTOL,
+          f"CLI uncertainty vs JAX: {json.dumps(errs)}")
+    log(f"[prng] python -m canopy_tpu_torch {' '.join(argv)}: "
+        f"{seconds:.3f} s, launches {launches}; uncertainty against the "
+        f"JAX CLI's block: {json.dumps(errs)} (limit {PRNG_UNC_RTOL}); "
+        f"timings {json.dumps(report['timings'])}")
+    record["prng_cli_errors"] = errs
+
+
 def phase_pdag(device, record: dict) -> None:
     """(c) The direct-propagation slice through ``RiskAnalysis``."""
+    from canopy_tpu_torch.ops.prng import prng_key
     from canopy_tpu_torch.compiler.expr_tape import ExpressionTape
     from canopy_tpu_torch.engine.analysis import RiskAnalysis
     from canopy_tpu_torch.engine.propagate import make_propagator
@@ -1353,11 +1617,12 @@ def phase_pdag(device, record: dict) -> None:
         f"events within {worst:.3e} (limit {PDAG_MIF_RTOL}); uncertainty "
         f"mean {unc['mean']!r}")
 
-    # Redraw the run's one batch (key = (seed, 0)) through the propagator
-    # the analysis used, then hold 65,536 of its trials against gather.
+    # Redraw the run's one batch (key prng_key(seed)) through the
+    # propagator the analysis used, then hold 65,536 of its trials against
+    # gather.
     tree = load_tree("torch_slice_plant")
     tape = ExpressionTape.build([e.expression for e in tree.basic_events])
-    samples = sample_basic_probabilities(tape, (SLICE_SEED, 0),
+    samples = sample_basic_probabilities(tape, prng_key(SLICE_SEED),
                                          SLICE_TRIALS,
                                          Settings().mission_time(), device)
     fn = make_propagator(tree, device, house_states=tree.house_state_vector())
@@ -2322,6 +2587,7 @@ def _event_tree_inputs(paths: list):
     """(compiled tree, root slots in sequence order, sampling tape, its
     key, mission time) of a model's one event tree, rebuilt as the
     analysis builds them."""
+    from canopy_tpu_torch.ops.prng import fold_in, prng_key
     import zlib
 
     from canopy_tpu_torch.compiler.expr_tape import ExpressionTape
@@ -2339,7 +2605,8 @@ def _event_tree_inputs(paths: list):
     tape = ExpressionTape.build(
         [e.expression for e in tree.basic_events] +
         [e for o in outcomes for e in o.expressions])
-    key = (ET_SEED, zlib.crc32(ie.name.encode()) & 0x7FFFFFFF)
+    key = fold_in(prng_key(ET_SEED),
+                  zlib.crc32(ie.name.encode()) & 0x7FFFFFFF)
     return (tree, [tree.gate_index[g.id] for g in gates], tape, key,
             settings.mission_time())
 
@@ -2605,6 +2872,7 @@ def _fault_tree_products(report: dict) -> list:
 def phase_project(device, record: dict) -> None:
     """(12) Project files, ``--version``, compiled-model I/O, the MEF
     writer and a checkpointed sweep, on the slice."""
+    from canopy_tpu_torch.ops.prng import fold_in, prng_key
     import contextlib
     import io
 
@@ -2721,7 +2989,7 @@ def phase_project(device, record: dict) -> None:
     save_compiled(path, tree, tape)
     loaded, loaded_tape = load_compiled(path)
     mission = Settings().mission_time()
-    key = (PROJECT_SEED, 0)
+    key = fold_in(prng_key(PROJECT_SEED), 0)
     samples = device_call(
         "sample-2^20", lambda: loaded_tape.sample(key, PROJECT_TRIALS,
                                                   mission, device),
@@ -2761,8 +3029,9 @@ def phase_project(device, record: dict) -> None:
         f"(limit {PROB_RTOL}), the same {ft2['n_products']} products")
 
     # (e) A checkpointed sweep over the direct-propagation slice: each
-    # batch samples the tape under (seed, batch) and runs the stream
-    # kernel; stopped at SWEEP_STOP, resumed, equal to uninterrupted.
+    # batch samples the tape under fold_in(prng_key(seed), batch) and runs
+    # the stream kernel; stopped at SWEEP_STOP, resumed, equal to
+    # uninterrupted.
     class Stop(Exception):
         pass
 
@@ -2801,8 +3070,8 @@ def phase_project(device, record: dict) -> None:
           "resumed sweep: reservoir")
     one = device_call(
         "sweep-batch", lambda: propagate(torch.clamp(tape.sample(
-            (PROJECT_SEED, 0), SWEEP_TRIALS, mission, device), 0.0,
-            1.0).float()), SWEEP_TRIALS,
+            fold_in(prng_key(PROJECT_SEED), 0), SWEEP_TRIALS, mission,
+            device), 0.0, 1.0).float()), SWEEP_TRIALS,
         SWEEP_TRIALS * (tree.n_basic + 1) * 4, roof, out)
     del one
     launches = read_counts(record, "project", ("stream", "stream_log",
@@ -3324,6 +3593,7 @@ def main() -> int:
     phase_dispatch(device, record)
     phase_wide_count(device, record)
     phase_slice(device, record)
+    phase_prng(device, record)
     phase_pdag(device, record)
     phase_replay(device, record)
     phase_mc(device, record)

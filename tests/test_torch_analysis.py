@@ -14,6 +14,13 @@
   trials against ``torch_slice_golden.json``: probability 1e-12
   relative, MIF/RAW/RRW 1e-10 relative, cut-set count and module sizes
   exact.
+* The uncertainty block of ``RiskAnalysis.run()``, each package on its
+  own sampler (the same threefry keys), unbatched and in batches of
+  1,000: ``demo_plant`` and ``station_blackout`` against the JAX package
+  run here, the slice (4,096 trials) against the JAX blocks frozen in
+  ``torch_prng_golden.json``: mean, std, error factor, CI, quantiles,
+  histogram edges and densities within 1e-10 relative, the same trials in
+  every bin.
 * The branches once not ported (``test_unported_branches_raise``, its
   case ids kept): event trees (``demo_plant``'s sequences), alignment
   phases (``aralia_like_alignment``) and SIL (``aralia_like_small`` under
@@ -51,6 +58,8 @@ with open(f"{FIXTURES}/golden.json") as fh:
     GOLDEN = json.load(fh)
 with open(f"{FIXTURES}/torch_slice_golden.json") as fh:
     SLICE_GOLDEN = json.load(fh)
+with open(f"{FIXTURES}/torch_prng_golden.json") as fh:
+    PRNG_GOLDEN = json.load(fh)
 
 
 def _configure(settings, **flags):
@@ -208,3 +217,66 @@ def test_unported_branches_raise(case):
         pytest.skip("a CUDA device exists here")
     with pytest.raises(DeviceError):
         RiskAnalysis(model, settings, "cuda")
+
+
+def _histogram_counts(block: dict) -> list[int]:
+    """The trials in each bin, from the density and the bin widths."""
+    widths = np.diff(block["histogram_edges"])
+    return np.rint(np.asarray(block["histogram_density"]) * widths
+                   * block["n_trials"]).astype(int).tolist()
+
+
+def _assert_same_uncertainty(got: dict, want: dict, what: str) -> None:
+    """Summary statistics, quantiles, histogram edges and densities within
+    1e-10 relative, and the same trials in every bin (a density is a count
+    over the bin's width, which inherits the edges' last-bit
+    differences)."""
+    assert set(got) == set(want), what
+    assert got["n_trials"] == want["n_trials"], what
+    for key in ("mean", "std", "error_factor"):
+        assert _rel(got[key], want[key]) <= 1e-10, (what, key)
+    for key in ("ci95", "quantiles", "histogram_edges", "histogram_density"):
+        assert len(got[key]) == len(want[key]), (what, key)
+        for i, (a, b) in enumerate(zip(got[key], want[key])):
+            assert _rel(a, b) <= 1e-10, (what, key, i, a, b)
+    assert _histogram_counts(got) == _histogram_counts(want), what
+
+
+def _uncertainty_settings(settings, batch):
+    settings = _configure(settings, trials=4096, importance=False)
+    return settings.batch_size(batch) if batch else settings
+
+
+@pytest.mark.parametrize("batch", [None, 1000])
+def test_slice_uncertainty_block_matches_jax(batch):
+    """The slice's uncertainty block against the JAX package's, frozen by
+    ``tools/make_torch_prng_golden.py`` with these settings (the JAX run
+    takes minutes on the CPU): nothing shared, nothing patched."""
+    settings = _uncertainty_settings(Settings(), batch)
+    model = Initializer([fixture_path("torch_slice_plant")], settings).model
+    (ft,) = RiskAnalysis(model, settings, "cpu").run().fault_trees
+    frozen = PRNG_GOLDEN["slice_uncertainty_4096"]
+    assert frozen["n_trials"] == 4096 and frozen["seed"] == 7
+    want = frozen["blocks"]["unbatched" if batch is None else
+                            f"batch_{batch}"]
+    _assert_same_uncertainty(ft.uncertainty, want, "torch_slice_plant")
+
+
+@pytest.mark.parametrize("batch", [None, 1000])
+@pytest.mark.parametrize("name", ["demo_plant", "station_blackout"])
+def test_uncertainty_block_matches_jax(name, batch):
+    """Each package samples its own tape under its own keys (nothing
+    shared, nothing patched): the port's threefry keys are the JAX
+    package's, so its uncertainty block is the JAX package's.  Batched
+    runs draw batch ``b`` under ``fold_in(PRNGKey(seed), b)`` in both."""
+    ours, ref = run_both_analyses(
+        fixture_path(name), lambda s: _uncertainty_settings(s, batch))
+    assert len(ours.fault_trees) == len(ref.fault_trees)
+    n_checked = 0
+    for got, want in zip(ours.fault_trees, ref.fault_trees):
+        assert (got.uncertainty is None) == (want.uncertainty is None)
+        if got.uncertainty is not None:
+            _assert_same_uncertainty(got.uncertainty, want.uncertainty,
+                                     f"{name}:{got.fault_tree}")
+            n_checked += 1
+    assert n_checked

@@ -44,6 +44,7 @@ from canopy_tpu_torch.engine.sampler import (monte_carlo_ci, sample_states,
 from canopy_tpu_torch.errors import LogicError
 from canopy_tpu_torch.mef import Initializer
 from canopy_tpu_torch.ops import bitpack as tbp
+from canopy_tpu_torch.ops.prng import prng_key
 from canopy_tpu_torch.ops.bernoulli_kernel import (bernoulli_thresholds,
                                                    packed_bernoulli,
                                                    packed_bernoulli_plain,
@@ -275,19 +276,16 @@ def test_chunked_top_probability_is_unchanged(monkeypatch):
 def test_float_state_sampler():
     tree = mixed_tree(with_house=False)
     p = torch.tensor([0.2, 0.4, 0.6, 0.3, 0.5, 0.7], dtype=torch.float64)
-    gen = torch.Generator().manual_seed(0)
-    states = sample_states(gen, p, 1000)
+    states = sample_states(prng_key(0), p, 1000)
     assert set(states.unique().tolist()) <= {0.0, 1.0}
-    gen.manual_seed(1)
-    estimate, tops = sample_top_probability(tree, gen, p, 32 * 4096)
+    estimate, tops = sample_top_probability(tree, prng_key(1), p, 32 * 4096)
     # The float engine on 0/1 states is the Boolean function: its mean
     # is within 0.01 of the exact (gather on these independent-argument
     # gates is not exact, so compare with the packed engine's estimate).
     packed = tbp.packed_top_probability(tree, 1, p, 32 * 4096, None, "cpu")
     assert abs(float(estimate) - packed) < 0.01
     assert set(tops.unique().tolist()) <= {0.0, 1.0}
-    gen = torch.Generator().manual_seed(2)
-    words = tbp.sample_states_packed(gen, p, 32 * 4096)
+    words = tbp.sample_states_packed(prng_key(2), p, 32 * 4096)
     np.testing.assert_allclose(tbp.popcount_mean(words, 32 * 4096).numpy(),
                                p.numpy(), atol=0.01)
 

@@ -5,20 +5,25 @@
   generator and its fast-forward are the JAX package's).
 * A sweep stopped by an exception and resumed from its checkpoint equals
   the uninterrupted sweep, bit for bit, with a ``batch_fn`` that samples
-  the slice plant's expression tape under the key ``(seed, batch)`` and
-  propagates its tops.
+  the slice plant's expression tape under the key ``fold_in(prng_key(seed),
+  batch)`` and propagates its tops.
+* A sweep checkpointed by the JAX package at batch 3 and resumed by the
+  port: its state that of the uninterrupted JAX sweep (reservoir and sums
+  within 1e-10 relative; the keys, hence the samples, are the same).
 * A seed mismatch raises; ``SweepState.save`` / ``load`` round-trip.
 """
 
 import dataclasses
 import os
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from canopy_tpu.engine.checkpoint import CheckpointedSweep as JaxSweep
 from canopy_tpu_torch.engine.checkpoint import CheckpointedSweep, SweepState
+from canopy_tpu_torch.ops.prng import fold_in, prng_key
 
 from torch_parity import load_tree
 
@@ -80,7 +85,7 @@ def test_resume_is_bit_identical(tmp_path):
     kw = dict(seed=11, n_batches=8, batch_trials=256, reservoir_size=700)
     fn, keys = _tape_batch_fn()
     full = CheckpointedSweep(fn, **kw).run()
-    assert keys == [(11, b) for b in range(8)]
+    assert keys == [fold_in(prng_key(11), b) for b in range(8)]
     path = str(tmp_path / "sweep.npz")
     fn, _keys = _tape_batch_fn(stop_at=5)
     with pytest.raises(_Stop):
@@ -88,10 +93,54 @@ def test_resume_is_bit_identical(tmp_path):
     assert SweepState.load(path).completed_batches == 5
     fn, keys = _tape_batch_fn()
     resumed = CheckpointedSweep(fn, checkpoint_path=path, **kw).run()
-    assert keys == [(11, b) for b in range(5, 8)]
+    assert keys == [fold_in(prng_key(11), b) for b in range(5, 8)]
     _assert_same_state(resumed, full)
     assert full.completed_trials == 2048 and full.reservoir_filled == 700
     assert 0.0 < full.mean < 1.0 and full.std > 0.0
+
+
+def _jax_tape_batch_fn(stop_at=None):
+    """The JAX package's counterpart of :func:`_tape_batch_fn`: its tape
+    under its key, its f64 propagation on its CPU backend."""
+    from canopy_tpu.compiler.expr_tape import ExpressionTape as JaxTape
+    from canopy_tpu.engine.propagate import top_event_probability
+    _model, tree = load_tree("canopy_tpu", "torch_slice_plant",
+                             tree_name="slice")
+    tape = JaxTape.build([e.expression for e in tree.basic_events])
+    house = jnp.asarray(tree.house_state_vector())
+
+    def batch_fn(key, batch):
+        if batch == stop_at:
+            raise _Stop(batch)
+        samples = jnp.clip(tape.sample(key, 256, 8760.0), 0.0, 1.0)
+        return np.asarray(top_event_probability(tree, samples, house))
+    return batch_fn
+
+
+def test_jax_checkpoint_resumes_in_the_port(tmp_path):
+    """A sweep stopped at batch 3 by the JAX package and resumed by the
+    port reaches the uninterrupted JAX sweep's state: the same keys draw
+    the same samples, so the reservoir (same slots filled by the shared
+    reservoir generator) and the sums agree within 1e-10 relative."""
+    kw = dict(seed=11, n_batches=5, batch_trials=256, reservoir_size=700)
+    want = JaxSweep(_jax_tape_batch_fn(), **kw).run()
+    path = str(tmp_path / "sweep.npz")
+    with pytest.raises(_Stop):
+        JaxSweep(_jax_tape_batch_fn(stop_at=3), checkpoint_path=path,
+                 **kw).run()
+    assert SweepState.load(path).completed_batches == 3
+    fn, keys = _tape_batch_fn()
+    got = CheckpointedSweep(fn, checkpoint_path=path, **kw).run()
+    assert keys == [fold_in(prng_key(11), b) for b in range(3, 5)]
+    assert (got.seed, got.completed_batches, got.completed_trials,
+            got.reservoir_filled) == (want.seed, want.completed_batches,
+                                      want.completed_trials,
+                                      want.reservoir_filled)
+    np.testing.assert_allclose(got.reservoir, want.reservoir, rtol=1e-10,
+                               atol=0)
+    for field in ("sum_", "sum_sq"):
+        a, b = getattr(got, field), getattr(want, field)
+        assert abs(a - b) <= 1e-10 * abs(b), field
 
 
 def test_seed_mismatch_rejected(tmp_path):

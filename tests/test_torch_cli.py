@@ -2,9 +2,10 @@
 the JAX package's CLI report, field for field.
 
 Both CLIs run in-process with ``-o report.json``; the reports must be
-equal after leaving out timings (wall clock) and the sampled uncertainty
-statistics (the two packages draw from different generators).  Floats
-within 1e-12 relative (the same f64 operation order).
+equal after leaving out timings (wall clock).  Floats within 1e-12
+relative (the same f64 operation order).  The sampled uncertainty block
+is left out of the deterministic cases and compared in its own case: the
+port's sampler keys its draws as the JAX package's does.
 """
 
 import json
@@ -73,6 +74,26 @@ def test_report_matches_jax_cli(tmp_path, flags):
     assert jax_main([model, *flags, "-o", str(ref)]) == 0
     _assert_same(_strip(json.loads(ours.read_text())),
                  _strip(json.loads(ref.read_text())))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--uncertainty", "--num-trials", "2000", "--seed", "7"],
+    ["--uncertainty", "--num-trials", "2000", "--seed", "11",
+     "--batch-size", "500"],
+])
+def test_report_with_uncertainty_matches_jax_cli(tmp_path, flags):
+    """The whole report, uncertainty included, each CLI on its own
+    sampler."""
+    model = fixture_path("demo_plant")
+    ours, ref = tmp_path / "ours.json", tmp_path / "ref.json"
+    assert torch_main([model, "--device", "cpu", "--probability", *flags,
+                       "-o", str(ours)]) == 0
+    assert jax_main([model, "--probability", *flags, "-o", str(ref)]) == 0
+    got, want = json.loads(ours.read_text()), json.loads(ref.read_text())
+    got.pop("timings")
+    want.pop("timings")
+    assert any(ft.get("uncertainty") for ft in want["fault_trees"])
+    _assert_same(got, want)
 
 
 def test_module_entry_point_and_xml_report(tmp_path):

@@ -6,7 +6,8 @@
 * A loaded tree's f64 tops on the CPU are bit-equal to the original
   tree's (the port's gather engine on the same numpy inputs), whichever
   package wrote the file.
-* A loaded tape's samples under a key ``(seed, batch)`` and its means are
+* A loaded tape's samples under a key ``fold_in(prng_key(seed), batch)``
+  and its means are
   bit-equal to the unsaved tape's.
 """
 
@@ -19,6 +20,7 @@ import torch
 from canopy_tpu.io import compiled_io as jax_io
 from canopy_tpu_torch.engine.propagate import top_event_probability
 from canopy_tpu_torch.io import compiled_io as torch_io
+from canopy_tpu_torch.ops.prng import fold_in, prng_key
 
 CPU = torch.device("cpu")
 
@@ -121,12 +123,13 @@ def test_loaded_tape_samples_are_bit_equal(tmp_path):
     _loaded, tape2 = torch_io.load_compiled(path)
     np.testing.assert_array_equal(tape2.evaluate_mean(8760.0, CPU).numpy(),
                                   tape.evaluate_mean(8760.0, CPU).numpy())
-    for key in [(42, 0), (42, 3)]:
+    for key in [fold_in(prng_key(42), 0), fold_in(prng_key(42), 3)]:
         s1 = tape.sample(key, 64, 8760.0, CPU).numpy()
         s2 = tape2.sample(key, 64, 8760.0, CPU).numpy()
         np.testing.assert_array_equal(s2, s1)
-    assert not np.array_equal(tape.sample((42, 1), 64, 8760.0, CPU),
-                              tape.sample((42, 0), 64, 8760.0, CPU))
+    assert not np.array_equal(
+        tape.sample(fold_in(prng_key(42), 1), 64, 8760.0, CPU),
+        tape.sample(fold_in(prng_key(42), 0), 64, 8760.0, CPU))
 
 
 def test_unknown_format_raises(tmp_path):

@@ -10,8 +10,9 @@
 * Moments of every deviate kind from 200,000 draws: each sample mean
   within 5 standard errors of the distribution's mean, each sample
   variance within 5 % of its variance.
-* A batch's draws depend only on (seed, batch, slot): the same, whatever
-  the number of batches in the run.
+* Batch ``b`` of a run draws under ``fold_in(prng_key(seed), b)`` (the
+  JAX package's rule; an unbatched run under ``prng_key(seed)``): the
+  same, whatever the number of batches in the run.
 """
 
 import importlib
@@ -24,6 +25,7 @@ import torch
 from canopy_tpu.compiler.expr_tape import ExpressionTape as JaxTape
 from canopy_tpu_torch.compiler.expr_tape import ExpressionTape
 from canopy_tpu_torch.engine.uncertainty import uncertainty_analysis
+from canopy_tpu_torch.ops.prng import fold_in, prng_key
 
 from torch_parity import ALL_FIXTURES, fixture_inputs
 
@@ -119,7 +121,7 @@ def test_deviate_moments():
     n = 200_000
     cases = _deviates()
     tape = ExpressionTape.build([e for e, _m, _v in cases])
-    draws = tape.sample((11, 0), n, 8760.0, "cpu").numpy()
+    draws = tape.sample(prng_key(11), n, 8760.0, "cpu").numpy()
     for k, (expr, mean, var) in enumerate(cases):
         col = draws[:, k]
         name = type(expr).__name__
@@ -129,9 +131,11 @@ def test_deviate_moments():
 
 def test_batches_depend_only_on_seed_batch_and_slot():
     tape = ExpressionTape.build([e for e, _m, _v in _deviates()])
-    a = tape.sample((7, 1), 512, 8760.0, "cpu")
-    assert torch.equal(a, tape.sample((7, 1), 512, 8760.0, "cpu"))
-    assert not torch.equal(a, tape.sample((7, 2), 512, 8760.0, "cpu"))
+    key = prng_key(7)
+    a = tape.sample(fold_in(key, 1), 512, 8760.0, "cpu")
+    assert torch.equal(a, tape.sample(fold_in(key, 1), 512, 8760.0, "cpu"))
+    assert not torch.equal(a, tape.sample(fold_in(key, 2), 512, 8760.0,
+                                          "cpu"))
     # Batch b of a run is the same whatever the number of batches.
     seen = []
 
@@ -145,9 +149,15 @@ def test_batches_depend_only_on_seed_batch_and_slot():
     uncertainty_analysis(None, tape, 7, 1024, 8760.0, "cpu",
                          batch_size=512, top_fn=top_fn)
     assert len(four) == 4 and len(seen) == 2
+
+    def clipped(k):
+        return torch.clamp(tape.sample(k, 512, 8760.0, "cpu"), 0.0, 1.0)
     for b in range(2):
         assert torch.equal(four[b], seen[b])
+        assert torch.equal(four[b], clipped(fold_in(key, b)))
+    # An unbatched run draws under the run's key itself, as the JAX
+    # package's does.
     seen.clear()
     uncertainty_analysis(None, tape, 7, 512, 8760.0, "cpu", top_fn=top_fn)
-    assert torch.equal(seen[0], four[0])
+    assert torch.equal(seen[0], clipped(key))
 

@@ -17,7 +17,9 @@ bit (the same Philox words, exact bitwise propagation); the gather and
 block-gather direct kernels bit-equal to the float32 gather engine, the
 block-gather log kernel within 1e-6 relative of its plain version (the
 card's ``logf``/``expf`` against torch's) and within 1e-5 of the f64
-gather engine.
+gather engine; the threefry kernels (``csrc/prng.cu``) bit-equal to their
+plain versions on the card, one ``draw_standard`` launch per tape and one
+``draw_gamma`` launch per gamma or beta deviate.
 """
 
 import numpy as np
@@ -34,7 +36,9 @@ from canopy_tpu_torch.engine.propagate import (make_propagator,
                                                top_event_probability)
 from canopy_tpu_torch.ops import adjoint_kernel as tak
 from canopy_tpu_torch.ops import fused_kernel as tfk
+from canopy_tpu_torch.ops import prng
 from canopy_tpu_torch.ops import stream_kernel as tsk
+from canopy_tpu_torch.ops.prng import fold_in, prng_key
 from canopy_tpu_torch.settings import Settings
 
 from torch_parity import (cuda_device, fixture_path,  # noqa: F401
@@ -169,7 +173,7 @@ def test_event_tree_on_cuda(cuda_device, tmp_path):  # noqa: F811
     gates = [o.conjoined_gate(f"__seq{i}__") for i, o in enumerate(outcomes)]
     tree = compile_gates(gates)
     tape = ExpressionTape.build([e.expression for e in tree.basic_events])
-    key = (7, zlib.crc32(b"IE") & 0x7FFFFFFF)
+    key = fold_in(prng_key(7), zlib.crc32(b"IE") & 0x7FFFFFFF)
     basic = torch.clamp(tape.sample(key, 4096, settings.mission_time(),
                                     cuda_device), 0.0, 1.0)
     for s_gpu, s_cpu, outcome, gate in zip(gpu, cpu, outcomes, gates):
@@ -865,8 +869,9 @@ def test_compiled_model_round_trip_on_cuda(cuda_device, tmp_path):  # noqa: F811
     path = tmp_path / "slice.npz"
     save_compiled(path, tree, tape)
     loaded, loaded_tape = load_compiled(path)
-    samples = loaded_tape.sample((7, 0), 65_536, 8760.0, cuda_device)
-    assert torch.equal(samples, tape.sample((7, 0), 65_536, 8760.0,
+    key = fold_in(prng_key(7), 0)
+    samples = loaded_tape.sample(key, 65_536, 8760.0, cuda_device)
+    assert torch.equal(samples, tape.sample(key, 65_536, 8760.0,
                                             cuda_device))
     basic = torch.clamp(samples, 0.0, 1.0).float()
     before = make_propagator(tree, cuda_device)(basic)
@@ -903,3 +908,57 @@ def test_sharded_stream_step_on_one_nccl_rank(cuda_device,  # noqa: F811
     finally:
         dist.destroy_process_group()
     assert torch.equal(tops, tsk.stream_propagate(enc, basic, house))
+
+
+def _plain_tape_sample(monkeypatch, tape, key, n, device):
+    """``tape.sample`` with both kernels' plain versions, on ``device``."""
+    import canopy_tpu_torch.compiler.expr_tape as et
+    with monkeypatch.context() as m:
+        m.setattr(et, "draw_standard",
+                  lambda table, out: prng.draw_standard_plain(table, out)
+                  or out)
+        m.setattr(et, "draw_gamma", prng.draw_gamma_plain)
+        return tape.sample(key, n, 8760.0, device)
+
+
+def test_prng_kernels_bit_equal_to_plain(cuda_device,  # noqa: F811
+                                         monkeypatch):
+    """Both threefry kernels against their plain versions on the card, on
+    the every-kind tape (one ``draw_standard`` launch, one ``draw_gamma``
+    per gamma or beta deviate) and on the slice tape."""
+    from canopy_tpu_torch.compiler.expr_tape import ExpressionTape
+    from canopy_tpu_torch.mef import expr
+    from canopy_tpu_torch.mef.parameter import MissionTime
+    from canopy_tpu_torch.utils.scale_models import every_deviate_kind
+    key = prng_key(20261017)
+    tape = ExpressionTape.build(every_deviate_kind(expr, MissionTime()))
+    tsk.reset_launches()
+    got = tape.sample(key, 65_536, 8760.0, cuda_device)
+    torch.cuda.synchronize()
+    n_gamma = sum(1 for op in tape._ops
+                  if op[0] in ("gamma-deviate", "beta-deviate"))
+    assert tsk.LAUNCHES["prng"] == 1 + n_gamma == 6
+    want = _plain_tape_sample(monkeypatch, tape, key, 65_536, cuda_device)
+    assert torch.equal(got, want)
+    _m, tree = load_tree("canopy_tpu_torch", "torch_slice_plant",
+                         tree_name="slice")
+    tape = ExpressionTape.build([e.expression for e in tree.basic_events])
+    got = tape.sample(key, 1 << 16, 8760.0, cuda_device)
+    assert torch.equal(got, _plain_tape_sample(monkeypatch, tape, key,
+                                               1 << 16, cuda_device))
+    table = prng.StandardTable()
+    for kind in (prng.UNIFORM, prng.UNIFORM32, prng.NORMAL, prng.GUMBEL):
+        table.add(fold_in(key, kind), kind, kind, stride=3, offset=kind % 3)
+    out = torch.zeros((100_003, 4), dtype=torch.float64, device=cuda_device)
+    plain = torch.zeros_like(out)
+    prng.draw_standard(table, out)
+    prng.draw_standard_plain(table, plain)
+    assert torch.equal(out, plain)
+    # Shapes from 1e-4 (boosts with exponents up to 10^4) to 10.
+    alpha = torch.tensor(10.0 ** np.random.default_rng(13).uniform(
+        -4.0, 1.0, (2, 50_000)), device=cuda_device)
+    for log_space in (False, True):
+        keys = prng.split(key, 2)
+        assert torch.equal(
+            prng.draw_gamma(keys, alpha, 50_000, log_space),
+            prng.draw_gamma_plain(keys, alpha, 50_000, log_space))

@@ -53,6 +53,7 @@ def test_import_leaves_jax_out():
             "canopy_tpu_torch.ops.replay_adjoint_kernel, "
             "canopy_tpu_torch.ops.bernoulli_kernel, "
             "canopy_tpu_torch.ops.bitpack, canopy_tpu_torch.engine.sampler, "
+            "canopy_tpu_torch.ops.prng, "
             "canopy_tpu_torch.compiler.spill, "
             "canopy_tpu_torch.compiler.replay_adjoint, "
             "canopy_tpu_torch.compiler.reorder, "
