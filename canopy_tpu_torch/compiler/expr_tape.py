@@ -50,6 +50,7 @@ from ..mef.expr.test_event import TestFunctionalEvent, TestInitiatingEvent
 from ..ops.prng import (AFFINE, EXP_AFFINE, GUMBEL, NONE, NORMAL, UNIFORM,
                         StandardTable, beta_from_logs, draw_gamma,
                         draw_standard, fold_in_many, split)
+from ..utils.profiling import span, to_device, to_host
 
 __all__ = ["ExpressionTape"]
 
@@ -496,26 +497,27 @@ class ExpressionTape:
         ``deviate_key`` gives it."""
         device = mission_time.device
         varying = self._varying()
-        plan = self._sample_plan(mission_time.detach().cpu())
-        col_of, raw_of, hist_of = (plan["col_of"], plan["raw_of"],
-                                   plan["hist_of"])
-        slot_key = dict(zip(plan["deviates"],
-                            fold_in_many(key, plan["deviates"])))
-        row_keys = {(0, s): k for s, k in slot_key.items()}
-        for s in hist_of:
-            row_keys[1, s], row_keys[2, s] = split(slot_key[s])
-        table = StandardTable()
-        for source, slot, draw, transform, stride, offset, col, p0, p1 in \
-                plan["rows"]:
-            table.add(row_keys[source, slot], draw, col, transform, p0, p1,
-                      stride, offset)
+        with span("sample.plan"):
+            plan = self._sample_plan(to_host(mission_time.detach()))
+            col_of, raw_of, hist_of = (plan["col_of"], plan["raw_of"],
+                                       plan["hist_of"])
+            slot_key = dict(zip(plan["deviates"],
+                                fold_in_many(key, plan["deviates"])))
+            row_keys = {(0, s): k for s, k in slot_key.items()}
+            for s in hist_of:
+                row_keys[1, s], row_keys[2, s] = split(slot_key[s])
+            table = StandardTable()
+            for source, slot, draw, transform, stride, offset, col, p0, \
+                    p1 in plan["rows"]:
+                table.add(row_keys[source, slot], draw, col, transform, p0,
+                          p1, stride, offset)
         n_out = len(self._out_slots)
         n_cols = plan["n_cols"]
         block = torch.empty((n_trials, n_cols), dtype=_F64, device=device)
         draw_standard(table, block)
         values: list = [None] * self._n_slots
         if plan["needed"]:
-            moved = plan["needed_values"].to(device)
+            moved = to_device(plan["needed_values"], device)
             for s, v in zip(plan["needed"], moved.unbind()):
                 values[s] = v
 
@@ -580,6 +582,5 @@ class ExpressionTape:
         """Epistemic samples on ``device``, shape (n_trials, n_outputs),
         under the threefry key ``key`` (``ops/prng.py``: two 32-bit words,
         as ``jax.random`` keys are)."""
-        return self._run_sample(torch.as_tensor(mission_time, dtype=_F64,
-                                                device=torch.device(device)),
-                                key, n_trials)
+        return self._run_sample(to_device(mission_time, device, _F64), key,
+                                n_trials)

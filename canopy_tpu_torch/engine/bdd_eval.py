@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..compiler.bdd import CompiledBdd
+from ..utils.profiling import to_device
 
 __all__ = ["bdd_probability", "make_bdd_evaluator",
            "make_modular_evaluator"]
@@ -169,7 +170,7 @@ def make_modular_evaluator(modular, device, engine: str = "auto",
                 result = value
             # Out of place: autograd needs every earlier matrix intact.
             vals = vals.index_copy(
-                1, torch.tensor([out_slot], device=vals.device),
+                1, to_device([out_slot], vals.device, torch.int64),
                 value.unsqueeze(1))
         return result
     streams = steps is not None

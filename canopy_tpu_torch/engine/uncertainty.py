@@ -18,6 +18,7 @@ import torch
 from ..compiler.expr_tape import ExpressionTape
 from ..compiler.graph import CompiledTree
 from ..ops.prng import fold_in, prng_key
+from ..utils.profiling import COUNTERS, span, to_host
 from .propagate import make_propagator
 
 __all__ = ["UncertaintyResult", "uncertainty_analysis",
@@ -47,9 +48,10 @@ def sample_basic_probabilities(tape: ExpressionTape, key, n_trials: int,
                                ) -> torch.Tensor:
     """(n_trials, n_basic) sampled probability vectors on ``device``,
     drawn under the threefry key ``key``."""
-    samples = tape.sample(key, n_trials, mission_time, device)
-    if clip_probability:
-        samples = torch.clamp(samples, 0.0, 1.0)
+    with span("uncertainty.sample"):
+        samples = tape.sample(key, n_trials, mission_time, device)
+        if clip_probability:
+            samples = torch.clamp(samples, 0.0, 1.0)
     return samples
 
 
@@ -72,41 +74,46 @@ def uncertainty_analysis(tree: CompiledTree, tape: ExpressionTape,
     CUDA, gather on the CPU) with ``house_states`` (default:
     the tree's) baked in.
     """
-    if top_fn is None:
-        house = tree.house_state_vector() if house_states is None \
-            else np.asarray(house_states)
-        top_fn = make_propagator(tree, device, output="top",
-                                 house_states=house)
+    with span("uncertainty"):
+        if top_fn is None:
+            house = tree.house_state_vector() if house_states is None \
+                else np.asarray(house_states)
+            top_fn = make_propagator(tree, device, output="top",
+                                     house_states=house)
 
-    key = prng_key(seed)
+        key = prng_key(seed)
 
-    def run_batch(batch_key, batch_trials: int) -> torch.Tensor:
-        p = sample_basic_probabilities(tape, batch_key, batch_trials,
-                                       mission_time, device)
-        with torch.no_grad():
-            return top_fn(p)
+        def run_batch(batch_key, batch_trials: int) -> torch.Tensor:
+            p = sample_basic_probabilities(tape, batch_key, batch_trials,
+                                           mission_time, device)
+            with span("uncertainty.evaluate"), torch.no_grad():
+                return top_fn(p)
 
-    if batch_size is None or batch_size >= n_trials:
-        tops = run_batch(key, n_trials)
-    else:
-        pieces = []
-        remaining = n_trials
-        batch_index = 0
-        while remaining > 0:
-            chunk = min(batch_size, remaining)
-            pieces.append(run_batch(fold_in(key, batch_index), chunk))
-            remaining -= chunk
-            batch_index += 1
-        tops = torch.cat(pieces)
+        if batch_size is None or batch_size >= n_trials:
+            tops = run_batch(key, n_trials)
+        else:
+            pieces = []
+            remaining = n_trials
+            batch_index = 0
+            while remaining > 0:
+                chunk = min(batch_size, remaining)
+                pieces.append(run_batch(fold_in(key, batch_index), chunk))
+                remaining -= chunk
+                batch_index += 1
+            tops = torch.cat(pieces)
+        COUNTERS["trials"] += n_trials
 
-    tops = tops.cpu().numpy()
-    qs = np.linspace(0.0, 1.0, num_quantiles)
-    quantiles = np.quantile(tops, qs)
-    median = float(np.median(tops))
-    p95 = float(np.quantile(tops, 0.95))
-    hist, edges = np.histogram(tops, bins=num_bins, density=True)
+        with span("uncertainty.readback"):
+            tops = to_host(tops).numpy()
+        with span("uncertainty.statistics"):
+            qs = np.linspace(0.0, 1.0, num_quantiles)
+            quantiles = np.quantile(tops, qs)
+            median = float(np.median(tops))
+            p95 = float(np.quantile(tops, 0.95))
+            hist, edges = np.histogram(tops, bins=num_bins, density=True)
+            mean, std = float(tops.mean()), float(tops.std(ddof=1))
     return UncertaintyResult(
-        mean=float(tops.mean()), std=float(tops.std(ddof=1)),
+        mean=mean, std=std,
         error_factor=(p95 / median if median > 0 else float("inf")),
         quantiles=quantiles, histogram_edges=edges, histogram_density=hist,
         n_trials=n_trials)

@@ -20,6 +20,8 @@ import subprocess
 import tempfile
 import time
 
+from ..utils.profiling import COUNTERS, span
+
 __all__ = ["load_library", "build_info", "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -63,9 +65,10 @@ def _build() -> str:
     _info.update(path=lib_path, built=False, seconds=0.0, ptxas="")
     if os.path.exists(lib_path):
         return lib_path
+    COUNTERS["builds"] += 1
     t0 = time.perf_counter()
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+    with span("build"), tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
         objects, procs = [], []
         for name in _SOURCES:
             obj = os.path.join(tmp, name + ".o")

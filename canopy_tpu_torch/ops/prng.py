@@ -60,6 +60,7 @@ from dataclasses import dataclass, field
 import torch
 
 from ..errors import LogicError
+from ..utils.profiling import to_device
 from .stream_kernel import LAUNCHES, _raise_on
 
 __all__ = ["prng_key", "fold_in", "fold_in_many", "split", "threefry_2x32",
@@ -297,10 +298,8 @@ class StandardTable:
         return len(self.rows)
 
     def tensors(self, device):
-        rows = torch.tensor(self.rows, dtype=_I64,
-                            device=device).reshape(-1, 7)
-        params = torch.tensor(self.params, dtype=_F64,
-                              device=device).reshape(-1, 2)
+        rows = to_device(self.rows, device, _I64).reshape(-1, 7)
+        params = to_device(self.params, device, _F64).reshape(-1, 2)
         return rows, params
 
 
@@ -524,8 +523,8 @@ def draw_gamma(keys, alpha: torch.Tensor, n: int,
     lib = load_library()
     device = alpha.device
     alpha = _gamma_alpha(keys, alpha, n).contiguous()
-    words = torch.tensor([_as_key(k) for k in keys], dtype=_I64,
-                         device=device).reshape(-1, 2)
+    words = to_device([_as_key(k) for k in keys], device,
+                      _I64).reshape(-1, 2)
     out = torch.empty(alpha.shape, dtype=_F64, device=device)
     if out.numel() == 0:
         return out

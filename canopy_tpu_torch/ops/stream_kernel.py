@@ -64,6 +64,7 @@ import torch
 from ..compiler.graph import CompiledTree
 from ..compiler.schedule import StreamProgram, build_stream_schedule
 from ..errors import LogicError
+from ..utils.profiling import to_device
 
 __all__ = ["compile_stream", "compile_bdd_stream", "compile_tree_stream",
            "tree_stream_encoding", "bdd_stream_encoding", "BDD_BATCH",
@@ -439,10 +440,9 @@ class EncodedStream:
         """(ops, args, fill) as tensors on ``device`` (cached)."""
         key = str(device)
         if key not in self._cache:
-            self._cache[key] = (
-                torch.from_numpy(self.ops).to(device),
-                torch.from_numpy(self.args).to(device),
-                torch.from_numpy(self.fill).to(device))
+            self._cache[key] = (to_device(self.ops, device),
+                                to_device(self.args, device),
+                                to_device(self.fill, device))
         return self._cache[key]
 
     def plain_ops(self):
@@ -535,7 +535,7 @@ def stage_basic(enc: EncodedStream, values: torch.Tensor,
     ``values``.  For BDD programs ``values`` is the global value matrix
     and the program's ``stage_cols`` pick its decision variables.
     """
-    cols = torch.from_numpy(enc.staged_cols).to(values.device)
+    cols = to_device(enc.staged_cols, values.device)
     return values.to(dtype)[:, cols].T.contiguous()
 
 
@@ -559,8 +559,8 @@ def house_tensor(enc: EncodedStream, house, device,
         raise LogicError(f"program reads {enc.n_house} house events, got "
                          f"{len(house)} states")
     # One spare element keeps the pointer valid for house-free programs.
-    return torch.from_numpy(np.concatenate([house, [0.0]]).astype(
-        np.float32)).to(device=device, dtype=dtype)
+    return to_device(np.concatenate([house, [0.0]]).astype(np.float32),
+                     device).to(dtype)
 
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -996,7 +996,7 @@ def stream_forward(enc: EncodedStream, staged: torch.Tensor, house,
     step = _step(dtype)
     key = f"records:{step}:{device}"
     if key not in enc._cache:
-        enc._cache[key] = tuple(torch.from_numpy(a).to(device)
+        enc._cache[key] = tuple(to_device(a, device)
                                 for a in pack_records(enc, step))
     recs, rec_op = enc._cache[key]
     gpool = torch.empty((enc.pool_slots + 1, t_pad), dtype=dtype,

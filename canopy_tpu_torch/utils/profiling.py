@@ -1,11 +1,51 @@
-"""Observability: phase timers, roofline accounting and a trace context.
+"""Observability: spans, counters, phase timers, roofline accounting and a
+trace context.
 
-Structured phase timers feed ``RiskAnalysis`` timings; a roofline
-accountant turns (bytes moved, elements processed, elapsed) into
-achieved-fraction numbers against the card's memory rate; :func:`trace`
-records the analysis with ``torch.profiler`` (CPU and, on a CUDA device,
-kernel activity) and writes a Chrome trace plus a table of the slowest
-operators into a directory.
+**Spans.**  :func:`span` names a layer of the program in a
+``torch.profiler`` trace.  While a profiler records (the CLI's
+``--profile``, or any ``torch.profiler.profile`` around a call) it opens
+``torch.profiler.record_function("canopy." + name)``, so the span lands in
+the same Chrome trace, on the same clock, as the CUDA kernels, copies and
+fills launched inside it.  While none records it costs one check and
+enters a shared no-op context; nothing else turns spans on.  Names are
+static strings, with no request size or id in them: a span's parent is
+the span that contains it on the recording thread, and a request is
+identified by its root span.  The spans:
+
+* ``canopy.uncertainty``: one ``engine.uncertainty.uncertainty_analysis``
+  call, the root of an uncertainty request.  Its children:
+  ``canopy.uncertainty.sample`` (one per batch; inside it
+  ``canopy.sample.plan``, the tape's host work before its
+  ``draw_standard`` launch: the mission-time read-back, the sample plan,
+  the keys and the table), ``canopy.uncertainty.evaluate`` (the top-event
+  evaluator on one batch), ``canopy.uncertainty.readback`` (the tops
+  copied to the host) and ``canopy.uncertainty.statistics`` (quantiles,
+  median, p95, histogram, mean and standard deviation).
+* ``canopy.analysis.<phase>``: a phase of ``RiskAnalysis``
+  (:class:`PhaseTimer`), named by its report key up to the colon
+  (``canopy.analysis.total`` is the root of a whole analysis).
+* ``canopy.build``: the CUDA library's compile from source.
+
+A request's host time is its root span less the device's busy time
+inside it; each child span names a share of it.
+
+**Counters.**  :data:`COUNTERS` counts where the work happens, traced or
+not, one dict increment a site: ``h2d`` and ``h2d_bytes``, ``d2h`` and
+``d2h_bytes`` (every explicit host-device copy on the uncertainty path,
+through :func:`to_device` and :func:`to_host`), ``trials`` (the trials
+``uncertainty_analysis`` evaluated) and ``builds`` (compiles of the CUDA
+library from source).  :func:`counters` returns a flat snapshot of them
+and of the kernel launches (``ops.stream_kernel.LAUNCHES``, prefixed
+``launch.``); two snapshots' difference counts what ran between them.
+
+**Phases.**  :class:`PhaseTimer` times ``RiskAnalysis``'s phases for the
+report's ``<calculation-time>``: each phase a span, ending when the
+device's queued work has finished.  A roofline accountant turns (bytes
+moved, elements processed, elapsed) into achieved-fraction numbers
+against the card's memory rate; :func:`trace` records the analysis with
+``torch.profiler`` (CPU and, on a CUDA device, kernel activity) and
+writes a Chrome trace plus a table of the slowest operators into a
+directory.
 """
 
 from __future__ import annotations
@@ -14,30 +54,82 @@ import contextlib
 import os
 import time
 
+import torch
+
 from ..errors import LogicError
 
-__all__ = ["PhaseTimer", "RooflineAccountant", "trace"]
+__all__ = ["span", "COUNTERS", "counters", "to_device", "to_host",
+           "PhaseTimer", "RooflineAccountant", "trace"]
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The span ``canopy.<name>`` while a profiler records, else a no-op
+    context."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function("canopy." + name)
+    return _NO_SPAN
+
+
+#: Counts by name (module docstring); never reset by the program.
+COUNTERS = {"h2d": 0, "h2d_bytes": 0, "d2h": 0, "d2h_bytes": 0,
+            "trials": 0, "builds": 0}
+
+
+def counters() -> dict[str, int]:
+    """A snapshot of :data:`COUNTERS` and the kernel launches (keys
+    ``launch.<kernel>``)."""
+    from ..ops.stream_kernel import LAUNCHES
+    return {**COUNTERS, **{"launch." + k: v for k, v in LAUNCHES.items()}}
+
+
+def to_device(data, device, dtype=None) -> torch.Tensor:
+    """``data`` (a host tensor, array, list or number) as a tensor of
+    ``dtype`` on ``device``; a copy out of host memory counts in ``h2d``
+    and ``h2d_bytes``."""
+    host = torch.as_tensor(data, dtype=dtype)
+    device = torch.device(device)
+    if host.device.type == "cpu" and device.type != "cpu":
+        COUNTERS["h2d"] += 1
+        COUNTERS["h2d_bytes"] += host.numel() * host.element_size()
+    return host.to(device)
+
+
+def to_host(tensor: torch.Tensor) -> torch.Tensor:
+    """``tensor`` in host memory; a copy off a device counts in ``d2h``
+    and ``d2h_bytes``."""
+    if tensor.device.type != "cpu":
+        COUNTERS["d2h"] += 1
+        COUNTERS["d2h_bytes"] += tensor.numel() * tensor.element_size()
+    return tensor.cpu()
 
 
 class PhaseTimer:
-    """Accumulating named phase timers."""
+    """Named phase times in seconds (``times``, in the order the phases
+    ended).  A phase on a CUDA ``device`` ends when the device's queued
+    work has finished; it starts there too, so it times its own work
+    alone."""
 
-    def __init__(self):
+    def __init__(self, device):
+        self.device = torch.device(device)
         self.times: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     @contextlib.contextmanager
-    def phase(self, name: str):
-        start = time.perf_counter()
-        try:
+    def phase(self, key: str):
+        """Time the block under ``key`` (a later phase of the same key
+        replaces it), as the span ``canopy.analysis.<key up to ':'>``.
+        A block that raises records nothing."""
+        with span("analysis." + key.split(":")[0]):
+            self._sync()
+            start = time.perf_counter()
             yield
-        finally:
-            elapsed = time.perf_counter() - start
-            self.times[name] = self.times.get(name, 0.0) + elapsed
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def report(self) -> dict[str, float]:
-        return dict(self.times)
+            self._sync()
+            self.times[key] = time.perf_counter() - start
 
 
 #: Device-memory bandwidth (bytes/s) by ``torch.cuda.get_device_name()``:
@@ -57,7 +149,6 @@ class RooflineAccountant:
                  bandwidth: float | None = None):
         if bandwidth is None:
             if card is None:
-                import torch
                 if not torch.cuda.is_available():
                     raise LogicError("RooflineAccountant: no CUDA card, and "
                                      "no bandwidth given")

@@ -962,3 +962,40 @@ def test_prng_kernels_bit_equal_to_plain(cuda_device,  # noqa: F811
         assert torch.equal(
             prng.draw_gamma(keys, alpha, 50_000, log_space),
             prng.draw_gamma_plain(keys, alpha, 50_000, log_space))
+
+
+def test_uncertainty_request_counts_its_copies(cuda_device):  # noqa: F811
+    """One slice request through the modular chain on the card: the
+    mission time up and back, the draw table's two tensors, the tape's
+    host values (if any), the staged columns and house states of each
+    streamed module, each module's output slot, and the tops back; no
+    build, one draw and one stream launch per streamed module (the second
+    request, after the first cached the programs' tables)."""
+    from canopy_tpu_torch.compiler.expr_tape import ExpressionTape
+    from canopy_tpu_torch.engine.uncertainty import uncertainty_analysis
+    from canopy_tpu_torch.utils.profiling import counters
+    _m, tree = load_tree("canopy_tpu_torch", "torch_slice_plant",
+                         tree_name="slice")
+    tape = ExpressionTape.build([e.expression for e in tree.basic_events])
+    modular = build_modular_bdd(tree, house_states=tree.house_state_vector())
+    evaluator = make_modular_evaluator(modular, cuda_device)
+    streamed = sum(bdd.resolved_root() > 1 for bdd, _slot in modular.chain)
+    n = 1 << 14
+
+    def request():
+        uncertainty_analysis(tree, tape, 11, n, 8760.0, cuda_device,
+                             top_fn=evaluator)
+    request()
+    before = counters()
+    request()
+    after = counters()
+    delta = {k: after[k] - before[k] for k in after}
+    needed = 1 if tape._sample_plan(torch.tensor(8760.0,
+                                                 dtype=torch.float64)
+                                    )["needed"] else 0
+    assert delta["trials"] == n
+    assert delta["builds"] == 0
+    assert delta["d2h"] == 2 and delta["d2h_bytes"] == 8 + 4 * n
+    assert delta["h2d"] == 3 + needed + 2 * streamed + len(modular.chain)
+    assert delta["launch.prng"] == 1
+    assert delta["launch.stream"] == streamed
