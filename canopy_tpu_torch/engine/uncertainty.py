@@ -5,7 +5,9 @@ num_trials, quantiles, bins): the expression tape draws ``num_trials``
 probability vectors in one vectorized pass on the analysis device
 (``compiler/expr_tape.py``), the whole batch goes through the top-event
 evaluator at once (on CUDA the exact-BDD stream kernel, or without a BDD
-``make_propagator``'s kernels), and statistics reduce on the host.
+``make_propagator``'s kernels), and the statistics reduce where the tops
+live, from one sort of them (:func:`summarize`): one copy of a summary
+of fixed size comes back, whatever the number of trials.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from ..utils.profiling import COUNTERS, span, to_host
 from .propagate import make_propagator
 
 __all__ = ["UncertaintyResult", "uncertainty_analysis",
-           "sample_basic_probabilities"]
+           "sample_basic_probabilities", "summarize"]
 
 
 @dataclasses.dataclass
@@ -102,18 +104,89 @@ def uncertainty_analysis(tree: CompiledTree, tape: ExpressionTape,
                 batch_index += 1
             tops = torch.cat(pieces)
         COUNTERS["trials"] += n_trials
+        return summarize(tops, num_quantiles, num_bins)
 
+
+def _neighbours(n: int, q):
+    """numpy's "linear" quantile at levels ``q`` in [0, 1] of ``n`` sorted
+    values: the positions below and above each virtual index ``(n - 1) q``,
+    and the weight between them, in ``q``'s dtype as numpy computes them."""
+    virtual = (n - 1) * q
+    below = np.floor(virtual)
+    gamma = virtual - below
+    below = np.minimum(below, n - 1).astype(np.intp)
+    return below, np.minimum(below + 1, n - 1), gamma
+
+
+def _lerp(a, b, t):
+    """numpy's ``_lerp``: ``a + (b - a) t``, taken from ``b`` where
+    ``t >= 0.5``."""
+    diff = np.subtract(b, a)
+    out = np.asanyarray(np.add(a, diff * t))
+    np.subtract(b, diff * (1 - t), out=out, where=t >= 0.5,
+                casting="unsafe", dtype=type(out.dtype))
+    return out
+
+
+def summarize(tops: torch.Tensor, num_quantiles: int = 20,
+              num_bins: int = 20) -> UncertaintyResult:
+    """The distribution of ``tops`` (1-D), reduced on their own device
+    from one sort, with one copy of a summary of fixed size back to the
+    host.  Quantiles, median, the 95th percentile and the histogram equal
+    ``np.quantile``, ``np.median`` and ``np.histogram(density=True)`` on
+    the same values to the bit; mean and ``std(ddof=1)`` accumulate in
+    float64.  The device returns the order statistics' neighbours, the
+    histogram's edges and the trials below each, and the moments; the
+    host finishes NumPy's arithmetic on those few numbers."""
+    n = tops.numel()
+    dtype = torch.empty((), dtype=tops.dtype).numpy().dtype
+    with span("uncertainty.statistics"):
+        # Positions of every order statistic the result reports: the
+        # quantiles' neighbours, the 95th percentile's (np.quantile takes
+        # a scalar level in the values' dtype) and the middle pair.
+        levels = np.linspace(0.0, 1.0, num_quantiles)
+        q_below, q_above, q_gamma = _neighbours(n, levels)
+        p_below, p_above, p_gamma = _neighbours(n, np.asarray(0.95, dtype))
+        positions = [*q_below, *q_above, p_below, p_above,
+                     (n - 1) // 2, n // 2]
+        # NumPy sorts on the host about twenty times faster than torch.
+        ordered = torch.sort(tops).values if tops.is_cuda else \
+            torch.from_numpy(np.sort(tops.numpy()))
+        picks = torch.stack([ordered[int(i)] for i in positions])
+        # np.histogram's edges: np.linspace over [min, max] in the values'
+        # dtype, an empty range widened by 0.5 each way.  The step divides
+        # by a tensor: CUDA divides by a host scalar through its reciprocal.
+        lo, hi = ordered[0], ordered[-1]
+        half = (lo == hi).to(ordered.dtype) * 0.5
+        first, last = lo - half, hi + half
+        step = (last - first) / torch.full_like(first, num_bins)
+        edges = torch.arange(num_bins + 1, dtype=ordered.dtype,
+                             device=ordered.device) * step + first
+        edges[-1] = last
+        # Trials below each inner edge: bins [e_i, e_i+1), the last closed.
+        below = torch.searchsorted(ordered, edges[1:-1])
+        std, mean = torch.std_mean(ordered.to(torch.float64), correction=1)
+        packed = torch.cat([picks, edges, below, mean.reshape(1),
+                            std.reshape(1)])
+        if tops.is_cuda:
+            COUNTERS["stats_on_device"] += 1
         with span("uncertainty.readback"):
-            tops = to_host(tops).numpy()
-        with span("uncertainty.statistics"):
-            qs = np.linspace(0.0, 1.0, num_quantiles)
-            quantiles = np.quantile(tops, qs)
-            median = float(np.median(tops))
-            p95 = float(np.quantile(tops, 0.95))
-            hist, edges = np.histogram(tops, bins=num_bins, density=True)
-            mean, std = float(tops.mean()), float(tops.std(ddof=1))
+            packed = to_host(packed).numpy()
+
+        k = num_quantiles
+        picks, edges, below, (mean, std) = np.split(
+            packed, np.cumsum([2 * k + 4, num_bins + 1, num_bins - 1]))
+        picks, edges = picks.astype(dtype), edges.astype(dtype)
+        if not np.isfinite(edges[[0, -1]]).all():
+            raise ValueError(f"autodetected range of [{edges[0]}, "
+                             f"{edges[-1]}] is not finite")
+        counts = np.diff(np.concatenate(([0], below.astype(np.intp), [n])))
+        density = counts / np.array(np.diff(edges), float) / counts.sum()
+        quantiles = _lerp(picks[:k], picks[k:2 * k], q_gamma)
+        p95 = float(_lerp(picks[2 * k], picks[2 * k + 1], p_gamma))
+        median = float(np.median(picks[2 * k + 2:2 * k + 4 - n % 2]))
     return UncertaintyResult(
-        mean=mean, std=std,
+        mean=float(mean), std=float(std),
         error_factor=(p95 / median if median > 0 else float("inf")),
-        quantiles=quantiles, histogram_edges=edges, histogram_density=hist,
-        n_trials=n_trials)
+        quantiles=quantiles, histogram_edges=edges,
+        histogram_density=density, n_trials=n)

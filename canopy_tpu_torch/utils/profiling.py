@@ -18,9 +18,10 @@ identified by its root span.  The spans:
   ``canopy.sample.plan``, the tape's host work before its
   ``draw_standard`` launch: the mission-time read-back, the sample plan,
   the keys and the table), ``canopy.uncertainty.evaluate`` (the top-event
-  evaluator on one batch), ``canopy.uncertainty.readback`` (the tops
-  copied to the host) and ``canopy.uncertainty.statistics`` (quantiles,
-  median, p95, histogram, mean and standard deviation).
+  evaluator on one batch) and ``canopy.uncertainty.statistics`` (the
+  tops sorted and reduced on their device to quantiles, median, p95,
+  histogram, mean and standard deviation; inside it
+  ``canopy.uncertainty.readback``, that summary's copy to the host).
 * ``canopy.analysis.<phase>``: a phase of ``RiskAnalysis``
   (:class:`PhaseTimer`), named by its report key up to the colon
   (``canopy.analysis.total`` is the root of a whole analysis).
@@ -33,10 +34,12 @@ inside it; each child span names a share of it.
 not, one dict increment a site: ``h2d`` and ``h2d_bytes``, ``d2h`` and
 ``d2h_bytes`` (every explicit host-device copy on the uncertainty path,
 through :func:`to_device` and :func:`to_host`), ``trials`` (the trials
-``uncertainty_analysis`` evaluated) and ``builds`` (compiles of the CUDA
-library from source).  :func:`counters` returns a flat snapshot of them
-and of the kernel launches (``ops.stream_kernel.LAUNCHES``, prefixed
-``launch.``); two snapshots' difference counts what ran between them.
+``uncertainty_analysis`` evaluated), ``stats_on_device`` (the
+uncertainty evaluations whose statistics reduced on a CUDA device) and
+``builds`` (compiles of the CUDA library from source).  :func:`counters`
+returns a flat snapshot of them and of the kernel launches
+(``ops.stream_kernel.LAUNCHES``, prefixed ``launch.``); two snapshots'
+difference counts what ran between them.
 
 **Phases.**  :class:`PhaseTimer` times ``RiskAnalysis``'s phases for the
 report's ``<calculation-time>``: each phase a span, ending when the
@@ -74,7 +77,7 @@ def span(name: str):
 
 #: Counts by name (module docstring); never reset by the program.
 COUNTERS = {"h2d": 0, "h2d_bytes": 0, "d2h": 0, "d2h_bytes": 0,
-            "trials": 0, "builds": 0}
+            "trials": 0, "builds": 0, "stats_on_device": 0}
 
 
 def counters() -> dict[str, int]:

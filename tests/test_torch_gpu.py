@@ -968,9 +968,10 @@ def test_uncertainty_request_counts_its_copies(cuda_device):  # noqa: F811
     """One slice request through the modular chain on the card: the
     mission time up and back, the draw table's two tensors, the tape's
     host values (if any), the staged columns and house states of each
-    streamed module, each module's output slot, and the tops back; no
-    build, one draw and one stream launch per streamed module (the second
-    request, after the first cached the programs' tables)."""
+    streamed module, each module's output slot, and the statistics'
+    summary back (the tops stay on the card); no build, one draw and one
+    stream launch per streamed module (the second request, after the
+    first cached the programs' tables), and one reduction on the card."""
     from canopy_tpu_torch.compiler.expr_tape import ExpressionTape
     from canopy_tpu_torch.engine.uncertainty import uncertainty_analysis
     from canopy_tpu_torch.utils.profiling import counters
@@ -995,7 +996,77 @@ def test_uncertainty_request_counts_its_copies(cuda_device):  # noqa: F811
                                     )["needed"] else 0
     assert delta["trials"] == n
     assert delta["builds"] == 0
-    assert delta["d2h"] == 2 and delta["d2h_bytes"] == 8 + 4 * n
+    # The mission time (8 B), then 20 quantiles' and the 95th
+    # percentile's neighbours, the middle pair, 21 edges, the trials below
+    # 19 inner edges, mean and std, as float64: the same at every n.
+    assert delta["d2h"] == 2
+    assert delta["d2h_bytes"] == 8 + 8 * (2 * 21 + 2 + 21 + 19 + 2)
+    assert delta["stats_on_device"] == 1
     assert delta["h2d"] == 3 + needed + 2 * streamed + len(modular.chain)
     assert delta["launch.prng"] == 1
     assert delta["launch.stream"] == streamed
+
+
+def _numpy_statistics(tops: np.ndarray) -> dict:
+    """NumPy's statistics of ``tops`` on the host, with 20 quantiles and
+    20 bins: what ``summarize`` is held to."""
+    median = float(np.median(tops))
+    density, edges = np.histogram(tops, bins=20, density=True)
+    return {"quantiles": np.quantile(tops, np.linspace(0.0, 1.0, 20)),
+            "error_factor": float(np.quantile(tops, 0.95)) / median,
+            "edges": edges, "density": density, "mean": float(tops.mean()),
+            "std": float(tops.std(ddof=1))}
+
+
+@pytest.mark.parametrize("n", [1 << 20, 1 << 14, 3 * (1 << 12) + 7])
+def test_statistics_on_the_card_match_numpy(cuda_device, n):  # noqa: F811
+    """The slice's float32 tops reduced on the card against NumPy on the
+    same tops: quantiles, error factor, edges and density to the bit;
+    mean and std (float64 sums on the card, float32 in NumPy) within 1e-6
+    relative."""
+    from canopy_tpu_torch.compiler.expr_tape import ExpressionTape
+    from canopy_tpu_torch.engine.uncertainty import (
+        sample_basic_probabilities, summarize)
+    _m, tree = load_tree("canopy_tpu_torch", "torch_slice_plant",
+                         tree_name="slice")
+    tape = ExpressionTape.build([e.expression for e in tree.basic_events])
+    modular = build_modular_bdd(tree, house_states=tree.house_state_vector())
+    evaluator = make_modular_evaluator(modular, cuda_device)
+    with torch.no_grad():
+        tops = evaluator(sample_basic_probabilities(
+            tape, prng_key(n), n, 8760.0, cuda_device))
+    assert tops.dtype == torch.float32
+    got = summarize(tops)
+    want = _numpy_statistics(tops.cpu().numpy())
+    assert np.array_equal(got.quantiles, want["quantiles"])
+    assert got.error_factor == want["error_factor"]
+    assert got.histogram_edges.dtype == np.float32
+    assert np.array_equal(got.histogram_edges, want["edges"])
+    assert np.array_equal(got.histogram_density, want["density"])
+    for k in ("mean", "std"):
+        assert abs(getattr(got, k) - want[k]) <= 1e-6 * want[k], k
+
+
+def test_statistics_on_the_card_edge_cases(cuda_device):  # noqa: F811
+    """All-equal tops (NumPy's range widened by 0.5 each way), two
+    trials, and random float32 arrays of many sizes and spans, whose
+    float32 edges a float64 linspace would miss: the card's results equal
+    NumPy's to the bit."""
+    from canopy_tpu_torch.engine.uncertainty import summarize
+    rng = np.random.default_rng(16)
+    arrays = [np.full(1000, 0.25, np.float32),
+              np.array([3e-4, 1e-4], np.float32)]
+    arrays += [(rng.random(int(rng.integers(2, 5000))) * 10.0
+                ** rng.uniform(-9, 0)).astype(np.float32)
+               for _ in range(300)]
+    for x in arrays:
+        got = summarize(torch.from_numpy(x).to(cuda_device))
+        want = _numpy_statistics(x)
+        assert np.array_equal(got.quantiles, want["quantiles"])
+        assert got.error_factor == want["error_factor"]
+        assert np.array_equal(got.histogram_edges, want["edges"])
+        assert np.array_equal(got.histogram_density, want["density"])
+        np.testing.assert_allclose([got.mean, got.std],
+                                   [x.astype(np.float64).mean(),
+                                    x.astype(np.float64).std(ddof=1)],
+                                   rtol=1e-12)

@@ -76,8 +76,8 @@ def test_uncertainty_emits_its_span_tree(slice_inputs, batch_size):
     n_batches = 1 if batch_size is None else 512 // batch_size
     assert _span_tree(prof) == \
         [("canopy.uncertainty", None)] + batch * n_batches + \
-        [("canopy.uncertainty.readback", "canopy.uncertainty"),
-         ("canopy.uncertainty.statistics", "canopy.uncertainty")]
+        [("canopy.uncertainty.statistics", "canopy.uncertainty"),
+         ("canopy.uncertainty.readback", "canopy.uncertainty.statistics")]
 
 
 def test_no_profiler_opens_no_record_function(monkeypatch, slice_inputs):
