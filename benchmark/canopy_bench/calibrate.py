@@ -21,8 +21,7 @@ import time
 import torch
 
 from . import harness, traffic
-from .cells import load_kind, make_cell
-from .reference import Reference
+from .cells import load_kind, make_cell, make_reference
 
 
 def main(argv=None) -> int:
@@ -44,7 +43,7 @@ def main(argv=None) -> int:
     cell.setup()
     for request in traffic.warm_requests(got["mix"], kind, args.first_seed):
         cell.run(request)
-    reference = Reference(cell.paths, device)
+    reference = make_reference(kind, cell.paths, device)
     lower: dict = {}
     upper: dict = {}
     for k in range(args.seeds):

@@ -94,7 +94,11 @@ def _environment(bench: str) -> None:
 
 
 class Run:
-    """What a metric reader sees."""
+    """What a metric reader sees: ``workload``, ``config``, ``mix``,
+    ``records`` (see ``cells``), ``window_s``, ``setup_s``, ``trace`` (a
+    ``trace.Trace`` of a traced run on a card, else None), ``counters``
+    (the program's counters across the window, else None) and
+    ``roofline``."""
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
@@ -154,12 +158,21 @@ def window(cell, mix: dict, kind, seed: int, seconds: float, device):
 
 def check(cell, records: list, mix: dict, kind, seed: int, device) -> dict:
     from . import traffic
-    from .reference import Reference
-    reference = Reference(cell.paths, device)
+    from .cells import make_reference
+    reference = make_reference(kind, cell.paths, device)
     picked = [records[i]
               for i in traffic.check_sample(records, mix, kind, seed)]
     return cell.judge([r for r in picked if not r.get("failed")],
                       reference)
+
+
+def _counters() -> dict | None:
+    """The program's counters; None where it has none."""
+    try:
+        from canopy_tpu_torch.utils.profiling import counters
+    except ImportError:
+        return None
+    return counters()
 
 
 def _finite(x: float) -> float:
@@ -238,8 +251,12 @@ def run_cell(got: dict, args, device, t_start: float) -> int:
     setup_s = time.perf_counter() - t_start
 
     with Tracer(bool(args.trace) and on_cuda) as tracer:
+        before = _counters()
         records, window_s, failed = window(cell, mix, kind, args.seed,
                                            args.seconds, device)
+        after = _counters()
+    counted = None if before is None else \
+        {k: v - before.get(k, 0) for k, v in after.items()}
     peak = torch.cuda.max_memory_allocated(device) if on_cuda else 0
     cell.free()
     gc.collect()
@@ -257,7 +274,8 @@ def run_cell(got: dict, args, device, t_start: float) -> int:
 
     run = Run(workload=args.workload, config=config, mix=mix,
               records=records, window_s=window_s, setup_s=setup_s,
-              trace=tracer.trace, roofline=roofline)
+              trace=tracer.trace, counters=counted, roofline=roofline)
+    t_reduce = time.perf_counter()
     section = "per_layer" if args.trace else "end_to_end"
     metrics = {}
     for entry in spec[section]:
@@ -282,8 +300,15 @@ def run_cell(got: dict, args, device, t_start: float) -> int:
         result["device"]["busy_s"] = tracer.trace.busy_s()
         result["device"]["window_s"] = tracer.trace.window_s
         result["breakdown"] = tracer.trace.breakdown()
+        print(f"trace: exported and read in {tracer.read_s:.3f} s, "
+              f"reduced in {time.perf_counter() - t_reduce:.3f} s",
+              file=sys.stderr)
     result["checks"] = checks
     print(_window_summary(records, kind), file=sys.stderr)
+    # Not part of ``correct``: every kernel is built before the window.
+    print("builds in the window: "
+          f"{'not counted' if counted is None else counted.get('builds')}",
+          file=sys.stderr)
     for name, c in checks.items():
         print(f"check {name} {c['value']!r} <= {c['limit']!r}: "
               f"{'ok' if c['value'] <= c['limit'] else 'FAIL'}",

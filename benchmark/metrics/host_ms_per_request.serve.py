@@ -10,5 +10,5 @@ def read(run):
     spans = trace.named("bench.request")
     if not spans:
         return None
-    host = [(e - s) / 1e6 - trace.busy_s(s, e) for _n, s, e in spans]
+    host = [trace.host_s(s, e) for _n, s, e in spans]
     return 1e3 * sum(host) / len(host)

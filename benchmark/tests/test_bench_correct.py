@@ -21,8 +21,8 @@ import pytest  # noqa: E402
 import torch  # noqa: E402
 
 from canopy_bench import harness  # noqa: E402
-from canopy_bench.cells import load_kind, make_cell  # noqa: E402
-from canopy_bench.reference import Reference  # noqa: E402
+from canopy_bench.cells import (  # noqa: E402
+    load_kind, make_cell, make_reference)
 
 #: A small load for the CPU: the cell's mix with small requests.
 SMALL = {"log2_trials": [9, 10], "check_requests": 2}
@@ -46,7 +46,7 @@ def test_control_fails_the_limits(workload):
     kind = load_kind(got["bench"], got["mix"]["kind"])
     cell = make_cell(got["config"], got["mix"], torch.device("cpu"),
                      harness.ROOT, kind)
-    reference = Reference(cell.paths, "cpu")
+    reference = make_reference(kind, cell.paths, "cpu")
     records = [{"n_trials": 1 << 12, "seed": 2**31 + 1}]
     numbers = cell.judge(records, reference, control=True)
     assert over_limits(numbers, got["limits"]["numbers"]), numbers

@@ -22,7 +22,7 @@ def run_of(records, kind="uncertainty", trace=None, window_s=None):
                                        "n_sampled": 1}},
         mix={"kind": kind}, records=records,
         window_s=records[-1]["end"] if window_s is None else window_s,
-        setup_s=1.5, trace=trace, roofline=roofline)
+        setup_s=1.5, trace=trace, counters=None, roofline=roofline)
 
 
 def read(name, run):
@@ -56,6 +56,59 @@ def test_trial_rate_is_over_the_whole_window():
     records[1]["failed"] = True
     assert read("trials_per_s", run_of(records)) == pytest.approx(
         2 * 1024 / 0.5)
+
+
+def old_p95(run):
+    """``request_p95_ms`` as it read before it took any kind."""
+    if run.mix["kind"] != "uncertainty":
+        return None
+    latencies = [(r["end"] - r["arrival"]) * 1e3 for r in run.records]
+    return float(np.quantile(latencies, 0.95))
+
+
+def old_trial_rate(run):
+    """``trials_per_s`` as it read before it took any kind."""
+    if run.mix["kind"] != "uncertainty":
+        return None
+    trials = sum(r["n_trials"] for r in run.records if not r.get("failed"))
+    return trials / run.window_s
+
+
+def golden_records(seed):
+    """Records of an uncertainty window as the harness writes them: sizes
+    2^14..2^20, one client, a failed request among them."""
+    rng = np.random.default_rng(seed)
+    out, t = [], 0.0
+    for i in range(int(rng.integers(50, 400))):
+        n = 1 << int(rng.integers(14, 21))
+        service = float(rng.uniform(0.005, 0.045))
+        out.append({"n_trials": n, "seed": int(rng.integers(1 << 31)),
+                    "round_end": i % 7 == 6, "arrival": t, "start": t,
+                    "end": t + service,
+                    "uncertainty": {"mean": 1e-3, "n_trials": n}})
+        t += service
+    out[len(out) // 2] = {k: v for k, v in out[len(out) // 2].items()
+                          if k != "uncertainty"} | {"failed": True}
+    return out
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_rewritten_readers_read_the_old_floats(seed):
+    records = golden_records(seed)
+    run = run_of(records, window_s=records[-1]["end"] + 0.01 * seed)
+    assert read("request_p95_ms", run) == old_p95(run)
+    assert read("trials_per_s", run) == old_trial_rate(run)
+
+
+def test_readers_take_any_kind():
+    records = serve_records([10, 20, 30])
+    run = run_of(records, kind="event_tree")
+    assert read("request_p95_ms", run) == pytest.approx(
+        float(np.quantile([10, 20, 30], 0.95)))
+    assert read("trials_per_s", run) == pytest.approx(3 * 1024 / 0.06)
+    for r in records:
+        del r["n_trials"]
+    assert read("trials_per_s", run_of(records, kind="point")) is None
 
 
 def test_setup_is_read_as_measured():
