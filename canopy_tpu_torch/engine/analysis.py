@@ -29,7 +29,8 @@ and per initiating event, the event-tree walk with every sequence
 quantified over one multi-root compiled tree (one BDD forest per distinct
 house vector, or one batched direct propagation when the forest blows
 up), with per-sequence uncertainty (on CUDA the stream kernel, one launch
-per sequence root).
+per sequence root): ``engine/sequences.py``'s compile and request, the
+path an event tree is served on.
 
 The device is named by the caller.  Where the JAX package asks whether
 its backend is a TPU, this module asks whether the device is CUDA.
@@ -39,7 +40,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import zlib
 from typing import Any, Optional
 
 import numpy as np
@@ -49,21 +49,19 @@ from .._device import resolve_device
 from ..compiler.bdd import BddBlowupError, build_bdd
 from ..compiler.cutsets import CutSetGenerator, Product
 from ..compiler.expr_tape import ExpressionTape
-from ..compiler.graph import CompiledTree, compile_fault_tree, compile_gates
+from ..compiler.graph import CompiledTree, compile_fault_tree
 from ..errors import LogicError
 from ..mef.event import BasicEvent, Gate
 from ..mef.model import Model
-from ..ops.prng import fold_in, prng_key
 from ..settings import Algorithm, Approximation, Settings
 from ..utils.profiling import PhaseTimer
-from .bdd_eval import (bdd_probability, make_bdd_evaluator,
-                       make_modular_evaluator)
+from .bdd_eval import make_modular_evaluator
 from .cutset_quantify import (build_cutset_matrix, mcub,
                               product_probabilities, rare_event)
-from .event_tree_walk import walk_event_tree
 from .importance import (importance_measures, make_stream_importance_fn,
                          occurrence_counts)
-from .propagate import propagate_probability, top_event_probability
+from .propagate import top_event_probability
+from .sequences import compile_event_tree, sequence_uncertainty
 from .uncertainty import uncertainty_analysis
 
 __all__ = ["RiskAnalysis", "Report", "FaultTreeResult", "SequenceResult"]
@@ -637,108 +635,36 @@ class RiskAnalysis:
     # -- event trees -------------------------------------------------------
 
     def _analyze_event_tree(self, initiating) -> list[SequenceResult]:
-        """All sequences quantified over one shared compiled structure.
-
-        The sequences' path conditions compile together as one multi-root
-        gate DAG, so shared subtrees appear once.  On the BDD path one
-        forest per distinct house vector memoizes across the roots
-        (``build_bdd_multi``); when a forest blows up, one batched direct
-        propagation evaluates every root with row ``k`` on house vector
-        ``k``.  A sequence's probability is its root's times the
+        """All sequences quantified over one shared compiled structure
+        (``engine/sequences.compile_event_tree``), with each sequence's
+        uncertainty where the settings ask for it (one
+        ``sequence_uncertainty`` request under the settings' seed).  A
+        sequence's probability is its root's point value times the
         initiating event's and the collected expressions' values.
         """
         settings = self.settings
-        device = self.device
         name = initiating.name
         with self._timer.phase(f"event-tree:{name}"):
-            with self._timer.phase(f"walk:{name}"):
-                outcomes = walk_event_tree(self.model, initiating)
-            mission = settings.mission_time()
-
-            gates = [outcome.conjoined_gate(f"__seq{i}__")
-                     for i, outcome in enumerate(outcomes)]
-            roots = [g for g in gates if g is not None]
-            values: dict[int, float] | None = {}
-            tree = house_rows = root_bdds = None
-            uniform_house = False
-            if roots:
-                with self._timer.phase(f"compile:{name}"):
-                    tree = compile_gates(roots,
-                                         use_ccf=settings.ccf_analysis())
-                    tape = ExpressionTape.build(
-                        [e.expression for e in tree.basic_events])
-                    mean_p = torch.clamp(tape.evaluate_mean(mission, device),
-                                         0.0, 1.0)
-                    root_slots = [tree.gate_index[g.id] for g in roots]
-                    # House states may differ per outcome (path-local
-                    # flips), so each root carries its own house vector.
-                    house_rows = []
-                    for outcome, gate in zip(outcomes, gates):
-                        if gate is None:
-                            continue
-                        house = tree.house_state_vector()
-                        for event_id, state in outcome.house_states.items():
-                            slot = tree.house_index.get(event_id)
-                            if slot is not None:
-                                house[slot - tree.n_basic] = \
-                                    1.0 if state else 0.0
-                        house_rows.append(house)
-                    uniform_house = all((h == house_rows[0]).all()
-                                        for h in house_rows)
-                values = None
-                if settings.algorithm() == Algorithm.BDD:
-                    # One forest per distinct house configuration (usually
-                    # one): its ITE memo tables are shared by every root.
-                    from ..compiler.bdd import build_bdd_multi
-                    with self._timer.phase(f"bdd-forest:{name}"):
-                        try:
-                            root_bdds = [None] * len(roots)
-                            values = {}
-                            by_house: dict[bytes, list[int]] = {}
-                            for k, h in enumerate(house_rows):
-                                by_house.setdefault(h.tobytes(), []).append(k)
-                            for ks in by_house.values():
-                                bdds = build_bdd_multi(
-                                    tree, [root_slots[k] for k in ks],
-                                    house_states=house_rows[ks[0]])
-                                for k, bdd in zip(ks, bdds):
-                                    root_bdds[k] = bdd
-                                    values[k] = float(
-                                        bdd_probability(bdd, mean_p))
-                        except BddBlowupError:
-                            values = None
-                            root_bdds = None
-                if values is None:
-                    # One batched propagation: row k uses house vector k (the
-                    # means broadcast to every row, also without house events).
-                    with self._timer.phase(f"propagation:{name}"):
-                        house_batch = torch.as_tensor(np.stack(house_rows),
-                                                      device=device)
-                        all_vals = propagate_probability(
-                            tree, mean_p.expand(len(house_rows), -1),
-                            house_batch)
-                        rows = torch.arange(len(root_slots), device=device)
-                        tops = all_vals[rows, torch.as_tensor(root_slots,
-                                                              device=device)]
-                        values = dict(enumerate(tops.cpu().tolist()))
-                        del all_vals
-
+            compiled = compile_event_tree(self.model, initiating, settings,
+                                          self.device, self._timer)
             seq_unc = None
-            if roots and settings.uncertainty_analysis():
-                seq_unc = self._sequence_uncertainty(
-                    initiating, outcomes, gates, tree, house_rows,
-                    uniform_house, mission, root_bdds)
+            if compiled.tree is not None and \
+                    settings.uncertainty_analysis():
+                seq_unc = sequence_uncertainty(
+                    compiled, settings.seed(), settings.num_trials(),
+                    self._timer)
 
             results = []
             cursor = 0
-            for k, (outcome, gate) in enumerate(zip(outcomes, gates)):
+            for k, (outcome, gate) in enumerate(zip(compiled.outcomes,
+                                                    compiled.gates)):
                 probability = 1.0
                 if getattr(initiating, "expression", None) is not None:
                     probability *= initiating.expression.value()
                 for expression in outcome.expressions:
                     probability *= expression.value()
                 if gate is not None:
-                    probability *= values[cursor]
+                    probability *= compiled.root_values[cursor]
                     cursor += 1
                 results.append(SequenceResult(
                     initiating_event=name,
@@ -749,112 +675,6 @@ class RiskAnalysis:
                     linked_trees=outcome.linked_trees,
                     uncertainty=seq_unc.get(k) if seq_unc else None))
         return results
-
-    def _sequence_uncertainty(self, initiating, outcomes, gates,
-                              tree: CompiledTree, house_rows, uniform_house,
-                              mission: float, root_bdds=None
-                              ) -> dict[int, dict] | None:
-        """Per-sequence epistemic uncertainty over the shared structure.
-
-        One expression tape covers the basic events, the initiating
-        event's expression and every collected expression, so a shared
-        parameter is sampled once per trial.  Its key is
-        ``fold_in(prng_key(seed), crc32(initiating name) & 0x7FFFFFFF)``,
-        the JAX package's, so both packages draw the same samples.
-
-        Sequence roots evaluate over the BDDs the point values built
-        (``root_bdds``): on CUDA each root through the stream kernel
-        (``make_bdd_evaluator``: one launch per root, f32; the method tag
-        says ``bdd-stream-f32``), on the CPU by the f64 level evaluation.
-        Without BDDs, by direct propagation: one call when the house rows
-        are uniform, else one per root.  Each sequence's dict carries
-        ``method`` (``"expression"`` for a sequence with no gate), so a
-        demotion is never silent.
-        """
-        settings = self.settings
-        device = self.device
-        name = initiating.name
-        init_expr = getattr(initiating, "expression", None)
-        extras = ([init_expr] if init_expr is not None else []) + \
-            [e for outcome in outcomes for e in outcome.expressions]
-        tape_u = ExpressionTape.build(
-            [e.expression for e in tree.basic_events] + extras)
-        if not tape_u.n_deviates:
-            return None
-        n_trials = settings.num_trials()
-        with self._timer.phase(f"sampling:{name}"):
-            key = fold_in(prng_key(settings.seed()),  # crc32: stable across
-                          zlib.crc32(name.encode()) & 0x7FFFFFFF)  # processes
-            samples = tape_u.sample(key, n_trials, mission, device)
-            basic_s = torch.clamp(samples[:, :tree.n_basic], 0.0, 1.0)
-        col = tree.n_basic
-        init_s = None
-        if init_expr is not None:
-            init_s = samples[:, col]
-            col += 1
-
-        with self._timer.phase(f"sequence-evaluation:{name}"):
-            live_gates = [g for g in gates if g is not None]
-            root_slots = [tree.gate_index[g.id] for g in live_gates]
-            top_trials: dict[int, torch.Tensor] = {}
-            method = "bdd"
-            with torch.no_grad():
-                if root_bdds is not None:
-                    for k, bdd in enumerate(root_bdds):
-                        evaluator = make_bdd_evaluator(bdd, device)
-                        top_trials[k] = evaluator(basic_s)
-                        per_call = evaluator.method_for(n_trials)
-                        if per_call != "bdd":
-                            method = per_call
-                else:
-                    method = "direct-propagation"
-                    if uniform_house:
-                        vals = propagate_probability(
-                            tree, basic_s,
-                            torch.as_tensor(house_rows[0], device=device))
-                        tops = vals[:, torch.as_tensor(root_slots,
-                                                       device=device)]
-                        del vals
-                        for k in range(len(root_slots)):
-                            top_trials[k] = tops[:, k]
-                    else:
-                        for k, (slot, hrow) in enumerate(zip(root_slots,
-                                                             house_rows)):
-                            vals = propagate_probability(
-                                tree, basic_s,
-                                torch.as_tensor(hrow, device=device))
-                            top_trials[k] = vals[:, slot].clone()
-                            del vals
-
-            out: dict[int, dict] = {}
-            cursor = 0
-            for k, (outcome, gate) in enumerate(zip(outcomes, gates)):
-                trial = torch.ones((n_trials,), dtype=torch.float64,
-                                   device=device)
-                if init_s is not None:
-                    trial = trial * init_s
-                for _expr in outcome.expressions:
-                    trial = trial * samples[:, col]
-                    col += 1
-                if gate is not None:
-                    trial = trial * top_trials[cursor]
-                    cursor += 1
-                out[k] = _summary_stats(trial.cpu().numpy())
-                out[k]["method"] = method if gate is not None \
-                    else "expression"
-        return out
-
-
-def _summary_stats(arr: np.ndarray) -> dict:
-    lo, hi = (np.quantile(arr, [0.025, 0.975]) if len(arr) > 1
-              else (arr[0], arr[0]))
-    median = float(np.median(arr))
-    p95 = float(np.quantile(arr, 0.95))
-    return {"mean": float(arr.mean()),
-            "std": float(arr.std(ddof=1)) if len(arr) > 1 else 0.0,
-            "ci95": [float(lo), float(hi)],
-            "error_factor": (p95 / median if median > 0 else float("inf")),
-            "n_trials": int(len(arr))}
 
 
 class _FaultTreeView:

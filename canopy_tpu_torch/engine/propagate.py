@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..compiler.graph import CompiledTree, CountBlock, PairBlock, ProdBlock
+from ..utils.profiling import to_device
 
 __all__ = ["propagate_probability", "top_event_probability",
            "propagate_node_major", "make_propagator",
@@ -54,7 +55,7 @@ def _compute_dtype(vals: torch.Tensor) -> torch.dtype:
 
 
 def _t(array, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(array)).to(device)
+    return to_device(np.ascontiguousarray(array), device)
 
 
 def _eval_prod(vals: torch.Tensor, block: ProdBlock):

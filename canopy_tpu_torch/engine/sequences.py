@@ -1,0 +1,325 @@
+"""Event trees compiled once and quantified per request.
+
+:func:`compile_event_tree` does an initiating event's set-up once: the
+walk into sequence outcomes; the sequences' path conditions compiled
+together as one multi-root gate DAG, so shared subtrees appear once; each
+root's house vector; and the attempt at one BDD forest per distinct house
+vector (``build_bdd_multi``), which memoizes across the roots.  Each
+root's point value over the basic events' mean probabilities comes from
+its BDD, or, when a forest blows up, from one batched direct propagation
+(row ``k`` on house vector ``k``), which takes gate inputs as independent
+(``compiler/bdd.py`` calls it approximate).
+
+:func:`sequence_uncertainty` is one request: every sequence's
+distribution under parameter uncertainty over ``n_trials`` trials drawn
+under ``seed``.  One expression tape covers the basic events, the
+initiating event's expression and every collected expression, so a shared
+parameter is sampled once per trial; its key is ``fold_in(prng_key(seed),
+crc32(initiating name) & 0x7FFFFFFF)``, the JAX package's, so both
+packages draw the same samples.  Sequence roots evaluate over the BDDs the
+compile built (on CUDA each root through the stream kernel,
+``make_bdd_evaluator``: one launch per root, f32, the method tag
+``bdd-stream-f32``; on the CPU by the f64 level evaluation), or without
+them by direct propagation in f64: one call when the house rows are
+uniform, else one per root.  A sequence's trials are its root's times the
+initiating event's and the collected expressions' samples; the
+sequences' trials come back to the host in one copy, where each
+sequence's statistics (:func:`summary_stats`) reduce.  Each
+sequence's dict carries ``method`` (``"expression"`` for a sequence with
+no gate), so a demotion is never silent.
+
+``RiskAnalysis`` runs the same two calls, passing its phase timer.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import zlib
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ..compiler.bdd import BddBlowupError
+from ..compiler.expr_tape import ExpressionTape
+from ..compiler.graph import CompiledTree, compile_gates
+from ..ops.prng import fold_in, prng_key
+from ..settings import Algorithm, Settings
+from ..utils.profiling import COUNTERS, span, to_device, to_host
+from .bdd_eval import bdd_probability, make_bdd_evaluator
+from .event_tree_walk import SequenceOutcome, walk_event_tree
+from .propagate import propagate_probability
+
+__all__ = ["CompiledEventTree", "compile_event_tree",
+           "sequence_uncertainty", "summary_stats"]
+
+
+class _NoTimer:
+    """A phase timer that times nothing."""
+
+    @staticmethod
+    def phase(_key: str):
+        return contextlib.nullcontext()
+
+
+@dataclasses.dataclass
+class CompiledEventTree:
+    """An initiating event's walked and compiled sequences on ``device``.
+
+    ``gates[i]`` is outcome ``i``'s path condition (None without collected
+    formulas); the roots are the gates that are not None, in order.
+    ``root_bdds`` holds each root's BDD, or None where the forest blew up
+    (or the algorithm is not BDD) and direct propagation evaluates them.
+    """
+
+    initiating: Any
+    outcomes: list[SequenceOutcome]
+    gates: list
+    device: torch.device
+    mission: float
+    tree: Optional[CompiledTree] = None
+    root_slots: list[int] = dataclasses.field(default_factory=list)
+    house_rows: list[np.ndarray] = dataclasses.field(default_factory=list)
+    uniform_house: bool = False
+    root_bdds: Optional[list] = None
+    #: Each root's point value over the mean probabilities.
+    root_values: list[float] = dataclasses.field(default_factory=list)
+    #: ``root_slots`` and ``house_rows`` on ``device``.
+    root_index: Optional[torch.Tensor] = None
+    house: Optional[torch.Tensor] = None
+    _tape: Optional[ExpressionTape] = None
+    _evaluators: Optional[list] = None
+
+    def uncertainty_tape(self) -> ExpressionTape:
+        """The tape over the basic events, then the initiating event's
+        expression, then every collected expression in outcome order
+        (built on the first request)."""
+        if self._tape is None:
+            init_expr = getattr(self.initiating, "expression", None)
+            extras = ([init_expr] if init_expr is not None else []) + \
+                [e for outcome in self.outcomes for e in outcome.expressions]
+            self._tape = ExpressionTape.build(
+                [e.expression for e in self.tree.basic_events] + extras)
+        return self._tape
+
+    def evaluators(self) -> list:
+        """Each root's BDD evaluator (built on the first request)."""
+        if self._evaluators is None:
+            self._evaluators = [make_bdd_evaluator(bdd, self.device)
+                                for bdd in self.root_bdds]
+        return self._evaluators
+
+
+def compile_event_tree(model, initiating, settings: Settings, device,
+                       timer=None) -> CompiledEventTree:
+    """Walk, compile and attempt the BDD forest of ``initiating``'s event
+    tree once; ``timer`` (a ``PhaseTimer``) times the phases."""
+    timer = timer or _NoTimer()
+    device = torch.device(device)
+    name = initiating.name
+    with span("event_tree.compile"):
+        with timer.phase(f"walk:{name}"):
+            outcomes = walk_event_tree(model, initiating)
+        gates = [outcome.conjoined_gate(f"__seq{i}__")
+                 for i, outcome in enumerate(outcomes)]
+        compiled = CompiledEventTree(initiating, outcomes, gates, device,
+                                     settings.mission_time())
+        roots = [g for g in gates if g is not None]
+        if not roots:
+            return compiled
+        with timer.phase(f"compile:{name}"):
+            tree = compile_gates(roots, use_ccf=settings.ccf_analysis())
+            tape = ExpressionTape.build(
+                [e.expression for e in tree.basic_events])
+            mean_p = torch.clamp(tape.evaluate_mean(compiled.mission,
+                                                    device), 0.0, 1.0)
+            root_slots = [tree.gate_index[g.id] for g in roots]
+            # House states may differ per outcome (path-local flips), so
+            # each root carries its own house vector.
+            house_rows = []
+            for outcome, gate in zip(outcomes, gates):
+                if gate is None:
+                    continue
+                house = tree.house_state_vector()
+                for event_id, state in outcome.house_states.items():
+                    slot = tree.house_index.get(event_id)
+                    if slot is not None:
+                        house[slot - tree.n_basic] = 1.0 if state else 0.0
+                house_rows.append(house)
+            compiled.tree = tree
+            compiled.root_slots = root_slots
+            compiled.house_rows = house_rows
+            compiled.uniform_house = all((h == house_rows[0]).all()
+                                         for h in house_rows)
+            compiled.root_index = to_device(
+                np.asarray(root_slots, dtype=np.int64), device)
+            compiled.house = to_device(np.stack(house_rows), device)
+        values = None
+        if settings.algorithm() == Algorithm.BDD:
+            values = _forest(compiled, mean_p, timer)
+        if values is None:
+            # One batched propagation: row k uses house vector k (the means
+            # broadcast to every row, also without house events).
+            with timer.phase(f"propagation:{name}"):
+                all_vals = propagate_probability(
+                    tree, mean_p.expand(len(house_rows), -1),
+                    compiled.house)
+                rows = torch.arange(len(root_slots), device=device)
+                values = to_host(all_vals[rows, compiled.root_index]
+                                 ).tolist()
+                del all_vals
+        compiled.root_values = values
+    return compiled
+
+
+def _forest(compiled: CompiledEventTree, mean_p: torch.Tensor, timer
+            ) -> list[float] | None:
+    """One forest per distinct house configuration (usually one), its ITE
+    memo tables shared by every root: each root's BDD into
+    ``compiled.root_bdds`` and its point value returned; None where a
+    forest blows up."""
+    from ..compiler.bdd import build_bdd_multi
+    tree, house_rows = compiled.tree, compiled.house_rows
+    with timer.phase(f"bdd-forest:{compiled.initiating.name}"), \
+            span("event_tree.forest"):
+        root_bdds = [None] * len(house_rows)
+        values = [0.0] * len(house_rows)
+        by_house: dict[bytes, list[int]] = {}
+        for k, h in enumerate(house_rows):
+            by_house.setdefault(h.tobytes(), []).append(k)
+        try:
+            for ks in by_house.values():
+                bdds = build_bdd_multi(
+                    tree, [compiled.root_slots[k] for k in ks],
+                    house_states=house_rows[ks[0]])
+                for k, bdd in zip(ks, bdds):
+                    root_bdds[k] = bdd
+                    values[k] = float(bdd_probability(bdd, mean_p))
+        except BddBlowupError:
+            COUNTERS["forest_blowups"] += 1
+            return None
+    compiled.root_bdds = root_bdds
+    return values
+
+
+def sequence_uncertainty(compiled: CompiledEventTree, seed: int,
+                         n_trials: int, timer=None
+                         ) -> dict[int, dict] | None:
+    """Each sequence's uncertainty over ``n_trials`` trials drawn under
+    ``seed``, by outcome index; None without roots or without deviates."""
+    if compiled.tree is None:
+        return None
+    tape = compiled.uncertainty_tape()
+    if not tape.n_deviates:
+        return None
+    timer = timer or _NoTimer()
+    name = compiled.initiating.name
+    tree = compiled.tree
+    with span("event_tree"):
+        with timer.phase(f"sampling:{name}"), span("event_tree.sample"):
+            key = fold_in(prng_key(seed),  # crc32: stable across processes
+                          zlib.crc32(name.encode()) & 0x7FFFFFFF)
+            samples = tape.sample(key, n_trials, compiled.mission,
+                                  compiled.device)
+            basic_s = torch.clamp(samples[:, :tree.n_basic], 0.0, 1.0)
+        with timer.phase(f"sequence-evaluation:{name}"):
+            with span("event_tree.evaluate"), torch.no_grad():
+                tops, method = _evaluate_roots(compiled, basic_s, n_trials)
+                trials = _sequence_trials(compiled, samples, tops,
+                                          n_trials)
+            with span("event_tree.statistics"):
+                host = _host_rows(list(trials.values()))
+                out: dict[int, dict] = {}
+                for k, row in zip(trials, host):
+                    out[k] = summary_stats(row)
+                    out[k]["method"] = method \
+                        if compiled.gates[k] is not None else "expression"
+                    COUNTERS["sequences"] += 1
+    return out
+
+
+def _evaluate_roots(compiled: CompiledEventTree, basic_s: torch.Tensor,
+                    n_trials: int) -> tuple[list[torch.Tensor], str]:
+    """Each root's trials, and the method that computed them."""
+    tree = compiled.tree
+    if compiled.root_bdds is not None:
+        method = "bdd"
+        tops = []
+        for evaluator in compiled.evaluators():
+            tops.append(evaluator(basic_s))
+            per_call = evaluator.method_for(n_trials)
+            if per_call != "bdd":
+                method = per_call
+        return tops, method
+    if compiled.uniform_house:
+        vals = propagate_probability(tree, basic_s, compiled.house[0])
+        tops = vals[:, compiled.root_index]
+        del vals
+        return [tops[:, k] for k in range(len(compiled.root_slots))], \
+            "direct-propagation"
+    tops = []
+    for k, slot in enumerate(compiled.root_slots):
+        vals = propagate_probability(tree, basic_s, compiled.house[k])
+        tops.append(vals[:, slot].clone())
+        del vals
+    return tops, "direct-propagation"
+
+
+def _sequence_trials(compiled: CompiledEventTree, samples: torch.Tensor,
+                     tops: list[torch.Tensor], n_trials: int
+                     ) -> dict[int, torch.Tensor]:
+    """Each outcome's trials: the initiating event's sample, times each
+    collected expression's, times its root's (where it has a gate)."""
+    col = compiled.tree.n_basic
+    init_s = None
+    if getattr(compiled.initiating, "expression", None) is not None:
+        init_s = samples[:, col]
+        col += 1
+    out: dict[int, torch.Tensor] = {}
+    cursor = 0
+    for k, (outcome, gate) in enumerate(zip(compiled.outcomes,
+                                            compiled.gates)):
+        trial = torch.ones((n_trials,), dtype=torch.float64,
+                           device=compiled.device)
+        if init_s is not None:
+            trial = trial * init_s
+        for _expr in outcome.expressions:
+            trial = trial * samples[:, col]
+            col += 1
+        if gate is not None:
+            trial = trial * tops[cursor]
+            cursor += 1
+        out[k] = trial
+    return out
+
+
+def _host_rows(trials: list[torch.Tensor]) -> np.ndarray:
+    """The sequences' trials as one (sequences, trials) host array, in one
+    copy; off a card into page-locked memory, which PyTorch's host
+    allocator hands back to the next request of that size."""
+    rows = torch.stack(trials)
+    out = None
+    if rows.device.type == "cuda":
+        out = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+    return to_host(rows, out).numpy()
+
+
+def summary_stats(arr: np.ndarray) -> dict:
+    """Mean, sample standard deviation, the 95 % interval (NumPy's linear
+    quantiles at 0.025 and 0.975), the error factor (the 95th percentile
+    over the median) and the number of trials.
+
+    The quantiles read one sorted copy: their order statistics, and so
+    their floats, are those of ``arr``, and NumPy's selection within a
+    sorted array is cheap."""
+    ordered = np.sort(arr)
+    lo, hi = (np.quantile(ordered, [0.025, 0.975], overwrite_input=True)
+              if len(arr) > 1 else (arr[0], arr[0]))
+    median = float(np.median(ordered, overwrite_input=True))
+    p95 = float(np.quantile(ordered, 0.95, overwrite_input=True))
+    return {"mean": float(arr.mean()),
+            "std": float(arr.std(ddof=1)) if len(arr) > 1 else 0.0,
+            "ci95": [float(lo), float(hi)],
+            "error_factor": (p95 / median if median > 0 else float("inf")),
+            "n_trials": int(len(arr))}

@@ -22,6 +22,16 @@ identified by its root span.  The spans:
   tops sorted and reduced on their device to quantiles, median, p95,
   histogram, mean and standard deviation; inside it
   ``canopy.uncertainty.readback``, that summary's copy to the host).
+* ``canopy.event_tree``: one ``engine.sequences.sequence_uncertainty``
+  call, the root of an event-tree request.  Its children:
+  ``canopy.event_tree.sample`` (the tape's draws for every sequence),
+  ``canopy.event_tree.evaluate`` (every sequence root on the batch and
+  each sequence's product of factors) and ``canopy.event_tree.statistics``
+  (every sequence's trials copied to the host in one copy and each
+  summarized there).
+* ``canopy.event_tree.compile``: ``engine.sequences.compile_event_tree``,
+  an event tree's set-up (walk, multi-root compile, point values); inside
+  it ``canopy.event_tree.forest``, the attempt at the BDD forest.
 * ``canopy.analysis.<phase>``: a phase of ``RiskAnalysis``
   (:class:`PhaseTimer`), named by its report key up to the colon
   (``canopy.analysis.total`` is the root of a whole analysis).
@@ -32,12 +42,15 @@ inside it; each child span names a share of it.
 
 **Counters.**  :data:`COUNTERS` counts where the work happens, traced or
 not, one dict increment a site: ``h2d`` and ``h2d_bytes``, ``d2h`` and
-``d2h_bytes`` (every explicit host-device copy on the uncertainty path,
-through :func:`to_device` and :func:`to_host`), ``trials`` (the trials
-``uncertainty_analysis`` evaluated), ``stats_on_device`` (the
-uncertainty evaluations whose statistics reduced on a CUDA device) and
-``builds`` (compiles of the CUDA library from source).  :func:`counters`
-returns a flat snapshot of them and of the kernel launches
+``d2h_bytes`` (every explicit host-device copy on the uncertainty and
+event-tree paths, through :func:`to_device` and :func:`to_host`),
+``trials`` (the trials ``uncertainty_analysis`` evaluated),
+``stats_on_device`` (the uncertainty evaluations whose statistics reduced
+on a CUDA device), ``sequences`` (the sequence results
+``sequence_uncertainty`` summarized), ``forest_blowups`` (event-tree BDD
+forests that passed their node limit, so that direct propagation took
+over) and ``builds`` (compiles of the CUDA library from source).
+:func:`counters` returns a flat snapshot of them and of the kernel launches
 (``ops.stream_kernel.LAUNCHES``, prefixed ``launch.``); two snapshots'
 difference counts what ran between them.
 
@@ -77,7 +90,8 @@ def span(name: str):
 
 #: Counts by name (module docstring); never reset by the program.
 COUNTERS = {"h2d": 0, "h2d_bytes": 0, "d2h": 0, "d2h_bytes": 0,
-            "trials": 0, "builds": 0, "stats_on_device": 0}
+            "trials": 0, "builds": 0, "stats_on_device": 0, "sequences": 0,
+            "forest_blowups": 0}
 
 
 def counters() -> dict[str, int]:
@@ -99,13 +113,15 @@ def to_device(data, device, dtype=None) -> torch.Tensor:
     return host.to(device)
 
 
-def to_host(tensor: torch.Tensor) -> torch.Tensor:
-    """``tensor`` in host memory; a copy off a device counts in ``d2h``
-    and ``d2h_bytes``."""
+def to_host(tensor: torch.Tensor, out: torch.Tensor | None = None
+            ) -> torch.Tensor:
+    """``tensor`` in host memory (copied into ``out`` where given, a host
+    tensor of its shape); a copy off a device counts in ``d2h`` and
+    ``d2h_bytes``."""
     if tensor.device.type != "cpu":
         COUNTERS["d2h"] += 1
         COUNTERS["d2h_bytes"] += tensor.numel() * tensor.element_size()
-    return tensor.cpu()
+    return tensor.cpu() if out is None else out.copy_(tensor)
 
 
 class PhaseTimer:
