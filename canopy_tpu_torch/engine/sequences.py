@@ -22,11 +22,13 @@ compile built (on CUDA each root through the stream kernel,
 ``bdd-stream-f32``; on the CPU by the f64 level evaluation), or without
 them by direct propagation in f64: one call when the house rows are
 uniform, else one per root.  A sequence's trials are its root's times the
-initiating event's and the collected expressions' samples; the
-sequences' trials come back to the host in one copy, where each
-sequence's statistics (:func:`summary_stats`) reduce.  Each
-sequence's dict carries ``method`` (``"expression"`` for a sequence with
-no gate), so a demotion is never silent.
+initiating event's and the collected expressions' samples.  The
+sequences' statistics reduce where their trials live
+(:func:`sequence_statistics`): one sort of the (sequences, trials) matrix,
+each row's order statistics and moments, and one copy of ten numbers a
+sequence back to the host.  Each sequence's dict carries ``method``
+(``"expression"`` for a sequence with no gate), so a demotion is never
+silent.
 
 ``RiskAnalysis`` runs the same two calls, passing its phase timer.
 """
@@ -50,9 +52,10 @@ from ..utils.profiling import COUNTERS, span, to_device, to_host
 from .bdd_eval import bdd_probability, make_bdd_evaluator
 from .event_tree_walk import SequenceOutcome, walk_event_tree
 from .propagate import propagate_probability
+from .uncertainty import _lerp, _neighbours
 
 __all__ = ["CompiledEventTree", "compile_event_tree",
-           "sequence_uncertainty", "summary_stats"]
+           "sequence_uncertainty", "sequence_statistics"]
 
 
 class _NoTimer:
@@ -229,12 +232,13 @@ def sequence_uncertainty(compiled: CompiledEventTree, seed: int,
                 trials = _sequence_trials(compiled, samples, tops,
                                           n_trials)
             with span("event_tree.statistics"):
-                host = _host_rows(list(trials.values()))
+                stats = sequence_statistics(
+                    torch.stack(list(trials.values())))
                 out: dict[int, dict] = {}
-                for k, row in zip(trials, host):
-                    out[k] = summary_stats(row)
-                    out[k]["method"] = method \
+                for k, row in zip(trials, stats):
+                    row["method"] = method \
                         if compiled.gates[k] is not None else "expression"
+                    out[k] = row
                     COUNTERS["sequences"] += 1
     return out
 
@@ -294,32 +298,42 @@ def _sequence_trials(compiled: CompiledEventTree, samples: torch.Tensor,
     return out
 
 
-def _host_rows(trials: list[torch.Tensor]) -> np.ndarray:
-    """The sequences' trials as one (sequences, trials) host array, in one
-    copy; off a card into page-locked memory, which PyTorch's host
-    allocator hands back to the next request of that size."""
-    rows = torch.stack(trials)
-    out = None
-    if rows.device.type == "cuda":
-        out = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
-    return to_host(rows, out).numpy()
+def sequence_statistics(rows: torch.Tensor) -> list[dict]:
+    """Each row's mean, sample standard deviation, 95 % interval (NumPy's
+    linear quantiles at 0.025 and 0.975), error factor (the 95th
+    percentile over the median, ``inf`` where the median is not positive)
+    and number of trials, from an (S, n) float64 matrix, reduced on its
+    own device.
 
-
-def summary_stats(arr: np.ndarray) -> dict:
-    """Mean, sample standard deviation, the 95 % interval (NumPy's linear
-    quantiles at 0.025 and 0.975), the error factor (the 95th percentile
-    over the median) and the number of trials.
-
-    The quantiles read one sorted copy: their order statistics, and so
-    their floats, are those of ``arr``, and NumPy's selection within a
-    sorted array is cheap."""
-    ordered = np.sort(arr)
-    lo, hi = (np.quantile(ordered, [0.025, 0.975], overwrite_input=True)
-              if len(arr) > 1 else (arr[0], arr[0]))
-    median = float(np.median(ordered, overwrite_input=True))
-    p95 = float(np.quantile(ordered, 0.95, overwrite_input=True))
-    return {"mean": float(arr.mean()),
-            "std": float(arr.std(ddof=1)) if len(arr) > 1 else 0.0,
-            "ci95": [float(lo), float(hi)],
-            "error_factor": (p95 / median if median > 0 else float("inf")),
-            "n_trials": int(len(arr))}
+    One sort along the trials (NumPy's on the host, which sorts there far
+    faster than torch) gives every row's order statistics at the same
+    positions; they and ``std_mean``'s moments come back in one (S, 10)
+    copy, and the host finishes NumPy's interpolation, so the interval,
+    the median and the 95th percentile equal NumPy's on each row to the
+    bit."""
+    n = rows.shape[1]
+    q_below, q_above, q_gamma = _neighbours(n, np.array([0.025, 0.975]))
+    p_below, p_above, p_gamma = _neighbours(n, np.asarray(0.95, np.float64))
+    positions = [*q_below, *q_above, p_below, p_above, (n - 1) // 2, n // 2]
+    if n > 1:
+        std, mean = torch.std_mean(rows, dim=1, correction=1)
+    else:
+        mean, std = rows[:, 0], torch.zeros_like(rows[:, 0])
+    ordered = torch.sort(rows, dim=1).values if rows.is_cuda else \
+        torch.from_numpy(np.sort(rows.numpy(), axis=1))
+    # Column views stacked: no index vector goes up to the device.
+    packed = torch.stack([ordered[:, int(i)] for i in positions]
+                         + [mean, std], dim=1)
+    if rows.is_cuda:
+        COUNTERS["seq_stats_on_device"] += 1
+    packed = to_host(packed).numpy()
+    ci95 = _lerp(packed[:, 0:2], packed[:, 2:4], q_gamma)
+    p95 = _lerp(packed[:, 4], packed[:, 5], p_gamma)
+    median = np.median(packed[:, 6:8 - n % 2], axis=1)
+    return [{"mean": float(m), "std": float(sd),
+             "ci95": [float(lo), float(hi)],
+             "error_factor": (float(p) / float(md) if md > 0
+                              else float("inf")),
+             "n_trials": int(n)}
+            for m, sd, (lo, hi), p, md in zip(packed[:, 8], packed[:, 9],
+                                              ci95, p95, median)]

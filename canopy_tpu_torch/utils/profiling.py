@@ -27,8 +27,8 @@ identified by its root span.  The spans:
   ``canopy.event_tree.sample`` (the tape's draws for every sequence),
   ``canopy.event_tree.evaluate`` (every sequence root on the batch and
   each sequence's product of factors) and ``canopy.event_tree.statistics``
-  (every sequence's trials copied to the host in one copy and each
-  summarized there).
+  (every sequence's trials sorted and reduced on their device, one
+  summary of ten numbers a sequence copied to the host).
 * ``canopy.event_tree.compile``: ``engine.sequences.compile_event_tree``,
   an event tree's set-up (walk, multi-root compile, point values); inside
   it ``canopy.event_tree.forest``, the attempt at the BDD forest.
@@ -46,10 +46,12 @@ not, one dict increment a site: ``h2d`` and ``h2d_bytes``, ``d2h`` and
 event-tree paths, through :func:`to_device` and :func:`to_host`),
 ``trials`` (the trials ``uncertainty_analysis`` evaluated),
 ``stats_on_device`` (the uncertainty evaluations whose statistics reduced
-on a CUDA device), ``sequences`` (the sequence results
-``sequence_uncertainty`` summarized), ``forest_blowups`` (event-tree BDD
-forests that passed their node limit, so that direct propagation took
-over) and ``builds`` (compiles of the CUDA library from source).
+on a CUDA device), ``seq_stats_on_device`` (the event-tree requests
+whose sequences' statistics reduced on a CUDA device), ``sequences`` (the
+sequence results ``sequence_uncertainty`` summarized),
+``forest_blowups`` (event-tree BDD forests that passed their node limit,
+so that direct propagation took over) and ``builds`` (compiles of the
+CUDA library from source).
 :func:`counters` returns a flat snapshot of them and of the kernel launches
 (``ops.stream_kernel.LAUNCHES``, prefixed ``launch.``); two snapshots'
 difference counts what ran between them.
@@ -90,8 +92,8 @@ def span(name: str):
 
 #: Counts by name (module docstring); never reset by the program.
 COUNTERS = {"h2d": 0, "h2d_bytes": 0, "d2h": 0, "d2h_bytes": 0,
-            "trials": 0, "builds": 0, "stats_on_device": 0, "sequences": 0,
-            "forest_blowups": 0}
+            "trials": 0, "builds": 0, "stats_on_device": 0,
+            "seq_stats_on_device": 0, "sequences": 0, "forest_blowups": 0}
 
 
 def counters() -> dict[str, int]:

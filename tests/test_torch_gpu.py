@@ -41,7 +41,8 @@ from canopy_tpu_torch.ops import stream_kernel as tsk
 from canopy_tpu_torch.ops.prng import fold_in, prng_key
 from canopy_tpu_torch.settings import Settings
 
-from torch_parity import (cuda_device, fixture_path,  # noqa: F401
+from torch_parity import (assert_sequence_stats,  # noqa: F401
+                          cuda_device, fixture_inputs, fixture_path,
                           load_tree, overwriting_program)
 
 pytestmark = pytest.mark.gpu
@@ -1005,6 +1006,49 @@ def test_uncertainty_request_counts_its_copies(cuda_device):  # noqa: F811
     assert delta["h2d"] == 3 + needed + 2 * streamed + len(modular.chain)
     assert delta["launch.prng"] == 1
     assert delta["launch.stream"] == streamed
+
+
+def test_sequence_statistics_on_the_card(cuda_device,  # noqa: F811
+                                         monkeypatch):
+    """The plant event tree's requests at 2^14 and 2^16 trials on the
+    card: every sequence's statistics against NumPy on the same float64
+    trials (``assert_sequence_stats``: the interval and error factor to
+    the bit, the moments within 1e-13), one reduction on the card a
+    request, no build, and the same copies off the card and bytes at
+    both sizes (a summary of fixed size comes back)."""
+    from canopy_tpu_torch.engine import sequences
+    from canopy_tpu_torch.utils.profiling import counters
+    settings = Settings()
+    model = Initializer(fixture_inputs("torch_event_tree_plant"),
+                        settings).model
+    (initiating,) = model.initiating_events
+    compiled = sequences.compile_event_tree(model, initiating, settings,
+                                            cuda_device)
+    trials = {}
+    products = sequences._sequence_trials
+
+    def capture(*args):
+        trials.clear()
+        trials.update(products(*args))
+        return trials
+    monkeypatch.setattr(sequences, "_sequence_trials", capture)
+    readbacks = []
+    for n in (1 << 14, 1 << 16):
+        sequences.sequence_uncertainty(compiled, n, n)
+        before = counters()
+        out = sequences.sequence_uncertainty(compiled, n + 1, n)
+        after = counters()
+        delta = {k: after[k] - before[k] for k in after}
+        assert delta["seq_stats_on_device"] == 1
+        assert delta["builds"] == 0
+        assert delta["sequences"] == len(out) == 64
+        readbacks.append((delta["d2h"], delta["d2h_bytes"]))
+        rows = torch.stack([trials[k] for k in range(64)])
+        assert rows.dtype == torch.float64 and rows.is_cuda
+        rows = rows.cpu().numpy()
+        for k in range(64):
+            assert_sequence_stats(out[k], rows[k])
+    assert readbacks[0] == readbacks[1]
 
 
 def _numpy_statistics(tops: np.ndarray) -> dict:

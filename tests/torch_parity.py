@@ -5,8 +5,10 @@ JAX package runs on its CPU backend (its Pallas kernels in interpret
 mode), the port on the CPU through its kernels' plain versions.
 """
 
+import math
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -77,13 +79,28 @@ def rel_err(got: float, want: float) -> float:
     return abs(got - want) / max(abs(want), 1e-300)
 
 
+def assert_sequence_stats(got: dict, row: np.ndarray) -> None:
+    """``got``, a sequence's statistics, against NumPy's calls on its
+    trials ``row``: the 95 % interval and the error factor to the bit,
+    mean and ``std(ddof=1)`` within 1e-13 relative."""
+    assert got["n_trials"] == len(row)
+    lo, hi = np.quantile(row, [0.025, 0.975])
+    assert got["ci95"] == [float(lo), float(hi)]
+    median = float(np.median(row))
+    p95 = float(np.quantile(row, 0.95))
+    want_ef = p95 / median if median > 0 else math.inf
+    assert got["error_factor"] == want_ef
+    std = float(np.std(row, ddof=1)) if len(row) > 1 else 0.0
+    for key, want in (("mean", float(np.mean(row))), ("std", std)):
+        assert rel_err(got[key], want) <= 1e-13, (key, got[key], want)
+
+
 def overwriting_program(stream_program_cls):
     """A hand-written stream program whose ops write the very pool slot
     one of their own arguments reads (the linear-scan allocator allows
     it), with a spill, a count gate, a pair, an inverted product, a fill
     and a mux.  ``stream_program_cls`` is either package's
     ``StreamProgram``."""
-    import numpy as np
     stage = lambda off: ("stage", 0, off)  # noqa: E731
     ops = [
         ("start", 0, 0), ("wait", 0, 0),
