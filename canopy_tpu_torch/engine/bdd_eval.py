@@ -32,24 +32,6 @@ from ..utils.profiling import to_device
 __all__ = ["bdd_probability", "make_bdd_evaluator",
            "make_modular_evaluator"]
 
-def _tagged(fn, method: str, streams: bool = False):
-    """Wrap an evaluator with ``.method`` naming the compute path (and
-    its precision) so callers can record it instead of silently
-    demoting — the stream kernels evaluate in f32 while the level
-    evaluation keeps the input dtype (f64 by default).
-
-    ``.method_for(n_trials)`` resolves the tag for a batch size: the CUDA
-    kernels take any trial count, so a streaming evaluator streams every
-    batch."""
-    def call(*args, **kwargs):
-        return fn(*args, **kwargs)
-    call.method = method
-
-    def method_for(n_trials: int) -> str:
-        return method if streams else "bdd"
-    call.method_for = method_for
-    return call
-
 
 def bdd_probability(bdd: CompiledBdd, basic_p: torch.Tensor) -> torch.Tensor:
     """Top-event probability; ``basic_p``: (..., n_basic); returns (...)."""
@@ -111,7 +93,9 @@ def make_bdd_evaluator(bdd: CompiledBdd, device, engine: str = "auto",
     level-scheduled evaluation above.  ``differentiable=True`` routes the
     stream path through the adjoint kernel so autograd through the
     evaluator runs the backward kernel.  ``dtype`` (float32 or float64)
-    is the kernels' value type, named in the tag (``bdd-stream-f32``).
+    is the kernels' value type.  ``.method`` names the compute path and
+    its precision (``bdd-stream-f32``, or ``bdd`` for the level
+    evaluation), so callers record it instead of silently demoting.
     """
     device = torch.device(device)
     call = None
@@ -122,8 +106,8 @@ def make_bdd_evaluator(bdd: CompiledBdd, device, engine: str = "auto",
         if call is not None and basic_p.ndim == 2:
             return call(basic_p)
         return bdd_probability(bdd, basic_p)
-    streams = call is not None
-    return _tagged(fn, _TAG[dtype] if streams else "bdd", streams=streams)
+    fn.method = _TAG[dtype] if call is not None else "bdd"
+    return fn
 
 
 def make_modular_evaluator(modular, device, engine: str = "auto",
@@ -136,7 +120,8 @@ def make_modular_evaluator(modular, device, engine: str = "auto",
     module runs as its own stream-kernel program, reading the decision
     variables it needs (basics + collapsed inner-module outputs) from the
     growing value matrix.  Constant modules fold to their value.  The
-    streaming chain runs in ``dtype``.
+    streaming chain runs in ``dtype``; ``.method`` names the path as
+    there.
     """
     from ..compiler.modules import modular_probability
 
@@ -173,5 +158,5 @@ def make_modular_evaluator(modular, device, engine: str = "auto",
                 1, to_device([out_slot], vals.device, torch.int64),
                 value.unsqueeze(1))
         return result
-    streams = steps is not None
-    return _tagged(fn, _TAG[dtype] if streams else "bdd", streams=streams)
+    fn.method = _TAG[dtype] if steps is not None else "bdd"
+    return fn

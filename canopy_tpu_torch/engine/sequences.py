@@ -24,11 +24,12 @@ them by direct propagation in f64: one call when the house rows are
 uniform, else one per root.  A sequence's trials are its root's times the
 initiating event's and the collected expressions' samples.  The
 sequences' statistics reduce where their trials live
-(:func:`sequence_statistics`): one sort of the (sequences, trials) matrix,
-each row's order statistics and moments, and one copy of ten numbers a
-sequence back to the host.  Each sequence's dict carries ``method``
-(``"expression"`` for a sequence with no gate), so a demotion is never
-silent.
+(:func:`sequence_statistics`, through the uncertainty path's
+:func:`~.uncertainty.order_statistics`): one sort of the (sequences,
+trials) matrix, each row's order statistics and moments, and one copy of
+ten numbers a sequence back to the host.  Each sequence's dict carries
+``method`` (``"expression"`` for a sequence with no gate), so a demotion
+is never silent.
 
 ``RiskAnalysis`` runs the same two calls, passing its phase timer.
 """
@@ -52,7 +53,7 @@ from ..utils.profiling import COUNTERS, span, to_device, to_host
 from .bdd_eval import bdd_probability, make_bdd_evaluator
 from .event_tree_walk import SequenceOutcome, walk_event_tree
 from .propagate import propagate_probability
-from .uncertainty import _lerp, _neighbours
+from .uncertainty import order_statistics
 
 __all__ = ["CompiledEventTree", "compile_event_tree",
            "sequence_uncertainty", "sequence_statistics"]
@@ -252,9 +253,8 @@ def _evaluate_roots(compiled: CompiledEventTree, basic_s: torch.Tensor,
         tops = []
         for evaluator in compiled.evaluators():
             tops.append(evaluator(basic_s))
-            per_call = evaluator.method_for(n_trials)
-            if per_call != "bdd":
-                method = per_call
+            if evaluator.method != "bdd":
+                method = evaluator.method
         return tops, method
     if compiled.uniform_house:
         vals = propagate_probability(tree, basic_s, compiled.house[0])
@@ -299,41 +299,18 @@ def _sequence_trials(compiled: CompiledEventTree, samples: torch.Tensor,
 
 
 def sequence_statistics(rows: torch.Tensor) -> list[dict]:
-    """Each row's mean, sample standard deviation, 95 % interval (NumPy's
-    linear quantiles at 0.025 and 0.975), error factor (the 95th
-    percentile over the median, ``inf`` where the median is not positive)
-    and number of trials, from an (S, n) float64 matrix, reduced on its
-    own device.
-
-    One sort along the trials (NumPy's on the host, which sorts there far
-    faster than torch) gives every row's order statistics at the same
-    positions; they and ``std_mean``'s moments come back in one (S, 10)
-    copy, and the host finishes NumPy's interpolation, so the interval,
-    the median and the 95th percentile equal NumPy's on each row to the
-    bit."""
+    """Each row's mean, sample standard deviation (0.0 for one trial),
+    95 % interval (NumPy's linear quantiles at 0.025 and 0.975), error
+    factor (the 95th percentile over the median, ``inf`` where the median
+    is not positive) and number of trials, from an (S, n) float64 matrix
+    reduced on its own device by :func:`~.uncertainty.order_statistics`:
+    one sort along the trials, one copy back, the interval, the median
+    and the 95th percentile equal to NumPy's on each row to the bit."""
     n = rows.shape[1]
-    q_below, q_above, q_gamma = _neighbours(n, np.array([0.025, 0.975]))
-    p_below, p_above, p_gamma = _neighbours(n, np.asarray(0.95, np.float64))
-    positions = [*q_below, *q_above, p_below, p_above, (n - 1) // 2, n // 2]
-    if n > 1:
-        std, mean = torch.std_mean(rows, dim=1, correction=1)
-    else:
-        mean, std = rows[:, 0], torch.zeros_like(rows[:, 0])
-    ordered = torch.sort(rows, dim=1).values if rows.is_cuda else \
-        torch.from_numpy(np.sort(rows.numpy(), axis=1))
-    # Column views stacked: no index vector goes up to the device.
-    packed = torch.stack([ordered[:, int(i)] for i in positions]
-                         + [mean, std], dim=1)
-    if rows.is_cuda:
-        COUNTERS["seq_stats_on_device"] += 1
-    packed = to_host(packed).numpy()
-    ci95 = _lerp(packed[:, 0:2], packed[:, 2:4], q_gamma)
-    p95 = _lerp(packed[:, 4], packed[:, 5], p_gamma)
-    median = np.median(packed[:, 6:8 - n % 2], axis=1)
+    stats = order_statistics(rows, np.array([0.025, 0.975]))
+    std = stats.std if n > 1 else np.zeros_like(stats.std)
     return [{"mean": float(m), "std": float(sd),
-             "ci95": [float(lo), float(hi)],
-             "error_factor": (float(p) / float(md) if md > 0
-                              else float("inf")),
+             "ci95": [float(lo), float(hi)], "error_factor": float(ef),
              "n_trials": int(n)}
-            for m, sd, (lo, hi), p, md in zip(packed[:, 8], packed[:, 9],
-                                              ci95, p95, median)]
+            for m, sd, (lo, hi), ef in zip(stats.mean, std, stats.quantiles,
+                                           stats.error_factor)]

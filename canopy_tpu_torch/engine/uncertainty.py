@@ -24,7 +24,8 @@ from ..utils.profiling import COUNTERS, span, to_host
 from .propagate import make_propagator
 
 __all__ = ["UncertaintyResult", "uncertainty_analysis",
-           "sample_basic_probabilities", "summarize"]
+           "sample_basic_probabilities", "summarize", "OrderStatistics",
+           "order_statistics"]
 
 
 @dataclasses.dataclass
@@ -128,65 +129,106 @@ def _lerp(a, b, t):
     return out
 
 
+@dataclasses.dataclass
+class OrderStatistics:
+    """Each row's statistics from :func:`order_statistics`, one entry a
+    row."""
+
+    quantiles: np.ndarray     # (S, len(levels))
+    error_factor: np.ndarray  # (S,) p95 / median, inf unless median > 0.
+    mean: np.ndarray          # (S,) float64
+    std: np.ndarray           # (S,) float64, ddof=1; NaN for one value.
+    extra: np.ndarray         # (S, m) float64: the caller's columns.
+
+
+def order_statistics(rows: torch.Tensor, levels: np.ndarray,
+                     extra=None) -> OrderStatistics:
+    """Each row of an (S, n) matrix reduced on the matrix's own device
+    from one sort along the rows, with one copy of (S, a few) numbers
+    back to the host.
+
+    The quantiles at ``levels``, the 95th percentile (at a level in the
+    values' dtype, as ``np.quantile`` takes a scalar one) and the median
+    equal NumPy's on each row to the bit: the device returns each order
+    statistic's neighbours and the host finishes NumPy's interpolation.
+    Mean and ``std(ddof=1)`` accumulate in float64 over the rows as
+    given.  ``extra(ordered)``, where given, returns (S, m_i) tensors
+    computed from the sorted rows on their device; they come back in the
+    same copy, as float64 columns of ``extra``.  A reduction on a CUDA
+    device counts in ``stats_on_device``."""
+    n = rows.shape[1]
+    dtype = torch.empty((), dtype=rows.dtype).numpy().dtype
+    q_below, q_above, q_gamma = _neighbours(n, levels)
+    p_below, p_above, p_gamma = _neighbours(n, np.asarray(0.95, dtype))
+    positions = [*q_below, *q_above, p_below, p_above, (n - 1) // 2, n // 2]
+    wide = rows.to(torch.float64)
+    if n > 1:
+        std, mean = torch.std_mean(wide, dim=1, correction=1)
+    else:
+        mean, std = wide[:, 0], torch.full_like(wide[:, 0], np.nan)
+    # NumPy sorts on the host about twenty times faster than torch.
+    ordered = torch.sort(rows, dim=1).values if rows.is_cuda else \
+        torch.from_numpy(np.sort(rows.numpy(), axis=1))
+    # Column views stacked: no index vector goes up to the device.
+    picks = torch.stack([ordered[:, int(i)] for i in positions], dim=1)
+    columns = [picks, mean[:, None], std[:, None],
+               *(extra(ordered) if extra is not None else ())]
+    if rows.is_cuda:
+        COUNTERS["stats_on_device"] += 1
+    with span("uncertainty.readback"):
+        packed = to_host(torch.cat(columns, dim=1)).numpy()
+
+    k = len(levels)
+    picks = packed[:, :2 * k + 4].astype(dtype)
+    p95 = _lerp(picks[:, 2 * k], picks[:, 2 * k + 1], p_gamma)
+    median = np.median(picks[:, 2 * k + 2:2 * k + 4 - n % 2], axis=1)
+    error_factor = np.full(len(picks), np.inf)
+    np.divide(p95, median, out=error_factor, where=median > 0,
+              dtype=np.float64)
+    return OrderStatistics(
+        quantiles=_lerp(picks[:, :k], picks[:, k:2 * k], q_gamma),
+        error_factor=error_factor, mean=packed[:, 2 * k + 4],
+        std=packed[:, 2 * k + 5], extra=packed[:, 2 * k + 6:])
+
+
 def summarize(tops: torch.Tensor, num_quantiles: int = 20,
               num_bins: int = 20) -> UncertaintyResult:
-    """The distribution of ``tops`` (1-D), reduced on their own device
-    from one sort, with one copy of a summary of fixed size back to the
-    host.  Quantiles, median, the 95th percentile and the histogram equal
-    ``np.quantile``, ``np.median`` and ``np.histogram(density=True)`` on
-    the same values to the bit; mean and ``std(ddof=1)`` accumulate in
-    float64.  The device returns the order statistics' neighbours, the
-    histogram's edges and the trials below each, and the moments; the
-    host finishes NumPy's arithmetic on those few numbers."""
+    """The distribution of ``tops`` (1-D) by :func:`order_statistics` on
+    their own device.  Quantiles, median, the 95th percentile and the
+    histogram equal ``np.quantile``, ``np.median`` and
+    ``np.histogram(density=True)`` on the same values to the bit: the
+    histogram's edges and the trials below each come from the sorted
+    values in the same copy, and the host finishes NumPy's arithmetic."""
     n = tops.numel()
     dtype = torch.empty((), dtype=tops.dtype).numpy().dtype
-    with span("uncertainty.statistics"):
-        # Positions of every order statistic the result reports: the
-        # quantiles' neighbours, the 95th percentile's (np.quantile takes
-        # a scalar level in the values' dtype) and the middle pair.
-        levels = np.linspace(0.0, 1.0, num_quantiles)
-        q_below, q_above, q_gamma = _neighbours(n, levels)
-        p_below, p_above, p_gamma = _neighbours(n, np.asarray(0.95, dtype))
-        positions = [*q_below, *q_above, p_below, p_above,
-                     (n - 1) // 2, n // 2]
-        # NumPy sorts on the host about twenty times faster than torch.
-        ordered = torch.sort(tops).values if tops.is_cuda else \
-            torch.from_numpy(np.sort(tops.numpy()))
-        picks = torch.stack([ordered[int(i)] for i in positions])
+
+    def histogram(ordered):
         # np.histogram's edges: np.linspace over [min, max] in the values'
         # dtype, an empty range widened by 0.5 each way.  The step divides
         # by a tensor: CUDA divides by a host scalar through its reciprocal.
-        lo, hi = ordered[0], ordered[-1]
+        lo, hi = ordered[:, :1], ordered[:, -1:]
         half = (lo == hi).to(ordered.dtype) * 0.5
         first, last = lo - half, hi + half
         step = (last - first) / torch.full_like(first, num_bins)
         edges = torch.arange(num_bins + 1, dtype=ordered.dtype,
                              device=ordered.device) * step + first
-        edges[-1] = last
+        edges[:, -1:] = last
         # Trials below each inner edge: bins [e_i, e_i+1), the last closed.
-        below = torch.searchsorted(ordered, edges[1:-1])
-        std, mean = torch.std_mean(ordered.to(torch.float64), correction=1)
-        packed = torch.cat([picks, edges, below, mean.reshape(1),
-                            std.reshape(1)])
-        if tops.is_cuda:
-            COUNTERS["stats_on_device"] += 1
-        with span("uncertainty.readback"):
-            packed = to_host(packed).numpy()
+        return edges, torch.searchsorted(ordered, edges[:, 1:-1])
 
-        k = num_quantiles
-        picks, edges, below, (mean, std) = np.split(
-            packed, np.cumsum([2 * k + 4, num_bins + 1, num_bins - 1]))
-        picks, edges = picks.astype(dtype), edges.astype(dtype)
+    with span("uncertainty.statistics"):
+        stats = order_statistics(tops.unsqueeze(0),
+                                 np.linspace(0.0, 1.0, num_quantiles),
+                                 histogram)
+        edges = stats.extra[0, :num_bins + 1].astype(dtype)
         if not np.isfinite(edges[[0, -1]]).all():
             raise ValueError(f"autodetected range of [{edges[0]}, "
                              f"{edges[-1]}] is not finite")
-        counts = np.diff(np.concatenate(([0], below.astype(np.intp), [n])))
+        below = stats.extra[0, num_bins + 1:].astype(np.intp)
+        counts = np.diff(np.concatenate(([0], below, [n])))
         density = counts / np.array(np.diff(edges), float) / counts.sum()
-        quantiles = _lerp(picks[:k], picks[k:2 * k], q_gamma)
-        p95 = float(_lerp(picks[2 * k], picks[2 * k + 1], p_gamma))
-        median = float(np.median(picks[2 * k + 2:2 * k + 4 - n % 2]))
     return UncertaintyResult(
-        mean=float(mean), std=float(std),
-        error_factor=(p95 / median if median > 0 else float("inf")),
-        quantiles=quantiles, histogram_edges=edges,
+        mean=float(stats.mean[0]), std=float(stats.std[0]),
+        error_factor=float(stats.error_factor[0]),
+        quantiles=stats.quantiles[0], histogram_edges=edges,
         histogram_density=density, n_trials=n)

@@ -7,7 +7,9 @@ unchanged one loads in milliseconds.  Each source compiles in its own
 ``nvcc`` process, all started together, and one more links them (a
 build's time is its slowest source's, not their sum).  ``--fmad=false``
 keeps every multiply and add rounded on its own, as in the plain PyTorch
-versions, so kernel and plain agree bit for bit.
+versions, so kernel and plain agree bit for bit.  Every launcher shares
+the ABI's plumbing here: :func:`_ptr` (a tensor's pointer, null for None)
+and :func:`_raise_on` (a launcher's CUDA error code as an exception).
 """
 
 from __future__ import annotations
@@ -162,6 +164,18 @@ def load_library() -> ctypes.CDLL:
     lib.canopy_stream_rec_chunk.restype = i32
     _lib = lib
     return _lib
+
+
+def _raise_on(lib, code: int, what: str) -> None:
+    """Raise on a launcher's nonzero CUDA error code."""
+    if code != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.canopy_cuda_error_string(code).decode()}")
+
+
+def _ptr(tensor) -> int:
+    """A tensor's device pointer, 0 (null) for None."""
+    return 0 if tensor is None else tensor.data_ptr()
 
 
 def build_info() -> dict:

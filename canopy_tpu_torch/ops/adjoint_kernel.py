@@ -27,11 +27,13 @@ from __future__ import annotations
 import torch
 
 from ..errors import LogicError
-from .stream_kernel import (COUNT, FILL, LAUNCHES, LOG, MUX, PAIR, POOL,
-                            PROD, SMEM_BYTES, SPILL, STAGED, _LEVEL_THREADS,
+from ..utils.profiling import COUNTERS
+from ._build import _ptr, _raise_on, load_library
+from .stream_kernel import (COUNT, FILL, LOG, MUX, PAIR, POOL, PROD,
+                            SMEM_BYTES, SPILL, STAGED, _LEVEL_THREADS,
                             _SUFFIX, EncodedStream, _check_cuda,
-                            _check_staged, _dp_scratch, _ptr,
-                            _raise_on, house_tensor, level_schedule,
+                            _check_staged, _dp_scratch, house_tensor,
+                            level_schedule,
                             level_tile, stream_forward)
 
 __all__ = ["stream_backward", "stream_backward_plain",
@@ -228,10 +230,9 @@ def level_backward(enc: EncodedStream, staged: torch.Tensor,
                    counter: str) -> torch.Tensor:
     """Launch ``csrc/adjoint.cu``'s level-parallel gather form on CUDA
     tensors over ``level_schedule(enc)``: the gradient ``(n_basic,
-    n_trials)``.  ``LAUNCHES[counter]`` counts the launch (``adjoint``
-    for stream programs, ``replay_bwd`` for replay programs in their level
-    form)."""
-    from ._build import load_library
+    n_trials)``.  ``COUNTERS["launch." + counter]`` counts the launch
+    (``adjoint`` for stream programs, ``replay_bwd`` for replay programs in
+    their level form)."""
     lib = load_library()
     dtype = staged.dtype
     staged, log, ct = staged.contiguous(), log.contiguous(), ct.contiguous()
@@ -247,7 +248,7 @@ def level_backward(enc: EncodedStream, staged: torch.Tensor,
                        device=device)
     grad = torch.empty((enc.n_basic, T), dtype=dtype, device=device)
     dp = _dp_scratch(enc, -(-T // tile), _LEVEL_THREADS, staged)
-    LAUNCHES[counter] += 1
+    COUNTERS["launch." + counter] += 1
     code = getattr(lib, f"canopy_stream_level_backward_{_SUFFIX[dtype]}")(
         ops.data_ptr(), args.data_ptr(),
         *(t.data_ptr() for t in tables[:2]), sched.n_levels,

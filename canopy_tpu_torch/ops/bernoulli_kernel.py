@@ -26,8 +26,8 @@ The kernel, ``csrc/bernoulli.cu``, runs one thread per (event, word), and
 Philox in ``int64`` with every 32 x 32-bit product split into 16-bit
 halves (a whole product overflows a signed 64-bit integer).
 :func:`packed_bernoulli` runs the plain version for a CPU tensor and the
-kernel for a CUDA tensor, or raises; ``LAUNCHES["bernoulli"]`` counts its
-launches.
+kernel for a CUDA tensor, or raises; ``COUNTERS["launch.bernoulli"]``
+counts its launches.
 """
 
 from __future__ import annotations
@@ -35,7 +35,8 @@ from __future__ import annotations
 import torch
 
 from ..errors import LogicError
-from .stream_kernel import LAUNCHES, _raise_on
+from ..utils.profiling import COUNTERS
+from ._build import _raise_on, load_library
 
 __all__ = ["PHILOX_M", "PHILOX_W", "bernoulli_thresholds", "philox4x32_10",
            "packed_bernoulli", "packed_bernoulli_plain"]
@@ -155,7 +156,6 @@ def packed_bernoulli(seed: int, basic_p: torch.Tensor, n_trials: int,
     if basic_p.device.type != "cuda":
         return packed_bernoulli_plain(seed, basic_p, n_trials, word0)
     n_words = _check(seed, n_trials, word0)
-    from ._build import load_library
     lib = load_library()
     device = basic_p.device
     thr = _to_int32(bernoulli_thresholds(basic_p)).contiguous()
@@ -163,7 +163,7 @@ def packed_bernoulli(seed: int, basic_p: torch.Tensor, n_trials: int,
                       device=device)
     if out.numel() == 0:
         return out
-    LAUNCHES["bernoulli"] += 1
+    COUNTERS["launch.bernoulli"] += 1
     code = lib.canopy_packed_bernoulli(
         thr.data_ptr(), thr.shape[0], n_words, word0, seed & _MASK32,
         seed >> 32, out.data_ptr(),

@@ -35,8 +35,8 @@ Logs are clamped as ``max(log(max(v, 0)), -1e4)``: the JAX package's
 
 Dispatch.  :func:`block_gather_propagate` runs
 :func:`block_gather_forward_plain` for a CPU tensor and the kernels for a
-CUDA tensor, or raises; ``LAUNCHES["block_log"]`` and
-``LAUNCHES["block_direct"]`` count launches.
+CUDA tensor, or raises; ``COUNTERS["launch.block_log"]`` and
+``COUNTERS["launch.block_direct"]`` count launches.
 """
 
 from __future__ import annotations
@@ -48,7 +48,8 @@ import torch
 
 from ..compiler.graph import CompiledTree, merge_prod_level
 from ..errors import LogicError
-from .stream_kernel import LAUNCHES, _raise_on
+from ..utils.profiling import COUNTERS
+from ._build import _raise_on, load_library
 
 __all__ = ["compile_block_gather", "block_gather_propagate",
            "block_gather_supported", "BlockGatherProgram", "auto_t_tile",
@@ -374,14 +375,13 @@ def block_gather_levels(program: BlockGatherProgram, vals: torch.Tensor,
                          f"{vals.dtype}, {width}")
     if vals.device.type != "cuda":
         return _levels_plain(program, vals, mode)
-    from ._build import load_library
     lib = load_library()
     stream = torch.cuda.current_stream(vals.device).cuda_stream
     log_mode = mode == "log"
     key = "block_log" if log_mode else "block_direct"
     for plan, (starts, resident, sel_idx, sel_raw, flip, inv) in zip(
             program.levels, _level_tensors(program, vals.device)):
-        LAUNCHES[key] += 1
+        COUNTERS["launch." + key] += 1
         code = lib.canopy_block_gather_level(
             vals.data_ptr(), T, starts.data_ptr(), resident.data_ptr(),
             (sel_idx if log_mode else sel_raw).data_ptr(), flip.data_ptr(),

@@ -36,8 +36,8 @@ read of one basic is one coalesced segment; the JAX package's
 ``(n_tiles, n_basic, 8, 128)`` tiling has no meaning here.
 
 Dispatch.  A wrapper runs the plain version for a CPU tensor and launches
-the kernel for a CUDA tensor (or raises); ``LAUNCHES["fused_tiled"]`` and
-``LAUNCHES["fused"]`` count launches.
+the kernel for a CUDA tensor (or raises); ``COUNTERS["launch.fused_tiled"]``
+and ``COUNTERS["launch.fused"]`` count launches.
 """
 
 from __future__ import annotations
@@ -48,10 +48,12 @@ import torch
 from ..compiler.graph import CompiledTree
 from ..compiler.schedule import _emit_gate_ops
 from ..errors import LogicError
-from .stream_kernel import (HOUSE, LAUNCHES, POOL, SMEM_BYTES, STAGED,
+from ..utils.profiling import COUNTERS
+from ._build import _ptr, _raise_on, load_library
+from .stream_kernel import (HOUSE, POOL, SMEM_BYTES, STAGED,
                             EncodedSpill, EncodedStream,
                             ReplayPlan, _KIND, _chunk_words, _check_cuda,
-                            _count_row, _dp_scratch, _ptr, _raise_on,
+                            _count_row, _dp_scratch,
                             house_tensor, replay_ring_stream,
                             stream_forward_plain)
 
@@ -239,7 +241,6 @@ def fused_forward(enc: EncodedStream, staged: torch.Tensor, house,
     if device.type != "cuda":
         return fused_forward_plain(enc, staged, house_t)
     live, plan = fused_plan(enc)
-    from ._build import load_library
     lib = load_library()
     staged = staged.contiguous()
     _check_cuda(torch.float32, staged)
@@ -251,7 +252,7 @@ def fused_forward(enc: EncodedStream, staged: torch.Tensor, house,
                        dtype=torch.float32, device=device)
     top = torch.empty(T, dtype=torch.float32, device=device)
     dp = _dp_scratch(live, blocks, plan.width, staged)
-    LAUNCHES["fused_tiled" if tiled else "fused"] += 1
+    COUNTERS["launch.fused_tiled" if tiled else "launch.fused"] += 1
     code = lib.canopy_fused_forward_f32(
         words.data_ptr(), ring.n_chunks, ring.chunk_words, head.data_ptr(),
         staged.data_ptr(), house_t.data_ptr(), rows.data_ptr(),

@@ -22,7 +22,7 @@ package's refusals, raised as ``LogicError``).  No JAX entry point calls
 this module: callers use :func:`gather_propagate` directly.
 
 Dispatch.  :func:`gather_level` runs the plain version for a CPU tensor
-and the kernel for a CUDA tensor, or raises; ``LAUNCHES["gather"]``
+and the kernel for a CUDA tensor, or raises; ``COUNTERS["launch.gather"]``
 counts its launches.
 """
 
@@ -33,7 +33,8 @@ import torch
 
 from ..compiler.graph import CompiledTree, ProdBlock
 from ..errors import LogicError
-from .stream_kernel import LAUNCHES, _raise_on
+from ..utils.profiling import COUNTERS
+from ._build import _raise_on, load_library
 
 __all__ = ["gather_propagate", "gather_supported", "gather_forward_plain",
            "stage_gather", "gather_levels", "gather_level",
@@ -93,10 +94,9 @@ def gather_level(vals: torch.Tensor, block: ProdBlock) -> None:
     if vals.device.type != "cuda":
         gather_level_plain(vals, block)
         return
-    from ._build import load_library
     lib = load_library()
     idx, flip, mask, inv, out_idx = _block_tensors(block, vals.device)
-    LAUNCHES["gather"] += 1
+    COUNTERS["launch.gather"] += 1
     code = lib.canopy_gather_level(
         vals.data_ptr(), vals.shape[1], idx.data_ptr(), flip.data_ptr(),
         mask.data_ptr(), inv.data_ptr(), out_idx.data_ptr(), block.n_gates,

@@ -47,7 +47,7 @@ every addition), which a CPU tensor takes:
   writes.
 * :func:`draw_gamma` draws ``_gamma_one`` per element, one thread each.
 
-On a CUDA device they launch their kernel or raise; ``LAUNCHES["prng"]``
+On a CUDA device they launch their kernel or raise; ``COUNTERS["launch.prng"]``
 counts the launches.  The public samplers route through them, so a CUDA
 draw of any kind is a kernel's.
 """
@@ -60,8 +60,8 @@ from dataclasses import dataclass, field
 import torch
 
 from ..errors import LogicError
-from ..utils.profiling import to_device
-from .stream_kernel import LAUNCHES, _raise_on
+from ..utils.profiling import COUNTERS, to_device
+from ._build import _raise_on, load_library
 
 __all__ = ["prng_key", "fold_in", "fold_in_many", "split", "threefry_2x32",
            "random_bits", "erf_inv", "uniform", "normal", "gamma", "loggamma", "beta",
@@ -351,10 +351,9 @@ def draw_standard(table: StandardTable, out: torch.Tensor) -> torch.Tensor:
         return out
     if not len(table) or out.shape[0] == 0:
         return out
-    from ._build import load_library
     lib = load_library()
     rows, params = table.tensors(out.device)
-    LAUNCHES["prng"] += 1
+    COUNTERS["launch.prng"] += 1
     code = lib.canopy_prng_draw_standard(
         rows.data_ptr(), params.data_ptr(), rows.shape[0], out.shape[0],
         out.shape[1], out.data_ptr(),
@@ -519,7 +518,6 @@ def draw_gamma(keys, alpha: torch.Tensor, n: int,
     launches ``csrc/prng.cu`` once or raises."""
     if alpha.device.type != "cuda":
         return draw_gamma_plain(keys, alpha, n, log_space)
-    from ._build import load_library
     lib = load_library()
     device = alpha.device
     alpha = _gamma_alpha(keys, alpha, n).contiguous()
@@ -528,7 +526,7 @@ def draw_gamma(keys, alpha: torch.Tensor, n: int,
     out = torch.empty(alpha.shape, dtype=_F64, device=device)
     if out.numel() == 0:
         return out
-    LAUNCHES["prng"] += 1
+    COUNTERS["launch.prng"] += 1
     code = lib.canopy_prng_draw_gamma(
         words.data_ptr(), words.shape[0], alpha.data_ptr(), n,
         int(log_space), out.data_ptr(),

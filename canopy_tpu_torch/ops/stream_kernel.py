@@ -51,7 +51,8 @@ stream programs.
 
 Dispatch.  A wrapper runs the plain version for a CPU tensor and the
 kernel for a CUDA tensor; it never catches a build or launch failure and
-never moves data between devices.  ``LAUNCHES`` counts kernel launches.
+never moves data between devices.  ``COUNTERS["launch.<kernel>"]``
+(``utils/profiling.py``) counts kernel launches.
 """
 
 from __future__ import annotations
@@ -64,7 +65,8 @@ import torch
 from ..compiler.graph import CompiledTree
 from ..compiler.schedule import StreamProgram, build_stream_schedule
 from ..errors import LogicError
-from ..utils.profiling import to_device
+from ..utils.profiling import COUNTERS, to_device
+from ._build import _ptr, _raise_on, load_library
 
 __all__ = ["compile_stream", "compile_bdd_stream", "compile_tree_stream",
            "tree_stream_encoding", "bdd_stream_encoding", "BDD_BATCH",
@@ -81,8 +83,7 @@ __all__ = ["compile_stream", "compile_bdd_stream", "compile_tree_stream",
            "replay_forward", "replay_forward_plain", "replay_propagate",
            "replay_propagate_staged", "compile_spill_stream", "EncodedSpill",
            "encode_spill", "spill_forward", "spill_forward_plain",
-           "spill_propagate", "spill_propagate_staged", "LAUNCHES",
-           "VARIANTS", "reset_launches", "count_window",
+           "spill_propagate", "spill_propagate_staged", "count_window",
            "REC_CHUNK", "pack_records", "stream_variant", "LevelSchedule",
            "level_schedule", "schedule_levels", "level_tile",
            "stream_forward_levels_plain"]
@@ -99,25 +100,6 @@ _SRC = {"pool": POOL, "stage": STAGED, "house": HOUSE}
 #: need more runs the same DP over a device-memory scratch
 #: (:func:`_dp_scratch`), allocated for that program only.
 MAX_COUNT_STATES = 128
-
-#: Launches of the stream forward by variant (``stream:steps``,
-#: ``stream:ops``; :func:`stream_variant`), so the choice is not silent.
-VARIANTS: dict = {}
-
-#: Kernel launches by kernel name: ``stream`` (forward), ``stream_log``
-#: (forward with the value log), ``adjoint`` (backward), the fused
-#: whole-tree kernels ``fused_tiled`` and ``fused`` (``fused_kernel.py``),
-#: the replay kernels ``replay`` (forward), ``replay_tape`` (forward
-#: with the value log) and ``replay_bwd`` (the level backward of
-#: ``csrc/adjoint.cu`` on a replay program, ``replay_adjoint_kernel.py``),
-#: the spill kernel ``spill``, the Philox sampler ``bernoulli``
-#: (``bernoulli_kernel.py``), the gather level kernel ``gather``
-#: (``gather_kernel.py``) and the block-gather level kernels ``block_log``
-#: and ``block_direct`` (``block_gather.py``).
-LAUNCHES = {"stream": 0, "stream_log": 0, "adjoint": 0, "fused_tiled": 0,
-            "fused": 0, "replay": 0, "replay_tape": 0, "replay_bwd": 0,
-            "spill": 0, "bernoulli": 0, "gather": 0, "block_log": 0,
-            "block_direct": 0, "prng": 0}
 
 #: Shared memory one block may use on an H100 (227 KB, opt-in above 48 KB).
 SMEM_BYTES = 232_448
@@ -182,12 +164,6 @@ _SMS = 132
 #: port checks shared memory on the built program): one no program
 #: reaches.
 _NO_VMEM_BUDGET = 1 << 62
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-    VARIANTS.clear()
 
 
 def count_window(lo: int, hi: int, n: int) -> tuple[int, int, bool, int]:
@@ -908,12 +884,6 @@ def _check_cuda(dtype, *tensors: torch.Tensor) -> None:
                              f"tensors, got {t.dtype} on {t.device}")
 
 
-def _raise_on(lib, code: int, what: str) -> None:
-    if code != 0:
-        raise RuntimeError(f"{what} launch failed: "
-                           f"{lib.canopy_cuda_error_string(code).decode()}")
-
-
 def _dp_scratch(enc: EncodedStream, blocks: int, threads: int,
                 like: torch.Tensor):
     """The count-DP scratch of a kernel launch of ``blocks`` x
@@ -928,15 +898,6 @@ def _dp_scratch(enc: EncodedStream, blocks: int, threads: int,
                        dtype=like.dtype, device=like.device)
 
 
-def _ptr(tensor) -> int:
-    """A tensor's device pointer, 0 (null) for None."""
-    return 0 if tensor is None else tensor.data_ptr()
-
-
-def _count_variant(name: str) -> None:
-    VARIANTS[name] = VARIANTS.get(name, 0) + 1
-
-
 def stream_forward(enc: EncodedStream, staged: torch.Tensor, house,
                    with_log: bool = False):
     """Run the program on staged ``(n_basic, n_trials)`` input.
@@ -944,15 +905,13 @@ def stream_forward(enc: EncodedStream, staged: torch.Tensor, house,
     Returns ``(top (n_trials,), log (n_log, n_trials) or None)``.  CPU
     tensors run :func:`stream_forward_plain`; CUDA tensors launch a
     kernel of ``csrc/stream.cu`` or raise.  Without the log: the kernel
-    :func:`stream_variant` picks (``VARIANTS`` counts it).  With it: the
-    level-parallel kernel.
+    :func:`stream_variant` picks.  With it: the level-parallel kernel.
     """
     _check_staged(enc, staged)
     device, dtype = staged.device, staged.dtype
     house_t = house_tensor(enc, house, device, dtype)
     if device.type != "cuda":
         return stream_forward_plain(enc, staged, house_t, with_log)
-    from ._build import load_library
     lib = load_library()
     staged = staged.contiguous()
     _check_cuda(dtype, staged)
@@ -967,7 +926,7 @@ def stream_forward(enc: EncodedStream, staged: torch.Tensor, house,
         tile = level_tile(T)
         smem_log = enc.n_log * tile * staged.element_size() <= SMEM_BYTES
         dp = _dp_scratch(enc, -(-T // tile), _LEVEL_THREADS, staged)
-        LAUNCHES["stream_log"] += 1
+        COUNTERS["launch.stream_log"] += 1
         code = getattr(lib, f"canopy_stream_level_forward_{_SUFFIX[dtype]}")(
             ops.data_ptr(), fill.data_ptr(), args.data_ptr(),
             order.data_ptr(), level_ptr.data_ptr(), sched.n_levels,
@@ -980,8 +939,7 @@ def stream_forward(enc: EncodedStream, staged: torch.Tensor, house,
     if variant == "ops":
         pool = torch.empty((enc.pool_slots, T), dtype=dtype, device=device)
         dp = _dp_scratch(enc, -(-T // _OPS_THREADS), _OPS_THREADS, staged)
-        LAUNCHES["stream"] += 1
-        _count_variant("stream:ops")
+        COUNTERS["launch.stream"] += 1
         code = getattr(lib, f"canopy_stream_ops_forward_{_SUFFIX[dtype]}")(
             ops.data_ptr(), fill.data_ptr(), args.data_ptr(), enc.n_ops,
             staged.data_ptr(), house_t.data_ptr(), pool.data_ptr(),
@@ -1001,8 +959,7 @@ def stream_forward(enc: EncodedStream, staged: torch.Tensor, house,
     recs, rec_op = enc._cache[key]
     gpool = torch.empty((enc.pool_slots + 1, t_pad), dtype=dtype,
                         device=device)
-    LAUNCHES["stream"] += 1
-    _count_variant("stream:steps")
+    COUNTERS["launch.stream"] += 1
     code = getattr(lib, f"canopy_stream_forward_{_SUFFIX[dtype]}")(
         recs.data_ptr(), rec_op.data_ptr(), len(recs) // REC_CHUNK - 1,
         ops.data_ptr(), fill.data_ptr(), args.data_ptr(), staged.data_ptr(),
@@ -1614,7 +1571,6 @@ def _ring_launch(enc: EncodedStream, staged: torch.Tensor,
     before any launch when the program does not fit a block): its
     arguments after the eviction log (or scratch) are ``after_log``, its
     pool arguments ``slots``.  Returns the top ``(n_trials,)``."""
-    from ._build import load_library
     lib = load_library()
     device, dtype = staged.device, staged.dtype
     staged = staged.contiguous()
@@ -1627,7 +1583,7 @@ def _ring_launch(enc: EncodedStream, staged: torch.Tensor,
                         device=device)
     top = torch.empty(T, dtype=dtype, device=device)
     dp = _dp_scratch(enc, -(-T // plan.width), plan.width, staged)
-    LAUNCHES[launch_key] += 1
+    COUNTERS["launch." + launch_key] += 1
     code = getattr(lib, f"canopy_{entry}_{_SUFFIX[dtype]}")(
         words.data_ptr(), ring.n_chunks, ring.chunk_words, head.data_ptr(),
         staged.data_ptr(), house_t.data_ptr(), evlog.data_ptr(), *after_log,

@@ -27,8 +27,9 @@ identified by its root span.  The spans:
   ``canopy.event_tree.sample`` (the tape's draws for every sequence),
   ``canopy.event_tree.evaluate`` (every sequence root on the batch and
   each sequence's product of factors) and ``canopy.event_tree.statistics``
-  (every sequence's trials sorted and reduced on their device, one
-  summary of ten numbers a sequence copied to the host).
+  (every sequence's trials sorted and reduced on their device; inside it
+  ``canopy.uncertainty.readback``, the summary of ten numbers a sequence
+  copied to the host, as both paths share the reduction).
 * ``canopy.event_tree.compile``: ``engine.sequences.compile_event_tree``,
   an event tree's set-up (walk, multi-root compile, point values); inside
   it ``canopy.event_tree.forest``, the attempt at the BDD forest.
@@ -45,15 +46,21 @@ not, one dict increment a site: ``h2d`` and ``h2d_bytes``, ``d2h`` and
 ``d2h_bytes`` (every explicit host-device copy on the uncertainty and
 event-tree paths, through :func:`to_device` and :func:`to_host`),
 ``trials`` (the trials ``uncertainty_analysis`` evaluated),
-``stats_on_device`` (the uncertainty evaluations whose statistics reduced
-on a CUDA device), ``seq_stats_on_device`` (the event-tree requests
-whose sequences' statistics reduced on a CUDA device), ``sequences`` (the
+``stats_on_device`` (the order-statistics reductions,
+``engine.uncertainty.order_statistics``, that ran on a CUDA device: one
+an uncertainty evaluation, one an event-tree request), ``sequences`` (the
 sequence results ``sequence_uncertainty`` summarized),
 ``forest_blowups`` (event-tree BDD forests that passed their node limit,
-so that direct propagation took over) and ``builds`` (compiles of the
-CUDA library from source).
-:func:`counters` returns a flat snapshot of them and of the kernel launches
-(``ops.stream_kernel.LAUNCHES``, prefixed ``launch.``); two snapshots'
+so that direct propagation took over), ``builds`` (compiles of the CUDA
+library from source) and ``launch.<kernel>``, each kernel's launches:
+``stream`` (forward), ``stream_log`` (forward with the value log),
+``adjoint`` (backward), the fused whole-tree kernels ``fused_tiled`` and
+``fused``, the replay kernels ``replay`` (forward), ``replay_tape``
+(forward with the value log) and ``replay_bwd`` (the level backward on a
+replay program), the spill kernel ``spill``, the Philox sampler
+``bernoulli``, the gather level kernel ``gather``, the block-gather level
+kernels ``block_log`` and ``block_direct``, and the threefry sampler
+``prng``.  :func:`counters` returns a snapshot of them; two snapshots'
 difference counts what ran between them.
 
 **Phases.**  :class:`PhaseTimer` times ``RiskAnalysis``'s phases for the
@@ -93,14 +100,16 @@ def span(name: str):
 #: Counts by name (module docstring); never reset by the program.
 COUNTERS = {"h2d": 0, "h2d_bytes": 0, "d2h": 0, "d2h_bytes": 0,
             "trials": 0, "builds": 0, "stats_on_device": 0,
-            "seq_stats_on_device": 0, "sequences": 0, "forest_blowups": 0}
+            "sequences": 0, "forest_blowups": 0,
+            **{"launch." + kernel: 0 for kernel in (
+                "stream", "stream_log", "adjoint", "fused_tiled", "fused",
+                "replay", "replay_tape", "replay_bwd", "spill", "bernoulli",
+                "gather", "block_log", "block_direct", "prng")}}
 
 
 def counters() -> dict[str, int]:
-    """A snapshot of :data:`COUNTERS` and the kernel launches (keys
-    ``launch.<kernel>``)."""
-    from ..ops.stream_kernel import LAUNCHES
-    return {**COUNTERS, **{"launch." + k: v for k, v in LAUNCHES.items()}}
+    """A snapshot of :data:`COUNTERS`."""
+    return dict(COUNTERS)
 
 
 def to_device(data, device, dtype=None) -> torch.Tensor:

@@ -507,18 +507,29 @@ def bound(n_bytes: float, flops: float, itemsize: int) -> dict:
             "library_ms": None}
 
 
+#: The counters at the last :func:`reset_counts`.
+_COUNTS_AT: dict = {}
+
+
+def launches_since(start: dict) -> dict:
+    """Each kernel's launches since the ``counters()`` snapshot
+    ``start``."""
+    from canopy_tpu_torch.utils.profiling import counters
+    return {key[len("launch."):]: n - start.get(key, 0)
+            for key, n in counters().items() if key.startswith("launch.")}
+
+
 def reset_counts() -> None:
-    from canopy_tpu_torch.ops.stream_kernel import reset_launches
+    from canopy_tpu_torch.utils.profiling import counters
     torch.cuda.synchronize()
-    reset_launches()
+    _COUNTS_AT.update(counters())
 
 
 def read_counts(record: dict, path: str, kernels) -> dict:
-    """The launch counts of ``path``; fails unless each of its kernels
-    launched."""
-    from canopy_tpu_torch.ops.stream_kernel import LAUNCHES
+    """The launch counts of ``path`` since the last :func:`reset_counts`;
+    fails unless each of its kernels launched."""
     torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
+    launches = launches_since(_COUNTS_AT)
     record.setdefault("paths", {})[path] = launches
     for name in kernels:
         check(launches[name] > 0, f"{path}: kernel {name} never launched")
@@ -1425,6 +1436,7 @@ def phase_prng(device, record: dict) -> None:
     from canopy_tpu_torch.mef.parameter import MissionTime
     from canopy_tpu_torch.ops import prng
     from canopy_tpu_torch.settings import Settings
+    from canopy_tpu_torch.utils.profiling import counters
     from canopy_tpu_torch.utils.scale_models import every_deviate_kind
 
     with open(PRNG_GOLDEN) as fh:
@@ -1482,11 +1494,11 @@ def phase_prng(device, record: dict) -> None:
     n = s["n_trials"]
     check(key == prng.prng_key(SLICE_SEED) and n == SLICE_TRIALS,
           "golden slice samples: key or trials")
-    launches = prng.LAUNCHES["prng"]
+    start = counters()
     with plain_draws(plain=False):
         got, tape_ms = timed_ms(lambda: tape.sample(key, n, mission, device))
     (table,) = plain_draws.tables
-    check(prng.LAUNCHES["prng"] - launches == 1,
+    check(launches_since(start)["prng"] == 1,
           "the slice tape took more than one launch")
     check(tuple(got.shape) == (n, s["n_outputs"]), "slice samples shape")
     worst = max(_rel(float(got[t, c]), v) for t, c, v in s["pairs"])
@@ -1524,11 +1536,11 @@ def phase_prng(device, record: dict) -> None:
     n_gamma = sum(1 for op in tape._ops
                   if op[0] in ("gamma-deviate", "beta-deviate"))
     key = prng.fold_in(prng.prng_key(SLICE_SEED), 1)
-    launches = prng.LAUNCHES["prng"]
+    start = counters()
     got, kind_ms = timed_ms(
         lambda: tape.sample(key, PRNG_KIND_TRIALS, mission, device))
-    check(prng.LAUNCHES["prng"] - launches == 1 + n_gamma,
-          f"every-kind tape: {prng.LAUNCHES['prng'] - launches} launches")
+    launches = launches_since(start)["prng"]
+    check(launches == 1 + n_gamma, f"every-kind tape: {launches} launches")
     with plain_draws():
         want = tape.sample(key, PRNG_KIND_TRIALS, mission, device)
     check(torch.equal(got, want), "every-kind tape: kernel differs from "
@@ -3479,22 +3491,22 @@ def _parallel_rank(rank: int, port: int, progs: dict,
     """One rank of phase 14b (spawned; gloo between ranks, compute on the
     one card); writes what it measured to ``parallel_rank<r>.json``."""
     import torch.distributed as dist
-    from canopy_tpu_torch.ops.stream_kernel import LAUNCHES, reset_launches
     from canopy_tpu_torch.parallel.distributed import (HOST_ROUTED,
                                                        initialize)
     from canopy_tpu_torch.parallel.dryrun import dryrun_multichip
     from canopy_tpu_torch.parallel.mesh import make_mesh
+    from canopy_tpu_torch.utils.profiling import counters
     device = torch.device(device_type)
     t0 = time.perf_counter()
     initialize(f"tcp://localhost:{port}", PARALLEL_RANKS, rank,
                device=device, backend="gloo", timeout=PARALLEL_TIMEOUT_S)
     mesh = make_mesh(device)
     torch.cuda.synchronize()
-    reset_launches()
+    start = counters()
     dry = dryrun_multichip(mesh, device)
     run = parallel_steps(progs, device, PARALLEL_RANK_TRIALS, "14b")
     torch.cuda.synchronize()
-    run.update(dryrun=dry, launches=dict(LAUNCHES),
+    run.update(dryrun=dry, launches=launches_since(start),
                host_routed=dict(HOST_ROUTED),
                jax=sorted(m for m in sys.modules if m == "jax" or
                           m.startswith(("jax.", "canopy_tpu."))),

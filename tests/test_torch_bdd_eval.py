@@ -87,7 +87,7 @@ def test_cpu_stream_path_matches_jax_interpret(name):
                                       min_nodes=0)(jnp.asarray(values))
     ev = tbe.make_modular_evaluator(build_modular_bdd(ttree), "cpu",
                                     engine="stream")
-    assert ev.method == "bdd-stream-f32" and ev.method_for(7) == ev.method
+    assert ev.method == "bdd-stream-f32"
     np.testing.assert_allclose(ev(torch.from_numpy(values)).numpy(),
                                np.asarray(want), rtol=1e-6, atol=0)
 
@@ -170,4 +170,4 @@ def test_stream_path_ignores_the_tpu_scheduler_caps(monkeypatch):
 def test_level_evaluation_on_cpu_is_not_the_stream_path():
     _jm, ttree = load_tree("canopy_tpu_torch", "aralia_like_small")
     ev = tbe.make_modular_evaluator(build_modular_bdd(ttree), "cpu")
-    assert ev.method == "bdd" and ev.method_for(1024) == "bdd"
+    assert ev.method == "bdd"

@@ -35,8 +35,10 @@ from canopy_tpu_torch.engine.propagate import (make_propagator,
                                                top_event_probability)
 from canopy_tpu_torch.errors import LogicError
 from canopy_tpu_torch.ops import block_gather as tbg
-from canopy_tpu_torch.ops import stream_kernel as tsk
 from canopy_tpu_torch.utils import synthetic
+from canopy_tpu_torch.utils.profiling import counters
+
+from torch_parity import launches_since
 
 
 def hier(pkg_synthetic, shuffle, reorder, n_basic, share=0.1):
@@ -201,9 +203,9 @@ def test_make_propagator_block():
     fn = make_propagator(tree, "cpu", engine="block")
     assert fn.engine == "block"
     p = torch.from_numpy(uniform(256, tree.n_basic, 4, 0.3))
-    tsk.reset_launches()
+    before = counters()
     got = fn(p)
-    assert not any(tsk.LAUNCHES.values())
+    assert launches_since(before) == {}
     assert torch.equal(got, tbg.block_gather_propagate(
         tbg.compile_block_gather(tree), p))
     np.testing.assert_allclose(got.numpy(), gather_f32(tree, p.numpy())

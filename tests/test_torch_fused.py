@@ -37,12 +37,13 @@ from canopy_tpu_torch.compiler.graph import compile_gates
 from canopy_tpu_torch.compiler.schedule import _emit_gate_ops
 from canopy_tpu_torch.errors import LogicError
 from canopy_tpu_torch.ops import fused_kernel as tfk
-from canopy_tpu_torch.ops.stream_kernel import (LAUNCHES, POOL,
+from canopy_tpu_torch.ops.stream_kernel import (POOL,
                                                 house_tensor,
                                                 replay_ring_stream)
+from canopy_tpu_torch.utils.profiling import counters
 from canopy_tpu_torch.utils.synthetic import synthetic_mef_tree
 
-from torch_parity import load_tree, walk_ring
+from torch_parity import launches_since, load_tree, walk_ring
 
 RTOL = 1e-6
 ATOL = 2.0 ** -24
@@ -205,10 +206,10 @@ def test_supported_limits_are_the_shared_memory():
 def test_wrappers_refuse_and_count_nothing_on_the_cpu():
     _jt, tt = trees("aralia_like_ccf")
     enc = tfk.encode_fused(tt)
-    before = dict(LAUNCHES)
+    before = counters()
     p = torch.from_numpy(inputs(tt.n_basic, 3, 15))
     assert tfk.fused_propagate(tt, p, []).shape == (3,)
-    assert dict(LAUNCHES) == before
+    assert launches_since(before) == {}
     with pytest.raises(LogicError):
         tfk.fused_forward(enc, tfk.tile_trials(p).double(), [])
     with pytest.raises(LogicError):

@@ -31,8 +31,10 @@ from canopy_tpu_torch.mef.event import (Arg, BasicEvent, Connective, Formula,
                                         Gate, HouseEvent)
 from canopy_tpu_torch.mef.expr.constant import ConstantExpression
 from canopy_tpu_torch.ops import gather_kernel as tgk
-from canopy_tpu_torch.ops import stream_kernel as tsk
 from canopy_tpu_torch.utils import synthetic
+from canopy_tpu_torch.utils.profiling import counters
+
+from torch_parity import launches_since
 
 PARTIAL = dict(n_basic=64, n_gates=77, fanin=3, n_levels=4, seed=5)
 RAGGED = dict(n_basic=32, n_gates=40, fanin=4, seed=3)
@@ -56,9 +58,9 @@ def test_partial_tile_equals_jax_interpret():
         .astype(np.float32)
     want = np.asarray(jgk.gather_propagate(jt, jnp.asarray(p),
                                            interpret=True))
-    tsk.reset_launches()
+    before = counters()
     got = tgk.gather_propagate(tt, torch.from_numpy(p))
-    assert tsk.LAUNCHES["gather"] == 0
+    assert launches_since(before) == {}
     assert got.dtype == torch.float32 and got.shape == (1024,)
     np.testing.assert_array_equal(got.numpy(), want)
     assert torch.equal(got, tgk.gather_forward_plain(tt,

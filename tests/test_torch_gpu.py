@@ -40,10 +40,11 @@ from canopy_tpu_torch.ops import prng
 from canopy_tpu_torch.ops import stream_kernel as tsk
 from canopy_tpu_torch.ops.prng import fold_in, prng_key
 from canopy_tpu_torch.settings import Settings
+from canopy_tpu_torch.utils.profiling import counters
 
 from torch_parity import (assert_sequence_stats,  # noqa: F401
                           cuda_device, fixture_inputs, fixture_path,
-                          load_tree, overwriting_program)
+                          launches_since, load_tree, overwriting_program)
 
 pytestmark = pytest.mark.gpu
 
@@ -84,13 +85,13 @@ def test_kernels_match_plain(cuda_device, dtype):  # noqa: F811
 
 def test_launch_counts_and_wrapper_checks(cuda_device):  # noqa: F811
     label, enc, house = _programs()[1]
-    tsk.reset_launches()
+    start = counters()
     staged = torch.rand((enc.n_basic, 64), device=cuda_device)
     top, log = tsk.stream_forward(enc, staged, house, with_log=True)
     tak.stream_backward(enc, staged, house, log, torch.ones_like(top))
     tsk.stream_forward(enc, staged, house)
     # Every other kernel's count stays 0, whatever kernels exist.
-    assert {k: n for k, n in tsk.LAUNCHES.items() if n} == {
+    assert launches_since(start) == {
         "stream": 1, "stream_log": 1, "adjoint": 1}
     with pytest.raises(LogicError):
         tsk.stream_forward(enc, staged.half(), house)
@@ -104,9 +105,10 @@ def test_analysis_on_cuda_matches_cpu(cuda_device):  # noqa: F811
                 .importance_analysis(True))
     model = Initializer([fixture_path("aralia_like_medium")],
                         settings).model
-    tsk.reset_launches()
+    start = counters()
     (gpu,) = RiskAnalysis(model, settings, "cuda").run().fault_trees
-    assert tsk.LAUNCHES["stream_log"] > 0 and tsk.LAUNCHES["adjoint"] > 0
+    launched = launches_since(start)
+    assert launched["stream_log"] > 0 and launched["adjoint"] > 0
     (cpu,) = RiskAnalysis(model, settings, "cpu").run().fault_trees
     assert gpu.probability == cpu.probability
     mif = np.array([r["MIF"] for r in gpu.importance])
@@ -120,14 +122,14 @@ def test_uncertainty_streams_on_cuda(cuda_device):  # noqa: F811
                          tree_name="slice")
     modular = build_modular_bdd(tree)
     ev = make_modular_evaluator(modular, cuda_device)
-    assert ev.method == "bdd-stream-f32" == ev.method_for(12345)
+    assert ev.method == "bdd-stream-f32"
     p = torch.rand((4096, tree.n_basic), device=cuda_device,
                    dtype=torch.float64) * 0.02
-    tsk.reset_launches()
+    start = counters()
     with torch.no_grad():
         got = ev(p)
     # One launch per module whose root is not a constant, small ones too.
-    assert tsk.LAUNCHES["stream"] == sum(
+    assert launches_since(start)["stream"] == sum(
         1 for bdd, _slot in modular.chain if bdd.resolved_root() > 1) == 2
     from canopy_tpu_torch.compiler.modules import modular_probability
     want = modular_probability(modular, p)
@@ -156,7 +158,7 @@ def test_event_tree_on_cuda(cuda_device, tmp_path):  # noqa: F811
                 .uncertainty_analysis(True).num_trials(4096).seed(7))
     model = Initializer([str(path)], settings).model
     cpu = RiskAnalysis(model, settings, "cpu").run().sequences
-    tsk.reset_launches()
+    start = counters()
     gpu = RiskAnalysis(model, settings, "cuda").run().sequences
     # One launch per sequence root, and one per module of the four fault
     # trees' own uncertainty analyses.
@@ -167,7 +169,7 @@ def test_event_tree_on_cuda(cuda_device, tmp_path):  # noqa: F811
             1 for bdd, _slot in build_modular_bdd(
                 ft_tree, house_states=ft_tree.house_state_vector()).chain
             if bdd.resolved_root() > 1)
-    assert tsk.LAUNCHES["stream"] == len(gpu) + n_modules == 16 + 4
+    assert launches_since(start)["stream"] == len(gpu) + n_modules == 16 + 4
     assert {s.uncertainty["method"] for s in gpu} == {"bdd-stream-f32"}
     (initiating,) = model.initiating_events
     outcomes = walk_event_tree(model, initiating)
@@ -231,9 +233,9 @@ def test_propagator_dispatch_on_cuda(cuda_device):  # noqa: F811
         assert fn.engine == engine
         p = torch.rand((3000, tree.n_basic), device=cuda_device,
                        dtype=torch.float64) * 0.02
-        tsk.reset_launches()
+        start = counters()
         got = fn(p)
-        assert tsk.LAUNCHES[engine] == 1
+        assert launches_since(start)[engine] == 1
         want = make_propagator(tree, cuda_device, engine="gather")(p)
         assert float(((got.double() - want).abs() / want).max()) <= 1e-5
 
@@ -250,10 +252,11 @@ def test_pdag_analysis_on_cuda_matches_cpu(cuda_device):  # noqa: F811
     # analysis samples them (constant-only models skip uncertainty).
     model = Initializer([fixture_path("torch_slice_plant")],
                         settings).model
-    tsk.reset_launches()
+    start = counters()
     (gpu,) = RiskAnalysis(model, settings, "cuda").run().fault_trees
-    assert tsk.LAUNCHES["stream_log"] == 1 and tsk.LAUNCHES["adjoint"] == 1
-    assert tsk.LAUNCHES["stream"] == 1 and tsk.LAUNCHES["fused_tiled"] == 0
+    launched = launches_since(start)
+    assert launched["stream_log"] == 1 and launched["adjoint"] == 1
+    assert launched["stream"] == 1 and launched["fused_tiled"] == 0
     (cpu,) = RiskAnalysis(model, settings, "cpu").run().fault_trees
     assert abs(gpu.probability - cpu.probability) <= \
         1e-12 * abs(cpu.probability)
@@ -318,11 +321,12 @@ def test_replay_engine_on_cuda(cuda_device):  # noqa: F811
                    dtype=torch.float64) * 0.05
     fn = make_propagator(tree, cuda_device, engine="replay")
     stage, run = make_staged_propagator(tree, cuda_device, engine="replay")
-    tsk.reset_launches()
+    start = counters()
     got = fn(p)
     assert torch.equal(run(stage(p)), got)
     assert fn.engine == run.engine == "replay"
-    assert tsk.LAUNCHES["replay"] == 2 and tsk.LAUNCHES["stream"] == 0
+    launched = launches_since(start)
+    assert launched["replay"] == 2 and launched["stream"] == 0
     want = make_propagator(tree, cuda_device, engine="gather")(p)
     assert float(((got.double() - want).abs() / want).max()) <= 1e-5
 
@@ -337,9 +341,9 @@ def test_bernoulli_kernel_matches_plain(cuda_device):  # noqa: F811
                      device=cuda_device)
     for seed, n_trials, word0 in ((7, 32 * 1000, 0), (7, 32 * 333, 4097),
                                   ((5 << 32) + 9, 32 * 64, 0)):
-        tsk.reset_launches()
+        start = counters()
         got = packed_bernoulli(seed, p, n_trials, word0)
-        assert tsk.LAUNCHES["bernoulli"] == 1
+        assert launches_since(start)["bernoulli"] == 1
         want = packed_bernoulli_plain(seed, p, n_trials, word0)
         assert torch.equal(got, want)
         assert torch.equal(got.cpu(), packed_bernoulli(seed, p.cpu(),
@@ -358,10 +362,10 @@ def test_monte_carlo_on_cuda_equals_the_cpu(cuda_device):  # noqa: F811
     for device in ("cpu", cuda_device):
         model = Initializer([fixture_path("aralia_like_large")],
                             settings).model
-        tsk.reset_launches()
+        start = counters()
         (ft,) = RiskAnalysis(model, settings, device).run().fault_trees
         out[str(device)] = (ft.probability, ft.mc_std_error,
-                            tsk.LAUNCHES["bernoulli"])
+                            launches_since(start)["bernoulli"])
     (p_cpu, se_cpu, n_cpu), (p_gpu, se_gpu, n_gpu) = out.values()
     assert (p_cpu, se_cpu) == (p_gpu, se_gpu)
     assert n_cpu == 0 and n_gpu >= 1
@@ -444,10 +448,11 @@ def test_spill_engine_on_cuda(cuda_device):  # noqa: F811
     p = torch.rand((3000, tree.n_basic), device=cuda_device,
                    dtype=torch.float64) * 0.05
     fn = make_propagator(tree, cuda_device, engine="spill")
-    tsk.reset_launches()
+    start = counters()
     got = fn(p)
     assert fn.engine == "spill"
-    assert tsk.LAUNCHES["spill"] == 1 and tsk.LAUNCHES["stream"] == 0
+    launched = launches_since(start)
+    assert launched["spill"] == 1 and launched["stream"] == 0
     want = make_propagator(tree, cuda_device, engine="gather")(p)
     assert float(((got.double() - want).abs() / want).max()) <= 1e-5
 
@@ -463,11 +468,11 @@ def test_spill_program_beyond_shared_memory_raises(cuda_device):  # noqa: F811
         tsk.compile_spill_stream(tree, pool_slots=tsk.SPILL_SLOTS + 1)
     enc = tsk.encode_spill(build_spill_schedule(
         tree, pool_slots=tsk.SPILL_SLOTS + 1))
-    tsk.reset_launches()
+    start = counters()
     with pytest.raises(LogicError, match="shared memory"):
         tsk.spill_forward(enc, torch.zeros((enc.n_basic, 64),
                                            device=cuda_device), [])
-    assert tsk.LAUNCHES["spill"] == 0
+    assert launches_since(start)["spill"] == 0
 
 
 def _reordered_tree(n_basic: int):
@@ -498,9 +503,9 @@ def test_gather_kernel_matches_plain(cuda_device):  # noqa: F811
                                          n_levels=6, seed=3)):
         p = torch.rand((2048, tree.n_basic), generator=gen,
                        device=cuda_device) * 0.5
-        tsk.reset_launches()
+        start = counters()
         got = tgk.gather_propagate(tree, p)
-        assert tsk.LAUNCHES["gather"] == sum(
+        assert launches_since(start)["gather"] == sum(
             1 for lv in tree.levels for b in lv.prods if b.n_gates)
         assert torch.equal(got, tgk.gather_forward_plain(tree, p))
         assert torch.equal(got, top_event_probability(tree, p))
@@ -519,10 +524,10 @@ def test_block_gather_kernels_match_plain(cuda_device, t_tile):  # noqa: F811
                    device=cuda_device) * 0.4
     ref = top_event_probability(tree, p)
     for mode in ("log", "direct"):
-        tsk.reset_launches()
+        start = counters()
         got = tbg.block_gather_propagate(program, p, t_tile=t_tile,
                                          mode=mode)
-        assert tsk.LAUNCHES[f"block_{mode}"] == len(program.levels)
+        assert launches_since(start)[f"block_{mode}"] == len(program.levels)
         plain = tbg.block_gather_forward_plain(program, p, mode)
         if mode == "direct":
             assert torch.equal(got, plain) and torch.equal(got, ref)
@@ -542,10 +547,10 @@ def test_block_engine_on_cuda(cuda_device):  # noqa: F811
     fn = make_propagator(tree, cuda_device, engine="block")
     p = torch.rand((4096, tree.n_basic), device=cuda_device,
                    dtype=torch.float64) * 0.05
-    tsk.reset_launches()
+    start = counters()
     got = fn(p)
     assert fn.engine == "block" and got.dtype == torch.float32
-    assert {k: n for k, n in tsk.LAUNCHES.items() if n} == {
+    assert launches_since(start) == {
         "block_log": len(tree.levels)}
     want = make_propagator(tree, cuda_device, engine="gather")(p)
     assert float(((got.double() - want).abs() / want).max()) <= 1e-5
@@ -592,9 +597,10 @@ def test_step_kernel_matches_plain(cuda_device, dtype):  # noqa: F811
         staged = tsk.stage_basic(enc, values, dtype)
         want = tsk.stream_forward_plain(
             enc, staged, tsk.house_tensor(enc, [], cuda_device, dtype))[0]
-        tsk.reset_launches()
+        start = counters()
         assert torch.equal(tsk.stream_forward(enc, staged, [])[0], want)
-        assert tsk.VARIANTS == {"stream:steps": 1}
+        assert tsk.stream_variant(enc) == "steps"
+        assert launches_since(start) == {"stream": 1}
 
 
 def test_step_kernel_offsets_above_2_31(cuda_device):  # noqa: F811
@@ -650,9 +656,10 @@ def test_propagator_names_its_stream_variant(cuda_device):  # noqa: F811
     staged = tsk.stage_basic(enc, p)
     want = tsk.stream_forward_plain(
         enc, staged, tsk.house_tensor(enc, [], cuda_device))[0]
-    tsk.reset_launches()
+    start = counters()
     assert torch.equal(fn(p), want)
-    assert tsk.VARIANTS == {"stream:ops": 1}
+    assert tsk.stream_variant(enc) == "ops"
+    assert launches_since(start) == {"stream": 1}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -760,7 +767,7 @@ def test_residual_window_kernels_match_plain(cuda_device):  # noqa: F811
     for enc in (senc, fenc, renc, spenc):
         assert enc.max_count_states == 142 > tsk.MAX_COUNT_STATES
     gen = torch.Generator(device=cuda_device).manual_seed(142)
-    tsk.reset_launches()
+    start = counters()
     for dtype, n in ((torch.float32, 1000), (torch.float64, 1)):
         p = (torch.rand((n, 300), generator=gen, device=cuda_device,
                         dtype=torch.float64) * 0.2 + 0.35).to(dtype)
@@ -797,7 +804,7 @@ def test_residual_window_kernels_match_plain(cuda_device):  # noqa: F811
                            tsk.spill_forward_plain(spenc, sstaged, h))
     for name in ("stream", "stream_log", "adjoint", "fused_tiled", "fused",
                  "replay", "replay_tape", "replay_bwd", "spill"):
-        assert tsk.LAUNCHES[name] > 0, name
+        assert launches_since(start)[name] > 0, name
 
 
 @pytest.mark.parametrize("n_trials", [33, 20_000, 65_536])
@@ -902,10 +909,10 @@ def test_sharded_stream_step_on_one_nccl_rank(cuda_device,  # noqa: F811
         assert dist.get_backend() == "nccl"
         mesh = make_mesh("cuda")
         step = sharded_stream_step(enc, mesh, house)
-        before = tsk.LAUNCHES["stream"]
+        start = counters()
         tops = gather_trials(mesh, step(shard_trials(mesh, basic)))
         torch.cuda.synchronize()
-        assert tsk.LAUNCHES["stream"] > before
+        assert launches_since(start)["stream"] > 0
     finally:
         dist.destroy_process_group()
     assert torch.equal(tops, tsk.stream_propagate(enc, basic, house))
@@ -933,12 +940,12 @@ def test_prng_kernels_bit_equal_to_plain(cuda_device,  # noqa: F811
     from canopy_tpu_torch.utils.scale_models import every_deviate_kind
     key = prng_key(20261017)
     tape = ExpressionTape.build(every_deviate_kind(expr, MissionTime()))
-    tsk.reset_launches()
+    start = counters()
     got = tape.sample(key, 65_536, 8760.0, cuda_device)
     torch.cuda.synchronize()
     n_gamma = sum(1 for op in tape._ops
                   if op[0] in ("gamma-deviate", "beta-deviate"))
-    assert tsk.LAUNCHES["prng"] == 1 + n_gamma == 6
+    assert launches_since(start)["prng"] == 1 + n_gamma == 6
     want = _plain_tape_sample(monkeypatch, tape, key, 65_536, cuda_device)
     assert torch.equal(got, want)
     _m, tree = load_tree("canopy_tpu_torch", "torch_slice_plant",
@@ -975,7 +982,6 @@ def test_uncertainty_request_counts_its_copies(cuda_device):  # noqa: F811
     first cached the programs' tables), and one reduction on the card."""
     from canopy_tpu_torch.compiler.expr_tape import ExpressionTape
     from canopy_tpu_torch.engine.uncertainty import uncertainty_analysis
-    from canopy_tpu_torch.utils.profiling import counters
     _m, tree = load_tree("canopy_tpu_torch", "torch_slice_plant",
                          tree_name="slice")
     tape = ExpressionTape.build([e.expression for e in tree.basic_events])
@@ -1017,7 +1023,6 @@ def test_sequence_statistics_on_the_card(cuda_device,  # noqa: F811
     request, no build, and the same copies off the card and bytes at
     both sizes (a summary of fixed size comes back)."""
     from canopy_tpu_torch.engine import sequences
-    from canopy_tpu_torch.utils.profiling import counters
     settings = Settings()
     model = Initializer(fixture_inputs("torch_event_tree_plant"),
                         settings).model
@@ -1039,7 +1044,7 @@ def test_sequence_statistics_on_the_card(cuda_device,  # noqa: F811
         out = sequences.sequence_uncertainty(compiled, n + 1, n)
         after = counters()
         delta = {k: after[k] - before[k] for k in after}
-        assert delta["seq_stats_on_device"] == 1
+        assert delta["stats_on_device"] == 1
         assert delta["builds"] == 0
         assert delta["sequences"] == len(out) == 64
         readbacks.append((delta["d2h"], delta["d2h_bytes"]))

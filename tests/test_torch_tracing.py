@@ -6,7 +6,9 @@
   sample and one evaluate span per batch.
 * With no profiler recording, ``span`` opens no ``record_function``.
 * Counter deltas over one request: its trials, and on the CPU no
-  host-device copy and no build.  The copy helpers count a copy out of
+  host-device copy, no build and no launch.  ``counters()`` loads no
+  kernel module, and lists every kernel's launches at 0 in a fresh
+  interpreter.  The copy helpers count a copy out of
   host memory with its bytes (the meta device stands in for the card)
   and leave a copy within the host uncounted.
 * ``RiskAnalysis``'s report keeps its ``<calculation-time>`` names, in
@@ -17,6 +19,9 @@
 """
 
 import json
+import os
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -25,7 +30,6 @@ from canopy_tpu_torch.compiler.expr_tape import ExpressionTape
 from canopy_tpu_torch.engine.analysis import RiskAnalysis
 from canopy_tpu_torch.engine.uncertainty import uncertainty_analysis
 from canopy_tpu_torch.mef import Initializer
-from canopy_tpu_torch.ops.stream_kernel import LAUNCHES
 from canopy_tpu_torch.settings import Settings
 from canopy_tpu_torch.utils import profiling
 from canopy_tpu_torch.utils.profiling import (COUNTERS, PhaseTimer, counters,
@@ -103,11 +107,33 @@ def test_counters_over_one_cpu_request(slice_inputs):
     tree, tape = slice_inputs
     before = counters()
     assert sorted(k for k in before if k.startswith("launch.")) == \
-        sorted("launch." + k for k in LAUNCHES)
+        sorted(k for k in COUNTERS if k.startswith("launch."))
     uncertainty_analysis(tree, tape, 7, 300, 8760.0, "cpu", batch_size=128)
     after = counters()
     delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     assert delta == {"trials": 300}
+
+
+def test_counters_load_no_kernel_module():
+    """The observability layer stands below the kernels it counts: a
+    fresh interpreter reads every launch counter, each at 0, without
+    loading any module of ``canopy_tpu_torch.ops``."""
+    probe = ("import json, sys\n"
+             "from canopy_tpu_torch.utils.profiling import counters\n"
+             "snapshot = counters()\n"
+             "print(json.dumps([snapshot, sorted(m for m in sys.modules if "
+             "m.startswith('canopy_tpu_torch.ops'))]))")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", probe], check=True, cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    snapshot, loaded = json.loads(out.stdout)
+    assert loaded == []
+    assert {k: v for k, v in snapshot.items() if k.startswith("launch.")} \
+        == dict.fromkeys(
+            ("launch." + kernel for kernel in (
+                "stream", "stream_log", "adjoint", "fused_tiled", "fused",
+                "replay", "replay_tape", "replay_bwd", "spill", "bernoulli",
+                "gather", "block_log", "block_direct", "prng")), 0)
 
 
 def test_copy_helpers_count_what_leaves_the_host(monkeypatch):

@@ -5,6 +5,7 @@ JAX package runs on its CPU backend (its Pallas kernels in interpret
 mode), the port on the CPU through its kernels' plain versions.
 """
 
+import collections
 import math
 import os
 
@@ -70,6 +71,17 @@ def run_both_analyses(path: str, configure=lambda settings: settings):
     ref = JaxAnalysis(JaxInitializer([path], jax_settings).model,
                       jax_settings).run()
     return ours, ref
+
+
+def launches_since(before: dict) -> collections.Counter:
+    """The kernels launched since the ``counters()`` snapshot ``before``,
+    by kernel name (a kernel that did not launch reads 0 and compares as
+    absent)."""
+    from canopy_tpu_torch.utils.profiling import counters
+    after = counters()
+    return collections.Counter({
+        key[len("launch."):]: after[key] - before[key] for key in after
+        if key.startswith("launch.") and after[key] != before[key]})
 
 
 def rel_err(got: float, want: float) -> float:
