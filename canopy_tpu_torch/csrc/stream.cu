@@ -39,6 +39,23 @@
 //     pool keeps four to five times the warps resident and its rows still
 //     hit L1.
 //
+// Every root of a multi-root program at once (event-tree sequences:
+// 2^20 trials of all 64 roots, f64).  stream_ops_kernel copies n_out pool
+// slots (out_slots) into an (n_out, T) output; a single-top program is
+// the case n_out = 1.  It replaces no Pallas kernel: the JAX package
+// evaluates sequences with XLA's gather engine
+// (canopy_tpu/engine/analysis.py:835-842), a (nodes, trials) matrix
+// rewritten level by level.  The bound is bytes: the staged basic events
+// read once and the roots written once, (264 + 64) x 8 B a trial on the
+// plant tree, 0.82 ms at 2^20 trials (its 2,173 f64 operations a trial
+// take 0.07 ms).  The pool is the traffic beyond that bound, so it is
+// kept to the live set: the roots share one depth-first order and one
+// linear scan (ops/stream_kernel.compile_tree_stream), each shared gate
+// runs once, a slot is reused as soon as its value's last reader has
+// run, and a root's slot is held to the end (76 rows for the plant
+// tree's 777 gates, against the gather engine's 1,041 a trial), so a
+// value is read soon after it is written.
+//
 // Level-parallel logged forward (importance: one trial, f64).  One thread
 // walking 10,483 ops in series is a chain of dependent loads; here the
 // block takes the ops of one level (ops/stream_kernel.level_schedule) in
@@ -252,8 +269,11 @@ int launch_steps(const int4* recs, const int* rec_op, int n_chunks,
 // One trial per thread over the general op table, the pool (pool_slots,
 // T) in device memory: the first design, kept for programs of general
 // ops (tree programs), whose eval_op chains need the occupancy of a small
-// register footprint.  Blocks of OPS_THREADS (ops/stream_kernel.py
-// _OPS_THREADS, which sizes the count-DP scratch).
+// register footprint.  At the end each thread copies the pool slots
+// out_slots[0 .. n_out) of its trial into rows of out (n_out, T): the
+// top alone, or every root of a multi-root program.  Blocks of
+// OPS_THREADS (ops/stream_kernel.py _OPS_THREADS, which sizes the
+// count-DP scratch).
 constexpr int OPS_THREADS = 128;
 
 template <typename V>
@@ -262,8 +282,9 @@ __global__ void stream_ops_kernel(const int* __restrict__ ops,
                                   const int* __restrict__ args, int n_ops,
                                   const V* __restrict__ staged,
                                   const V* __restrict__ house, V* pool,
-                                  V* __restrict__ top, long long T,
-                                  int top_slot, V* dp_base) {
+                                  V* __restrict__ out, long long T,
+                                  const int* __restrict__ out_slots,
+                                  int n_out, V* dp_base) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= T) return;
   const GlobalRows<V> rows{pool, T, t};
@@ -273,18 +294,20 @@ __global__ void stream_ops_kernel(const int* __restrict__ ops,
     pool[at(op[1], T, t)] =
         eval_op(op, o, fill, args, staged, house, rows, T, t, dp);
   }
-  top[t] = pool[at(top_slot, T, t)];
+  for (int k = 0; k < n_out; ++k)
+    out[at(k, T, t)] = pool[at(out_slots[k], T, t)];
 }
 
 template <typename V>
 int launch_ops(const int* ops, const float* fill, const int* args, int n_ops,
-               const V* staged, const V* house, V* pool, V* top, long long T,
-               int top_slot, V* dp, void* stream) {
+               const V* staged, const V* house, V* pool, V* out, long long T,
+               const int* out_slots, int n_out, V* dp, void* stream) {
   const int threads = OPS_THREADS;
   const long long blocks = (T + threads - 1) / threads;
   stream_ops_kernel<V><<<(unsigned)blocks, threads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      ops, fill, args, n_ops, staged, house, pool, top, T, top_slot, dp);
+      ops, fill, args, n_ops, staged, house, pool, out, T, out_slots, n_out,
+      dp);
   return (int)cudaGetLastError();
 }
 
@@ -392,25 +415,28 @@ int canopy_stream_forward_f64(const void* recs, const int* rec_op,
                               gpool, Tp, top, T, top_slot, stream);
 }
 
-// The one-trial-per-thread kernel: top (T,), pool (pool_slots, T)
-// scratch; dp the count-DP scratch (states, blocks * OPS_THREADS) or null
-// (dp_scratch, stream_ops.cuh).
+// The one-trial-per-thread kernel: out (n_out, T), row k the pool slot
+// out_slots[k] (int32, on the card); pool (pool_slots, T) scratch; dp the
+// count-DP scratch (states, blocks * OPS_THREADS) or null (dp_scratch,
+// stream_ops.cuh).
 int canopy_stream_ops_forward_f32(const int* ops, const float* fill,
                                   const int* args, int n_ops,
                                   const float* staged, const float* house,
-                                  float* pool, float* top, long long T,
-                                  int top_slot, float* dp, void* stream) {
-  return launch_ops<float>(ops, fill, args, n_ops, staged, house, pool, top,
-                           T, top_slot, dp, stream);
+                                  float* pool, float* out, long long T,
+                                  const int* out_slots, int n_out, float* dp,
+                                  void* stream) {
+  return launch_ops<float>(ops, fill, args, n_ops, staged, house, pool, out,
+                           T, out_slots, n_out, dp, stream);
 }
 
 int canopy_stream_ops_forward_f64(const int* ops, const float* fill,
                                   const int* args, int n_ops,
                                   const double* staged, const double* house,
-                                  double* pool, double* top, long long T,
-                                  int top_slot, double* dp, void* stream) {
-  return launch_ops<double>(ops, fill, args, n_ops, staged, house, pool, top,
-                            T, top_slot, dp, stream);
+                                  double* pool, double* out, long long T,
+                                  const int* out_slots, int n_out,
+                                  double* dp, void* stream) {
+  return launch_ops<double>(ops, fill, args, n_ops, staged, house, pool, out,
+                            T, out_slots, n_out, dp, stream);
 }
 
 // log (n_log, T), top (T,); order/level_ptr from level_schedule; dp the

@@ -20,8 +20,15 @@ packages draw the same samples.  Sequence roots evaluate over the BDDs the
 compile built (on CUDA each root through the stream kernel,
 ``make_bdd_evaluator``: one launch per root, f32, the method tag
 ``bdd-stream-f32``; on the CPU by the f64 level evaluation), or without
-them by direct propagation in f64: one call when the house rows are
-uniform, else one per root.  A sequence's trials are its root's times the
+them by direct propagation in f64.  On CUDA that is one launch of the
+multi-root stream kernel per distinct house row (usually one): the
+compile schedules the roots sharing a house row as one program
+(``ops/stream_kernel.compile_tree_stream`` with ``roots``), each shared
+gate once, and puts its tables, staged columns and house vector on the
+card, so a request uploads nothing of it.  On the CPU the gather engine
+runs (one call when the house rows are uniform, else one per root), as
+``propagate``'s auto dispatch keeps gather there.  A sequence's trials
+are its root's times the
 initiating event's and the collected expressions' samples.  The
 sequences' statistics reduce where their trials live
 (:func:`sequence_statistics`, through the uncertainty path's
@@ -48,6 +55,9 @@ from ..compiler.bdd import BddBlowupError
 from ..compiler.expr_tape import ExpressionTape
 from ..compiler.graph import CompiledTree, compile_gates
 from ..ops.prng import fold_in, prng_key
+from ..ops.stream_kernel import (EncodedStream, compile_tree_stream,
+                                 encode_stream, house_tensor,
+                                 stream_roots_forward)
 from ..settings import Algorithm, Settings
 from ..utils.profiling import COUNTERS, span, to_device, to_host
 from .bdd_eval import bdd_probability, make_bdd_evaluator
@@ -55,8 +65,8 @@ from .event_tree_walk import SequenceOutcome, walk_event_tree
 from .propagate import propagate_probability
 from .uncertainty import order_statistics
 
-__all__ = ["CompiledEventTree", "compile_event_tree",
-           "sequence_uncertainty", "sequence_statistics"]
+__all__ = ["CompiledEventTree", "RootGroup", "compile_event_tree",
+           "root_groups", "sequence_uncertainty", "sequence_statistics"]
 
 
 class _NoTimer:
@@ -68,13 +78,26 @@ class _NoTimer:
 
 
 @dataclasses.dataclass
+class RootGroup:
+    """The roots (indices into ``root_slots``) that share a house row, as
+    one multi-root stream program, with its staged columns and house
+    vector (float64) on the compiled tree's device."""
+
+    roots: list[int]
+    program: EncodedStream
+    cols: torch.Tensor
+    house: torch.Tensor
+
+
+@dataclasses.dataclass
 class CompiledEventTree:
     """An initiating event's walked and compiled sequences on ``device``.
 
     ``gates[i]`` is outcome ``i``'s path condition (None without collected
     formulas); the roots are the gates that are not None, in order.
     ``root_bdds`` holds each root's BDD, or None where the forest blew up
-    (or the algorithm is not BDD) and direct propagation evaluates them.
+    (or the algorithm is not BDD) and direct propagation evaluates them;
+    on CUDA ``root_groups`` then holds its programs.
     """
 
     initiating: Any
@@ -87,6 +110,7 @@ class CompiledEventTree:
     house_rows: list[np.ndarray] = dataclasses.field(default_factory=list)
     uniform_house: bool = False
     root_bdds: Optional[list] = None
+    root_groups: list[RootGroup] = dataclasses.field(default_factory=list)
     #: Each root's point value over the mean probabilities.
     root_values: list[float] = dataclasses.field(default_factory=list)
     #: ``root_slots`` and ``house_rows`` on ``device``.
@@ -173,8 +197,37 @@ def compile_event_tree(model, initiating, settings: Settings, device,
                 values = to_host(all_vals[rows, compiled.root_index]
                                  ).tolist()
                 del all_vals
+                if device.type == "cuda":
+                    compiled.root_groups = root_groups(compiled)
         compiled.root_values = values
     return compiled
+
+
+def _by_house(house_rows: list[np.ndarray]) -> list[list[int]]:
+    """The roots grouped by identical house row, in order of first
+    appearance."""
+    groups: dict[bytes, list[int]] = {}
+    for k, h in enumerate(house_rows):
+        groups.setdefault(h.tobytes(), []).append(k)
+    return list(groups.values())
+
+
+def root_groups(compiled: CompiledEventTree) -> list[RootGroup]:
+    """One multi-root stream program per distinct house row, its tables,
+    output slots, staged columns and house vector put on the compiled
+    tree's device once (``compile_event_tree`` builds them on CUDA, where
+    the forest gives up)."""
+    device = compiled.device
+    groups = []
+    for ks in _by_house(compiled.house_rows):
+        program = encode_stream(compile_tree_stream(
+            compiled.tree, [compiled.root_slots[k] for k in ks]))
+        program.tables(device)      # with its output slots
+        groups.append(RootGroup(
+            ks, program, to_device(program.staged_cols, device),
+            house_tensor(program, compiled.house_rows[ks[0]], device,
+                         torch.float64)))
+    return groups
 
 
 def _forest(compiled: CompiledEventTree, mean_p: torch.Tensor, timer
@@ -189,11 +242,8 @@ def _forest(compiled: CompiledEventTree, mean_p: torch.Tensor, timer
             span("event_tree.forest"):
         root_bdds = [None] * len(house_rows)
         values = [0.0] * len(house_rows)
-        by_house: dict[bytes, list[int]] = {}
-        for k, h in enumerate(house_rows):
-            by_house.setdefault(h.tobytes(), []).append(k)
         try:
-            for ks in by_house.values():
+            for ks in _by_house(house_rows):
                 bdds = build_bdd_multi(
                     tree, [compiled.root_slots[k] for k in ks],
                     house_states=house_rows[ks[0]])
@@ -256,6 +306,15 @@ def _evaluate_roots(compiled: CompiledEventTree, basic_s: torch.Tensor,
             if evaluator.method != "bdd":
                 method = evaluator.method
         return tops, method
+    if compiled.device.type == "cuda":
+        # One launch per house row; the samples staged in float64.
+        tops = [None] * len(compiled.root_slots)
+        for group in compiled.root_groups:
+            staged = basic_s.to(torch.float64)[:, group.cols].T.contiguous()
+            out = stream_roots_forward(group.program, staged, group.house)
+            for k, row in zip(group.roots, out):
+                tops[k] = row
+        return tops, "direct-propagation"
     if compiled.uniform_house:
         vals = propagate_probability(tree, basic_s, compiled.house[0])
         tops = vals[:, compiled.root_index]

@@ -118,7 +118,8 @@ def load_library() -> ctypes.CDLL:
                         i32, vp]
         fwd.restype = i32
         fwd = getattr(lib, f"canopy_stream_ops_forward_{suffix}")
-        fwd.argtypes = [vp, vp, vp, i32, vp, vp, vp, vp, i64, i32, vp, vp]
+        fwd.argtypes = [vp, vp, vp, i32, vp, vp, vp, vp, i64, vp, i32, vp,
+                        vp]
         fwd.restype = i32
         lvl = getattr(lib, f"canopy_stream_level_forward_{suffix}")
         lvl.argtypes = [vp, vp, vp, vp, vp, i32, vp, vp, vp, vp, i64, i32,

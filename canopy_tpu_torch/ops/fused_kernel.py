@@ -128,15 +128,15 @@ def encode_fused(tree: CompiledTree) -> EncodedStream:
             aux0 = int(bool(aux))
         ops.append([_KIND[kind], out - base, begin, len(args), aux0, aux1,
                     -1])
+    top = tree.top_index - base if tree.top_index is not None else -1
     enc = EncodedStream(
         ops=np.asarray(ops, dtype=np.int32).reshape(-1, 7),
         args=np.asarray(args, dtype=np.int32).reshape(-1, 5),
         fill=np.zeros(len(ops), dtype=np.float32), n_log=0, n_basic=n_b,
         n_house=tree.n_house, pool_slots=max(tree.n_gates, 1),
-        top_slot=(tree.top_index - base if tree.top_index is not None
-                  else -1),
-        max_count_states=max_states,
-        staged_cols=np.arange(n_b, dtype=np.int64))
+        top_slot=top, max_count_states=max_states,
+        staged_cols=np.arange(n_b, dtype=np.int64),
+        out_slots=np.asarray([top], dtype=np.int32))
     tree._fused_encoding = enc
     return enc
 
@@ -197,11 +197,13 @@ def fused_program(enc: EncodedStream) -> EncodedSpill:
         row_of[gate] = ops[o, 1] = row
         if gate not in last and gate != enc.top_slot:
             free.append(row)
+    top = row_of.get(enc.top_slot, -1)
     live = EncodedSpill(
         ops=ops, args=args, fill=enc.fill, n_log=enc.n_log,
         n_basic=enc.n_basic, n_house=enc.n_house, pool_slots=max(n_rows, 1),
-        top_slot=row_of.get(enc.top_slot, -1),
-        max_count_states=enc.max_count_states, staged_cols=enc.staged_cols,
+        top_slot=top, max_count_states=enc.max_count_states,
+        staged_cols=enc.staged_cols,
+        out_slots=np.asarray([top], dtype=np.int32),
         n_scratch=0, counts=dict(spills=0, evictions=0, staged_refills=0,
                                  scratch_refills=0, segments=1))
     enc._cache["live"] = live

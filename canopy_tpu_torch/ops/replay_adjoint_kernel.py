@@ -182,7 +182,7 @@ def replay_level_program(enc: EncodedReplay) -> EncodedStream:
         fill=np.zeros(len(ops), dtype=np.float32), n_log=enc.n_log,
         n_basic=enc.n_basic, n_house=enc.n_house, pool_slots=P,
         top_slot=enc.top_slot, max_count_states=enc.max_count_states,
-        staged_cols=enc.staged_cols)
+        staged_cols=enc.staged_cols, out_slots=enc.out_slots)
     program._cache["levels"] = schedule_levels(
         program.ops, program.args, np.asarray(producer, dtype=np.int64),
         enc.n_basic, top_op, LOG, ops[src][6])

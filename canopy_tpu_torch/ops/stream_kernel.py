@@ -70,9 +70,10 @@ from ._build import _ptr, _raise_on, load_library
 
 __all__ = ["compile_stream", "compile_bdd_stream", "compile_tree_stream",
            "tree_stream_encoding", "bdd_stream_encoding", "BDD_BATCH",
-           "EncodedStream",
+           "EncodedStream", "UncappedProgram",
            "encode_stream", "stage_basic", "unstage_basic",
-           "stream_forward", "stream_forward_plain", "stream_propagate",
+           "stream_forward", "stream_forward_plain", "stream_roots_forward",
+           "stream_roots_forward_plain", "stream_propagate",
            "stream_propagate_staged", "stream_bdd_probability", "house_tensor",
            "SMEM_BYTES", "REPLAY_SLOTS", "SPILL_SLOTS", "REPLAY_TRIALS",
            "SPILL_TRIALS",
@@ -211,8 +212,18 @@ def compile_stream(tree: CompiledTree, chunk_tiles: int = 256,
                                  n_bufs=n_bufs)
 
 
+@dataclasses.dataclass(kw_only=True)
+class UncappedProgram(StreamProgram):
+    """A program :func:`_uncapped_program` allocated: a ``StreamProgram``
+    (the TPU scheduler's, shared with the JAX package) whose pool slots
+    ``out_slots`` hold its outputs at the end, in root order, the first
+    ``top_slot``."""
+
+    out_slots: list[int]
+
+
 def _uncapped_program(exec_rows, n_b: int, n_h: int,
-                      top: int) -> StreamProgram:
+                      tops: list[int]) -> UncappedProgram:
     """Allocate ``exec_rows`` (value slots: staged inputs below ``n_b``,
     house events below ``n_b + n_h``, gates above) without the TPU's caps.
 
@@ -220,7 +231,9 @@ def _uncapped_program(exec_rows, n_b: int, n_h: int,
     order (one staging chunk, no spills); gate values take linear-scan
     pool slots, freed after their last reader — the shared scheduler's
     allocation without its staging ring, so wherever that scheduler
-    spills nothing both give the same tables.
+    spills nothing both give the same tables.  The slots of ``tops``
+    are never freed: ``top_slot`` holds the first, ``out_slots`` each of
+    them in order.
     """
     stage_pos: dict[int, int] = {}
     last_read: dict[int, int] = {}
@@ -230,8 +243,7 @@ def _uncapped_program(exec_rows, n_b: int, n_h: int,
                 stage_pos.setdefault(slot, len(stage_pos))
             elif slot >= n_b + n_h:
                 last_read[slot] = g
-    if not stage_pos:
-        raise LogicError("stream schedule needs at least one basic event")
+    kept = set(tops)
 
     def loc(s: int):
         if s < n_b:
@@ -253,18 +265,19 @@ def _uncapped_program(exec_rows, n_b: int, n_h: int,
             pool_of[out] = n_slots
             n_slots += 1
         ops.append(("gate", kind, pool_of[out], locs, aux))
-        if out != top:
+        if out not in kept:
             if out in last_read:
                 frees_at.setdefault(last_read[out], []).append(out)
             else:
                 free.append(pool_of[out])
         free += [pool_of[v] for v in frees_at.pop(g, ())]
     n_staged = len(stage_pos)
-    return StreamProgram(
+    return UncappedProgram(
         ops=ops, basic_perm=np.fromiter(stage_pos, np.int64, n_staged),
         n_basic=n_staged, n_basic_pad=n_staged, chunk_tiles=n_staged,
-        n_chunks=1, n_bufs=1, pool_slots=n_slots, top_slot=pool_of[top],
-        nnz=sum(len(r[2]) for r in exec_rows), n_house=n_h)
+        n_chunks=1, n_bufs=1, pool_slots=n_slots, top_slot=pool_of[tops[0]],
+        nnz=sum(len(r[2]) for r in exec_rows), n_house=n_h,
+        out_slots=[pool_of[t] for t in tops])
 
 
 def _batched_rows(rows: list, width: int) -> list:
@@ -336,7 +349,7 @@ def compile_bdd_stream(bdd, batch: int = 1) -> StreamProgram:
     exec_rows = _dfs_exec_rows(rows, n_b, 0, n_b + root)
     if batch > 1:
         exec_rows = _batched_rows(exec_rows, batch)
-    program = _uncapped_program(exec_rows, n_b, 0, n_b + root)
+    program = _uncapped_program(exec_rows, n_b, 0, [n_b + root])
     program.stage_cols = np.array([bdd.slot_of_var[v] for v in used_vars],
                                   dtype=np.int64)
     return program
@@ -359,7 +372,9 @@ def bdd_stream_encoding(bdd) -> "EncodedStream":
     return enc
 
 
-def compile_tree_stream(tree: CompiledTree) -> StreamProgram:
+def compile_tree_stream(tree: CompiledTree,
+                        roots: list[int] | None = None
+                        ) -> UncappedProgram:
     """Schedule a compiled tree's top cone for the kernels: the tree
     counterpart of :func:`compile_bdd_stream`.
 
@@ -371,14 +386,39 @@ def compile_tree_stream(tree: CompiledTree) -> StreamProgram:
     values take linear-scan pool slots in device memory.  Raises
     ``LogicError`` only when the tree has no anchored top or its cone
     reads no basic event.
+
+    ``roots`` (gate slots) asks for one program of several roots, such
+    as an event tree's sequences: the depth-first orders of the roots in
+    turn, each gate where it first appears, so a gate shared by roots
+    runs once (the order one walk over the roots with one visited set
+    gives, since a gate visited before brings only gates visited before);
+    the roots' slots are never freed, and ``out_slots`` lists them in
+    root order.  Such a program may stage no basic event.
     """
     from ..compiler.schedule import _dfs_exec_rows, _emit_gate_ops
-    if tree.top_index is None:
-        raise LogicError("stream schedule needs an anchored top event")
     n_b, n_h = tree.n_basic, tree.n_house
-    exec_rows = _dfs_exec_rows(_emit_gate_ops(tree), n_b, n_h,
-                               tree.top_index)
-    return _uncapped_program(exec_rows, n_b, n_h, tree.top_index)
+    rows = _emit_gate_ops(tree)
+    if roots is None:
+        if tree.top_index is None:
+            raise LogicError("stream schedule needs an anchored top event")
+        program = _uncapped_program(
+            _dfs_exec_rows(rows, n_b, n_h, tree.top_index), n_b, n_h,
+            [tree.top_index])
+        if not program.n_basic:
+            raise LogicError("stream schedule needs at least one basic "
+                             "event")
+        return program
+    gates = {row[1] for row in rows}
+    if not roots or not set(roots) <= gates:
+        raise LogicError("a multi-root stream program takes gate slots")
+    exec_rows: list = []
+    done: set[int] = set()
+    for root in roots:
+        for row in _dfs_exec_rows(rows, n_b, n_h, root):
+            if row[1] not in done:
+                done.add(row[1])
+                exec_rows.append(row)
+    return _uncapped_program(exec_rows, n_b, n_h, list(roots))
 
 
 def tree_stream_encoding(tree: CompiledTree) -> "EncodedStream":
@@ -405,6 +445,10 @@ class EncodedStream:
     top_slot: int
     max_count_states: int  # largest count DP (count_window) in the program
     staged_cols: np.ndarray  # (n_basic,) input column of each staged row
+    #: (n_out,) int32 pool slots the one-trial-per-thread kernel copies
+    #: out, in root order; the first is ``top_slot`` (a single-top
+    #: program: it alone).
+    out_slots: np.ndarray
     _cache: dict = dataclasses.field(default_factory=dict,
                                             repr=False)
 
@@ -413,13 +457,24 @@ class EncodedStream:
         return len(self.ops)
 
     def tables(self, device: torch.device):
-        """(ops, args, fill) as tensors on ``device`` (cached)."""
+        """(ops, args, fill) as tensors on ``device`` (cached); ``ops``
+        goes up in one copy with ``out_slots`` (:meth:`outputs`)."""
         key = str(device)
         if key not in self._cache:
-            self._cache[key] = (to_device(self.ops, device),
+            head = to_device(np.concatenate([self.ops.ravel(),
+                                             self.out_slots]), device)
+            n = self.ops.size
+            self._cache[key] = (head[:n].view(self.ops.shape),
                                 to_device(self.args, device),
                                 to_device(self.fill, device))
+            self._cache[f"outputs:{device}"] = head[n:]
         return self._cache[key]
+
+    def outputs(self, device: torch.device) -> torch.Tensor:
+        """``out_slots`` as an int32 tensor on ``device`` (cached, put
+        there with the tables)."""
+        self.tables(device)
+        return self._cache[f"outputs:{device}"]
 
     def plain_ops(self):
         """The tables as Python lists for the plain versions' loops."""
@@ -431,7 +486,8 @@ class EncodedStream:
 
 
 def encode_stream(program) -> EncodedStream:
-    """Encode a ``StreamProgram`` (this package's or the JAX package's).
+    """Encode a ``StreamProgram`` (this package's or the JAX package's;
+    its outputs an :class:`UncappedProgram`'s ``out_slots``, else its top).
 
     ``start``/``wait`` DMA ops disappear; a ``("stage", buf, off)``
     location becomes staged row ``chunk * chunk_tiles + off`` where
@@ -490,6 +546,8 @@ def encode_stream(program) -> EncodedStream:
         fill.append(value)
         writer[out_slot] = (LOG, n_log)
         n_log += 1
+    out_slots = program.out_slots if isinstance(program, UncappedProgram) \
+        else [program.top_slot]
     perm = np.asarray(program.basic_perm, dtype=np.int64)
     cols = perm if program.stage_cols is None \
         else np.asarray(program.stage_cols, dtype=np.int64)[perm]
@@ -499,7 +557,8 @@ def encode_stream(program) -> EncodedStream:
         fill=np.asarray(fill, dtype=np.float32), n_log=n_log,
         n_basic=program.n_basic, n_house=program.n_house,
         pool_slots=max(program.pool_slots, 1), top_slot=program.top_slot,
-        max_count_states=max_states, staged_cols=cols)
+        max_count_states=max_states, staged_cols=cols,
+        out_slots=np.asarray(out_slots, dtype=np.int32))
 
 
 def stage_basic(enc: EncodedStream, values: torch.Tensor,
@@ -605,6 +664,23 @@ def stream_forward_plain(enc: EncodedStream, staged: torch.Tensor,
                          house: torch.Tensor, with_log: bool = False):
     """The kernel's arithmetic in plain torch (any dtype, any device,
     differentiable by autograd).  Returns ``(top, log or None)``."""
+    pool, log = _plain_pool(enc, staged, house, with_log)
+    return pool[enc.top_slot], log
+
+
+def stream_roots_forward_plain(enc: EncodedStream, staged: torch.Tensor,
+                               house: torch.Tensor) -> torch.Tensor:
+    """The multi-root kernel's arithmetic in plain torch: ``(n_out,
+    n_trials)``, row ``k`` the value of pool slot ``enc.out_slots[k]``
+    after the last op."""
+    pool, _log = _plain_pool(enc, staged, house, False)
+    return torch.stack([pool[s] for s in enc.out_slots.tolist()])
+
+
+def _plain_pool(enc: EncodedStream, staged: torch.Tensor,
+                house: torch.Tensor, with_log: bool):
+    """Every op of ``enc`` in order: ``(pool, log or None)``, the pool a
+    list of each slot's last value."""
     ops, args, fill = enc.plain_ops()
     T = staged.shape[1]
     pool: list = [None] * enc.pool_slots
@@ -625,11 +701,10 @@ def stream_forward_plain(enc: EncodedStream, staged: torch.Tensor,
         pool[op[1]] = v
         if with_log and op[6] >= 0:
             log[op[6]] = v
-    top = pool[enc.top_slot]
     if with_log:
-        return top, (torch.stack(log) if log else
-                     staged.new_zeros((0, T)))
-    return top, None
+        return pool, (torch.stack(log) if log else
+                      staged.new_zeros((0, T)))
+    return pool, None
 
 
 # ---------------------------------------------------------------------------
@@ -937,14 +1012,9 @@ def stream_forward(enc: EncodedStream, staged: torch.Tensor, house,
         return top, log
     variant = stream_variant(enc)
     if variant == "ops":
-        pool = torch.empty((enc.pool_slots, T), dtype=dtype, device=device)
-        dp = _dp_scratch(enc, -(-T // _OPS_THREADS), _OPS_THREADS, staged)
         COUNTERS["launch.stream"] += 1
-        code = getattr(lib, f"canopy_stream_ops_forward_{_SUFFIX[dtype]}")(
-            ops.data_ptr(), fill.data_ptr(), args.data_ptr(), enc.n_ops,
-            staged.data_ptr(), house_t.data_ptr(), pool.data_ptr(),
-            top.data_ptr(), T, enc.top_slot, _ptr(dp), stream)
-        _raise_on(lib, code, "stream forward")
+        _launch_ops(lib, enc, staged, house_t, top,
+                    enc.outputs(device)[:1])
         return top, None
     width = 128 * _STEP_K[dtype]
     t_pad = -(-T // width) * width
@@ -967,6 +1037,59 @@ def stream_forward(enc: EncodedStream, staged: torch.Tensor, house,
         enc.top_slot, stream)
     _raise_on(lib, code, "stream forward")
     return top, None
+
+
+def _launch_ops(lib, enc: EncodedStream, staged: torch.Tensor,
+                house: torch.Tensor, out: torch.Tensor,
+                out_slots: torch.Tensor) -> None:
+    """One launch of the one-trial-per-thread kernel over a fresh pool:
+    pool slots ``out_slots`` (int32, on the card) into the rows of
+    ``out`` (``(len(out_slots), n_trials)``, or ``(n_trials,)`` for one
+    slot)."""
+    device, dtype = staged.device, staged.dtype
+    T = staged.shape[1]
+    ops, args, fill = enc.tables(device)
+    pool = torch.empty((enc.pool_slots, T), dtype=dtype, device=device)
+    dp = _dp_scratch(enc, -(-T // _OPS_THREADS), _OPS_THREADS, staged)
+    code = getattr(lib, f"canopy_stream_ops_forward_{_SUFFIX[dtype]}")(
+        ops.data_ptr(), fill.data_ptr(), args.data_ptr(), enc.n_ops,
+        staged.data_ptr(), house.data_ptr(), pool.data_ptr(),
+        out.data_ptr(), T, out_slots.data_ptr(), len(out_slots), _ptr(dp),
+        torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(lib, code, "stream forward")
+
+
+def stream_roots_forward(enc: EncodedStream, staged: torch.Tensor,
+                         house: torch.Tensor) -> torch.Tensor:
+    """Every output slot of a multi-root program
+    (:func:`compile_tree_stream` with ``roots``) on staged ``(n_basic,
+    n_trials)`` input: ``(n_out, n_trials)`` of the staged dtype, row
+    ``k`` root ``k``.
+
+    ``house`` is the house vector as the kernels read it
+    (:func:`house_tensor`, on the staged device and in its dtype), made
+    once by the caller.  CPU tensors run
+    :func:`stream_roots_forward_plain`; CUDA tensors launch the
+    one-trial-per-thread kernel of ``csrc/stream.cu`` once (counted in
+    ``COUNTERS["launch.stream_roots"]``) or raise.
+    """
+    _check_staged(enc, staged)
+    device, dtype = staged.device, staged.dtype
+    if house.device != device or house.dtype != dtype \
+            or house.numel() != enc.n_house + 1:
+        raise LogicError(f"house vector must be {enc.n_house} + 1 {dtype} "
+                         f"values on {device} (house_tensor)")
+    if device.type != "cuda":
+        return stream_roots_forward_plain(enc, staged, house)
+    lib = load_library()
+    staged = staged.contiguous()
+    _check_cuda(dtype, staged, house)
+    out_slots = enc.outputs(device)
+    out = torch.empty((len(out_slots), staged.shape[1]), dtype=dtype,
+                      device=device)
+    COUNTERS["launch.stream_roots"] += 1
+    _launch_ops(lib, enc, staged, house, out, out_slots)
+    return out
 
 
 def stream_propagate_staged(enc: EncodedStream, staged: torch.Tensor,
@@ -1163,6 +1286,7 @@ def encode_replay(program) -> EncodedReplay:
         pool_slots=max(P, 1), top_slot=program.top_slot,
         max_count_states=max_states,
         staged_cols=np.asarray(program.brs_cols, dtype=np.int64),
+        out_slots=np.asarray([program.top_slot], dtype=np.int32),
         res_rows=R, n_evicted=n_evicted, n_columns=program.n_basic,
         read_rows=np.array(sorted(read), dtype=np.int64))
     program._encoded = enc
@@ -1788,6 +1912,7 @@ def encode_spill(program) -> EncodedSpill:
         n_basic=n_b, n_house=program.n_house, pool_slots=max(P, 1),
         top_slot=program.top_slot, max_count_states=max_states,
         staged_cols=np.asarray(program.basic_perm, dtype=np.int64),
+        out_slots=np.asarray([program.top_slot], dtype=np.int32),
         n_scratch=n_scratch, counts=counts)
     program._encoded = enc
     return enc

@@ -53,7 +53,9 @@ sequence results ``sequence_uncertainty`` summarized),
 ``forest_blowups`` (event-tree BDD forests that passed their node limit,
 so that direct propagation took over), ``builds`` (compiles of the CUDA
 library from source) and ``launch.<kernel>``, each kernel's launches:
-``stream`` (forward), ``stream_log`` (forward with the value log),
+``stream`` (forward), ``stream_roots`` (every root of a multi-root
+program, one launch an event-tree request on the direct-propagation
+path), ``stream_log`` (forward with the value log),
 ``adjoint`` (backward), the fused whole-tree kernels ``fused_tiled`` and
 ``fused``, the replay kernels ``replay`` (forward), ``replay_tape``
 (forward with the value log) and ``replay_bwd`` (the level backward on a
@@ -102,9 +104,10 @@ COUNTERS = {"h2d": 0, "h2d_bytes": 0, "d2h": 0, "d2h_bytes": 0,
             "trials": 0, "builds": 0, "stats_on_device": 0,
             "sequences": 0, "forest_blowups": 0,
             **{"launch." + kernel: 0 for kernel in (
-                "stream", "stream_log", "adjoint", "fused_tiled", "fused",
-                "replay", "replay_tape", "replay_bwd", "spill", "bernoulli",
-                "gather", "block_log", "block_direct", "prng")}}
+                "stream", "stream_roots", "stream_log", "adjoint",
+                "fused_tiled", "fused", "replay", "replay_tape",
+                "replay_bwd", "spill", "bernoulli", "gather", "block_log",
+                "block_direct", "prng")}}
 
 
 def counters() -> dict[str, int]:

@@ -157,11 +157,21 @@ false or the package is missing).  Phases, each raising on failure:
    (``tests/fixtures/torch_event_tree_plant.xml``, loaded after the slice
    plant: six systems over it, 64 sequences) with ``--uncertainty`` at
    ``ET_TRIALS`` trials: its forest exceeds 2,000,000 nodes, so it runs
-   the direct-propagation fallback, and its sequence probabilities stay within ``PROB_RTOL`` of
-   the golden values.  Host times from the reports' timings (walk,
-   compile, forest or propagation, sampling, per-sequence evaluation);
-   device times of sampling, the per-sequence kernels and the fallback's
-   propagation by CUDA events, redone on the same inputs;
+   direct propagation, one ``stream_roots`` launch for its one house row
+   and no ``stream`` launch beyond the fault trees' modules; its sequence
+   probabilities stay within ``PROB_RTOL`` of the golden values.  Host
+   times from the reports' timings (walk, compile, forest or
+   propagation, sampling, per-sequence evaluation); device times of
+   sampling and the per-sequence kernels by CUDA events, redone on the
+   same inputs (the roots kernel's in 11');
+11'. the path ``roots``: the plant event tree's 64 sequence roots as one
+   multi-root stream program (``compile_tree_stream`` with ``roots``) at
+   ``ET_TRIALS`` float64 trials of its tape's samples: one
+   ``stream_roots`` launch, bit-equal to the plain version and within
+   ``ROOTS_ATOL`` of the gather engine; CUDA-event times of the kernel,
+   the staging, the plain version and the gather engine beside the
+   kernel's bound (the staged rows read and the roots written once, or
+   its operations);
 12. the path ``project``, on the slice at ``PROJECT_TRIALS`` trials: (a)
    a project file (``bdd``, probability, importance, uncertainty, a fixed
    seed) through ``python -m canopy_tpu_torch --project`` in its own
@@ -210,7 +220,7 @@ false or the package is missing).  Phases, each raising on failure:
    the launches and the phase's wall time.
 
 Each path (5's two, 6, 6''s ``prng``, 7, 8, 9's two, 10's two, 11's
-``et``, 12's ``project`` and 14's ``parallel``) runs with the
+``et``, 11''s ``roots``, 12's ``project`` and 14's ``parallel``) runs with the
 launch counts set to 0 just before it and read just after; a kernel of the
 path that never launched fails the run.  Long output goes to ``chiprun_out/``.  The last lines are the
 kernels' JSON record (with each kernel's bound: the larger of its bytes
@@ -420,6 +430,9 @@ KERNELS = {
                      "canopy_tpu/ops/block_gather.py:331"),
     "prng": ("canopy_tpu_torch/csrc/prng.cu",
              "jax.random (no Pallas kernel)"),
+    "stream_roots": ("canopy_tpu_torch/csrc/stream.cu",
+                     "XLA's gather engine (no Pallas kernel; "
+                     "canopy_tpu/engine/analysis.py:835-842)"),
 }
 #: The path whose launch count each kernel's record reports.
 PATH_OF = {"stream": "bdd-slice", "stream_log": "bdd-slice",
@@ -427,7 +440,7 @@ PATH_OF = {"stream": "bdd-slice", "stream_log": "bdd-slice",
            "fused": "dispatch", "replay": "replay", "replay_tape": "replay",
            "replay_bwd": "replay", "bernoulli": "mc", "spill": "spill",
            "gather": "gather", "block_log": "block", "block_direct": "block",
-           "prng": "prng"}
+           "prng": "prng", "stream_roots": "et-plant"}
 
 
 def log(msg: str) -> None:
@@ -2645,7 +2658,6 @@ def phase_et(device, record: dict) -> None:
     from canopy_tpu_torch.compiler.bdd import build_bdd_multi
     from canopy_tpu_torch.engine.bdd_eval import (bdd_probability,
                                                   make_bdd_evaluator)
-    from canopy_tpu_torch.engine.propagate import propagate_probability
     from canopy_tpu_torch.ops.stream_kernel import (bdd_stream_encoding,
                                                     house_tensor,
                                                     stage_basic,
@@ -2779,7 +2791,8 @@ def phase_et(device, record: dict) -> None:
     torch.cuda.empty_cache()
 
     # (c) The plant-width event tree with uncertainty: its forest exceeds
-    # the 2,000,000-node limit, so it runs the direct-propagation fallback.
+    # the 2,000,000-node limit, so it runs direct propagation, on CUDA one
+    # multi-root stream launch per house row (it has none, so one row).
     argv = [*ET_PLANT, "--device", device.type, "--probability",
             "--uncertainty",
             "--num-trials", str(ET_TRIALS), "--seed", str(ET_SEED)]
@@ -2787,7 +2800,13 @@ def phase_et(device, record: dict) -> None:
     torch.cuda.reset_peak_memory_stats()
     report, seconds = _run_cli(argv, "plant")
     peak = torch.cuda.max_memory_allocated()
-    launches = read_counts(record, "et-plant", ())
+    launches = read_counts(record, "et-plant", ("stream_roots",))
+    tree, slots, tape, key, mission = _event_tree_inputs(ET_PLANT)
+    n_modules = _fault_tree_modules(ET_PLANT)
+    check(tree.n_house == 0 and launches["stream_roots"] == 1 and
+          launches["stream"] == n_modules,
+          f"plant tree: launches {launches}, {tree.n_house} house events, "
+          f"{n_modules} fault-tree modules")
     timings = report["timings"]
     check("propagation:IE" in timings, "plant tree: no fallback")
     got = {s["sequence"]: s for s in report["sequences"]}
@@ -2803,27 +2822,97 @@ def phase_et(device, record: dict) -> None:
               f"plant tree {s['sequence']}: {unc}")
     log(f"[et] plant event tree through the CLI ({' '.join(argv[1:])}): "
         f"{seconds:.3f} s, peak {peak / 2**30:.2f} GiB, launches "
-        f"{launches}; 64 sequences within {worst:.3e} of the golden values "
-        f"(limit {PROB_RTOL}); host timings {json.dumps(timings)}")
-    # Device time of the fallback's sampling and propagation, redone on
-    # the same inputs.
-    tree, slots, tape, key, mission = _event_tree_inputs(ET_PLANT)
-    house = torch.as_tensor(tree.house_state_vector(), device=device)
+        f"{launches} ({n_modules} fault-tree modules); 64 sequences within "
+        f"{worst:.3e} of the golden values (limit {PROB_RTOL}); host "
+        f"timings {json.dumps(timings)}")
+    # Device time of its sampling, redone on the same inputs (the roots
+    # kernel's is phase 11').
     samples, sample_ms = timed_ms(
         lambda: tape.sample(key, ET_TRIALS, mission, device))
-    basic = torch.clamp(samples[:, :tree.n_basic], 0.0, 1.0)
-    vals, prop_ms = timed_ms(
-        lambda: propagate_probability(tree, basic, house)[:, slots])
-    log(f"[et] plant tree fallback on the card: sampling {sample_ms:.3f} "
-        f"ms, one propagation of {tree.n_nodes} nodes x {ET_TRIALS} f64 "
-        f"trials {prop_ms:.3f} ms")
+    log(f"[et] plant tree sampling on the card: {tape.n_deviates} deviates "
+        f"x {ET_TRIALS} trials {sample_ms:.3f} ms")
     out["plant"] = {"seconds": seconds, "peak_bytes": peak,
                     "launches": launches, "host_timings": timings,
                     "rel_err": worst, "sample_ms": sample_ms,
-                    "propagation_ms": prop_ms, "n_nodes": tree.n_nodes}
-    del samples, basic, vals
+                    "n_nodes": tree.n_nodes}
+    del samples
     torch.cuda.empty_cache()
     record["et"] = out
+
+
+#: Phase 11' (path ``roots``): repetitions of the multi-root kernel and of
+#: what it is timed against at ``ET_TRIALS`` trials.
+ROOTS_REPS = 20
+ROOTS_SLOW_REPS = 3
+#: The kernel against the f64 gather engine: count gates round their DP
+#: in another order (``tests/test_torch_sequence_roots.py``).
+ROOTS_ATOL = 1e-12
+
+
+def phase_roots(device, record: dict) -> None:
+    """(11') The multi-root stream kernel on the plant event tree's 64
+    sequence roots at ``ET_TRIALS`` float64 trials: bit-equal to its
+    plain version, within ``ROOTS_ATOL`` of the gather engine on the same
+    inputs, one launch; kernel, staging, plain version and gather engine
+    timed beside the kernel's bound."""
+    from canopy_tpu_torch.engine.propagate import propagate_probability
+    from canopy_tpu_torch.ops.stream_kernel import (
+        compile_tree_stream, encode_stream, house_tensor,
+        stream_roots_forward, stream_roots_forward_plain)
+    tree, slots, tape, key, mission = _event_tree_inputs(ET_PLANT)
+    enc = encode_stream(compile_tree_stream(tree, slots))
+    house_row = tree.house_state_vector()
+    house = house_tensor(enc, house_row, device, torch.float64)
+    cols = torch.from_numpy(enc.staged_cols).to(device)
+    samples = tape.sample(key, ET_TRIALS, mission, device)
+    basic = torch.clamp(samples[:, :tree.n_basic], 0.0, 1.0)
+    del samples
+
+    def stage():
+        return basic[:, cols].T.contiguous()
+    staged = stage()
+    reset_counts()
+    got = stream_roots_forward(enc, staged, house)
+    launches = read_counts(record, "roots", ("stream_roots",))
+    check(launches["stream_roots"] == 1 and launches["stream"] == 0,
+          f"roots: launches {launches}")
+    check(got.dtype == torch.float64 and got.shape == (len(slots),
+                                                        ET_TRIALS),
+          f"roots: output {got.dtype} {tuple(got.shape)}")
+    plain = stream_roots_forward_plain(enc, staged, house)
+    check(torch.equal(got, plain), "roots: kernel != plain")
+    del plain
+    gather = propagate_probability(
+        tree, basic, torch.as_tensor(house_row, device=device))[:, slots].T
+    err = float((got - gather).abs().max())
+    check(err <= ROOTS_ATOL, f"roots: kernel vs gather {err:.3e}")
+    del gather
+    torch.cuda.empty_cache()
+    kernel_ms = cuda_ms(lambda: stream_roots_forward(enc, staged, house),
+                        ROOTS_REPS)
+    stage_ms = cuda_ms(stage, ROOTS_REPS)
+    plain_ms = cuda_ms(lambda: stream_roots_forward_plain(enc, staged,
+                                                          house),
+                       ROOTS_SLOW_REPS)
+    gather_ms = cuda_ms(lambda: propagate_probability(
+        tree, basic, torch.as_tensor(house_row, device=device))[:, slots],
+        ROOTS_SLOW_REPS)
+    n_bytes = (enc.n_basic + len(slots)) * 8 * ET_TRIALS
+    roof = bound(n_bytes, op_flops(enc) * ET_TRIALS, 8)
+    log(f"[roots] plant event tree, {len(slots)} roots, {enc.n_ops} ops, "
+        f"{len(enc.args)} arguments, {enc.pool_slots} pool slots, "
+        f"{enc.n_basic} staged rows x {ET_TRIALS} f64 trials: kernel "
+        f"{kernel_ms:.3f} ms (bound {roof['bound_ms']:.3f} ms, "
+        f"{roof['bound_by']}; {100 * roof['bound_ms'] / kernel_ms:.2f} %), "
+        f"staging {stage_ms:.3f} ms, plain {plain_ms:.3f} ms, gather "
+        f"engine {gather_ms:.3f} ms; bit-equal to plain, {err:.3e} from "
+        f"gather; launches {launches}")
+    record["stream_roots"].update(
+        max_abs_err=0.0, ms=kernel_ms, plain_ms=plain_ms, **roof,
+        stage_ms=stage_ms, gather_ms=gather_ms, gather_abs_err=err,
+        n_ops=enc.n_ops, pool_slots=enc.pool_slots)
+    del basic, staged, got
+    torch.cuda.empty_cache()
 
 
 #: Phase 12 (path ``project``): the project file's trials and seed, and
@@ -3612,6 +3701,7 @@ def main() -> int:
     phase_spill(device, record)
     phase_block(device, record)
     phase_et(device, record)
+    phase_roots(device, record)
     phase_project(device, record)
     phase_markov(device, record)
     phase_parallel(device, record)

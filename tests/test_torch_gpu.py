@@ -10,7 +10,9 @@ jax nor lxml is installed:
 Tolerances: kernel and plain version bit-equal (both round every
 operation on its own, the kernels being built with ``--fmad=false``);
 the f64 importance path against the f64 level evaluation (or gather
-autodiff, without a BDD) within 1e-12 relative to the largest value;
+autodiff, without a BDD) within 1e-12 relative to the largest value; the
+multi-root kernel within 1e-12 absolute of the f64 gather engine (count
+gates round their DP in another order);
 float32 propagator tops against the f64 gather engine within 1e-5
 relative; the Monte Carlo estimate on the card equal to the CPU's to the
 bit (the same Philox words, exact bitwise propagation); the gather and
@@ -1054,6 +1056,74 @@ def test_sequence_statistics_on_the_card(cuda_device,  # noqa: F811
         for k in range(64):
             assert_sequence_stats(out[k], rows[k])
     assert readbacks[0] == readbacks[1]
+
+
+@pytest.fixture(scope="module")
+def plant_event_tree():
+    """The plant event tree compiled on the card (its forest gives up, so
+    its roots form one multi-root stream program)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from canopy_tpu_torch.engine import sequences
+    settings = Settings()
+    model = Initializer(fixture_inputs("torch_event_tree_plant"),
+                        settings).model
+    (initiating,) = model.initiating_events
+    return sequences.compile_event_tree(model, initiating, settings,
+                                        torch.device("cuda"))
+
+
+@pytest.mark.parametrize("n", [1 << 14, (1 << 16) + 3])
+def test_roots_kernel_matches_plain(plant_event_tree, n):
+    """The multi-root kernel on the plant tree's 64 roots: float64, one
+    launch, bit-equal to its plain version on the card (the second size
+    leaves the last block ragged), within 1e-12 absolute of the gather
+    engine (its count gates round their DP in another order)."""
+    from canopy_tpu_torch.engine.propagate import propagate_probability
+    c = plant_event_tree
+    (group,) = c.root_groups
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    basic = 0.3 * torch.rand((n, c.tree.n_basic), dtype=torch.float64,
+                             device="cuda", generator=gen)
+    staged = basic[:, group.cols].T.contiguous()
+    start = counters()
+    got = tsk.stream_roots_forward(group.program, staged, group.house)
+    assert launches_since(start) == {"stream_roots": 1}
+    assert got.dtype == torch.float64 and got.shape == (64, n)
+    assert torch.equal(got, tsk.stream_roots_forward_plain(
+        group.program, staged, group.house))
+    want = propagate_probability(c.tree, basic, c.house[0])[
+        :, c.root_index].T
+    assert float((got - want).abs().max()) <= 1e-12
+
+
+@pytest.mark.parametrize("n", [1 << 14, 1 << 16])
+def test_served_request_launches_the_roots_kernel_once(plant_event_tree,
+                                                       n):
+    """A served plant request on the card: one multi-root launch and no
+    single-top stream launch, no build, every gated sequence by direct
+    propagation; its copies are the sampler's and the statistics' alone
+    (the program's tables, columns and house vector went up at
+    compile)."""
+    import zlib
+
+    from canopy_tpu_torch.engine import sequences
+    c = plant_event_tree
+    sequences.sequence_uncertainty(c, n, n)
+    before = counters()
+    out = sequences.sequence_uncertainty(c, n + 1, n)
+    after = counters()
+    delta = {k: after[k] - before[k] for k in after}
+    assert delta["launch.stream_roots"] == 1
+    assert delta["launch.stream"] == 0 and delta["builds"] == 0
+    assert {row["method"] for row in out.values()} == {"direct-propagation"}
+    key = fold_in(prng_key(n + 1), zlib.crc32(b"IE") & 0x7FFFFFFF)
+    start = counters()
+    samples = c.uncertainty_tape().sample(key, n, c.mission, c.device)
+    sequences.sequence_statistics(samples[:, :64].T.contiguous())
+    end = counters()
+    for k in ("h2d", "d2h"):
+        assert delta[k] == end[k] - start[k]
 
 
 def _numpy_statistics(tops: np.ndarray) -> dict:

@@ -362,7 +362,8 @@ def reuse_scratch_rows(enc):
         ops=ops, args=enc.args, fill=enc.fill, n_log=enc.n_log,
         n_basic=enc.n_basic, n_house=enc.n_house, pool_slots=enc.pool_slots,
         top_slot=enc.top_slot, max_count_states=enc.max_count_states,
-        staged_cols=enc.staged_cols, n_scratch=n_rows, counts=enc.counts)
+        staged_cols=enc.staged_cols, out_slots=enc.out_slots,
+        n_scratch=n_rows, counts=enc.counts)
 
 
 def issue_order(enc, ring):
@@ -459,7 +460,7 @@ def test_a_read_before_any_store_is_refused():
         ops=ops, args=enc.args, fill=enc.fill, n_log=enc.n_log,
         n_basic=enc.n_basic, n_house=enc.n_house, pool_slots=enc.pool_slots,
         top_slot=enc.top_slot, max_count_states=enc.max_count_states,
-        staged_cols=enc.staged_cols, n_scratch=enc.n_scratch,
-        counts=enc.counts)
+        staged_cols=enc.staged_cols, out_slots=enc.out_slots,
+        n_scratch=enc.n_scratch, counts=enc.counts)
     with pytest.raises(LogicError, match="before any EVICT"):
         tsk.replay_ring_stream(bad, 8)

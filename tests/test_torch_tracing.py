@@ -131,9 +131,10 @@ def test_counters_load_no_kernel_module():
     assert {k: v for k, v in snapshot.items() if k.startswith("launch.")} \
         == dict.fromkeys(
             ("launch." + kernel for kernel in (
-                "stream", "stream_log", "adjoint", "fused_tiled", "fused",
-                "replay", "replay_tape", "replay_bwd", "spill", "bernoulli",
-                "gather", "block_log", "block_direct", "prng")), 0)
+                "stream", "stream_roots", "stream_log", "adjoint",
+                "fused_tiled", "fused", "replay", "replay_tape",
+                "replay_bwd", "spill", "bernoulli", "gather", "block_log",
+                "block_direct", "prng")), 0)
 
 
 def test_copy_helpers_count_what_leaves_the_host(monkeypatch):
